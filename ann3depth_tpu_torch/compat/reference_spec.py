@@ -53,3 +53,11 @@ DEFAULT_ADAM_B2 = 0.999
 
 # Bilinear resizes use half-pixel centers everywhere.
 RESIZE_ALIGN_CORNERS = False
+
+# Literature eval crops (--crop eigen|garg): fractions of the depth map's
+# (H, W) as (top, bottom, left, right); metrics count only rows
+# [top*H, bottom*H) and columns [left*W, right*W).
+EVAL_CROPS = {
+    "eigen": (0.3324324, 0.91351351, 0.0359477, 0.96405229),
+    "garg": (0.40810811, 0.99189189, 0.03594771, 0.96405229),
+}

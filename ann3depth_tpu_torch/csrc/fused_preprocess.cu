@@ -29,24 +29,25 @@
 //   overlap of the bands of neighbouring outputs is served from L1/L2, so
 //   each source byte leaves device memory about once.
 // - The photometric mean spans the whole output frame, whose blocks run in
-//   parallel. The resample kernel writes one partial sum per block; a second
-//   small kernel reduces a frame's partials (in f64) and applies the jitter
-//   in place, on the frames whose photo flag is set. The device decides per
-//   frame, so there is no host sync. That pass rereads and rewrites the
-//   output of jittered frames; serving frames (photo = 0) skip it.
+//   parallel. The resample kernel writes one partial sum per block; the
+//   pass of photometric.cuh reduces a frame's partials (in f64) and applies
+//   the jitter in place, on the frames whose photo flag is set. The device
+//   decides per frame, so there is no host sync. That pass rereads and
+//   rewrites the output of jittered frames; serving frames (photo = 0) skip
+//   it.
 // This first version is the simple one: one thread per output pixel, no
 // shared-memory staging of the source rows.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "photometric.cuh"
+
 namespace {
 
 constexpr int kBlockX = 32;
 constexpr int kBlockY = 8;
 constexpr int kWarps = kBlockX * kBlockY / 32;
-constexpr int kPhotoThreads = 256;
-constexpr long long kPhotoMaxBlocks = 64;  // per frame
 
 // compat/reference_spec.py
 constexpr float kDepthEps = 1e-6f;
@@ -171,37 +172,6 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
   }
 }
 
-// Grid (chunks, B). Every block of a frame with photo set reduces the
-// frame's partials to its mean m, then applies
-// (n - m) * contrast + m + brightness in place to its chunk of the frame.
-__global__ void __launch_bounds__(kPhotoThreads)
-    photometric_kernel(const float* __restrict__ params,
-                       const float* __restrict__ partials,
-                       float* __restrict__ out, int n_partials,
-                       long long per_frame) {
-  const int b = blockIdx.y;
-  const float* p = params + 8 * b;
-  if (!(p[7] > 0.5f)) return;  // the same for the whole block
-  __shared__ double red[kPhotoThreads];
-  double s = 0.0;
-  for (int i = threadIdx.x; i < n_partials; i += kPhotoThreads)
-    s += partials[static_cast<size_t>(b) * n_partials + i];
-  red[threadIdx.x] = s;
-  __syncthreads();
-  for (int stride = kPhotoThreads / 2; stride > 0; stride >>= 1) {
-    if (threadIdx.x < stride) red[threadIdx.x] += red[threadIdx.x + stride];
-    __syncthreads();
-  }
-  const float m = static_cast<float>(red[0] / static_cast<double>(per_frame));
-  const float brightness = p[5];
-  const float contrast = p[6];
-  float* o = out + b * per_frame;
-  for (long long i = static_cast<long long>(blockIdx.x) * kPhotoThreads +
-                     threadIdx.x;
-       i < per_frame; i += static_cast<long long>(gridDim.x) * kPhotoThreads)
-    o[i] = (o[i] - m) * contrast + m + brightness;
-}
-
 template <typename T, int C, bool kDepth>
 void launch_resample(const void* frames, const float* params, float* out,
                      float* partials, int B, int H, int W, int h, int w,
@@ -256,13 +226,9 @@ int fused_preprocess_launch(const void* frames, int frames_u8,
   }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long per_frame = static_cast<long long>(h) * w * C;
-  long long chunks = (per_frame + kPhotoThreads - 1) / kPhotoThreads;
-  if (chunks > kPhotoMaxBlocks) chunks = kPhotoMaxBlocks;
-  photometric_kernel<<<dim3(static_cast<unsigned>(chunks), B), kPhotoThreads,
-                       0, s>>>(p, part, o, fused_preprocess_num_partials(h, w),
-                               per_frame);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(a3d::launch_photometric(
+      p, part, o, fused_preprocess_num_partials(h, w),
+      static_cast<long long>(h) * w * C, B, s));
 }
 
 }  // extern "C"

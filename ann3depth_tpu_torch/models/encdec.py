@@ -125,6 +125,7 @@ class EncDecDepthNet(nn.Module):
     shape."""
 
     S2D_INPUT_FACTOR = 4
+    OUTPUT_STRIDE = 2  # input HW -> output HW ratio
 
     def __init__(self, width_mult=1.0, compute_dtype=torch.bfloat16,
                  enc_widths=(64, 128, 256)):
@@ -176,6 +177,12 @@ class EncDecDepthNet(nn.Module):
             y = F.interpolate(y, scale_factor=2, mode="bilinear",
                               align_corners=False)
         return y.permute(0, 2, 3, 1)
+
+    @staticmethod
+    def output_hw(input_hw):
+        h, w = input_hw
+        return (h // EncDecDepthNet.OUTPUT_STRIDE,
+                w // EncDecDepthNet.OUTPUT_STRIDE)
 
     @staticmethod
     def width_mult_of(state_dict, enc_widths=(64, 128, 256)):

@@ -39,3 +39,28 @@ def build(cfg: ModelConfig):
         raise ValueError(f"quant={cfg.quant!r} is not ported yet; the port "
                          "serves quant='none' only")
     return ctor(cfg)
+
+
+# Models of the JAX package whose port is still to come.
+_NOT_PORTED = ("small", "multiscale", "dpt", "dpt-small")
+
+
+def _model_class(name: str):
+    if name == "encdec":
+        from ann3depth_tpu_torch.models.encdec import EncDecDepthNet
+        return EncDecDepthNet
+    if name in _NOT_PORTED:
+        raise NotImplementedError(f"model {name!r} is not ported yet; the "
+                                  f"port has {available()}")
+    raise KeyError(name)
+
+
+def output_hw(name: str, input_hw):
+    """Static output shape for a registered model at a given input size."""
+    return _model_class(name).output_hw(input_hw)
+
+
+def s2d_input_factor(name: str) -> int:
+    """Space-to-depth factor of pre-s2d input the model's stem accepts
+    directly (0 = RGB only)."""
+    return _model_class(name).S2D_INPUT_FACTOR

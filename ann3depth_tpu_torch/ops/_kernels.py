@@ -6,8 +6,9 @@ into its own shared library, loaded with ctypes:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o _build/lib<name>-<hash>.so csrc/<name>.cu
 
-The library's name carries a hash of the source and the flags, so an edited
-source is rebuilt at its next use and a stale library is never loaded.
+The library's name carries a hash of the source, the shared headers
+(`csrc/*.cuh`) and the flags, so an edited source is rebuilt at its next use
+and a stale library is never loaded.
 The build happens at first use (nothing is compiled at import), into
 `ann3depth_tpu_torch/_build/`, which .gitignore lists.
 """
@@ -25,7 +26,7 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-KERNELS = ("fused_preprocess",)
+KERNELS = ("fused_preprocess", "fused_preprocess_v2")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -47,10 +48,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """The library of one kernel, named by a hash of its source, the shared
+    headers of csrc/ and the flags."""
+    digest = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names=KERNELS) -> dict:
@@ -83,9 +87,10 @@ def build(names=KERNELS) -> dict:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of one kernel, built first if needed."""
+    """The loaded library of one kernel. At first use every kernel that is
+    not built yet is built, all in parallel."""
     with _LOCK:
         if name not in _LOADED:
-            build((name,))
+            build()
             _LOADED[name] = ctypes.CDLL(str(library_path(name)))
         return _LOADED[name]

@@ -21,6 +21,13 @@ does a separable antialiased triangle resample with half-pixel centers
 tensor goes to `plain_preprocess`, the plain PyTorch version in exact f32
 (the port of `oracle_preprocess`); a CUDA tensor goes to the kernel, or the
 wrapper raises.
+
+`fused_preprocess_v2` (csrc/fused_preprocess_v2.cu, the port of the TPU
+package's v2 kernel) computes the same function with v2's precision: the
+row resample R = Ay . X in f32, R rounded to bf16, then the column resample
+as a bf16 x bf16 product with f32 sums against T = kron(Ax^T, I_C) in bf16.
+Ay and T are built outside the kernel, as the JAX wrapper builds them in
+XLA. Its plain version is `plain_preprocess_v2`.
 """
 
 from __future__ import annotations
@@ -31,7 +38,9 @@ import torch
 
 from ann3depth_tpu_torch.compat import reference_spec as ref
 from ann3depth_tpu_torch.ops import _kernels
-from ann3depth_tpu_torch.ops.resize import triangle_matrix, window_params
+from ann3depth_tpu_torch.ops.resize import (triangle_matrix,
+                                            triangle_matrix_interleaved,
+                                            window_params)
 
 CROP_FRAC = 0.875  # crop-zoom window fraction
 
@@ -145,6 +154,95 @@ def plain_preprocess(frames, params, *, out_hw, norm=True, depth_mode=False):
     return _photometric(n, g, (1, 2, 3))
 
 
+def _norm_affine(wc, c, device):
+    """Per-column (scale, bias) of the normalization on [.., w*C] rows:
+    1/(255 sd_c) and -m_c/sd_c for channel c = column % C, rounded from f64
+    to f32 as the TPU kernel folds them."""
+    s = torch.tensor([1.0 / (255.0 * sd) for sd in ref.RGB_STD],
+                     dtype=torch.float32, device=device)
+    b = torch.tensor([-m / sd for m, sd in zip(ref.RGB_MEAN, ref.RGB_STD)],
+                     dtype=torch.float32, device=device)
+    ch = torch.arange(wc, device=device) % c
+    return s[ch], b[ch]
+
+
+def v2_operands(params, in_hw, out_hw, channels):
+    """The resample matrices v2 takes as operands: Ay f32 [B, h, H] and
+    T = kron(Ax^T, I_C) bf16 [B, W*C, w*C], from the [B, 8] param rows."""
+    h_in, w_in = in_hw
+    h_out, w_out = out_hw
+    g = geometry_of(params.to(torch.float32))
+    ay = triangle_matrix(h_out, h_in, g["y_start"], g["y_scale"])
+    # With C = 1 the kron is a transposed view; the kernel wants rows.
+    t = triangle_matrix_interleaved(w_in, w_out, channels, g["x_start"],
+                                    g["x_scale"]).to(torch.bfloat16)
+    return ay.contiguous(), t.contiguous()
+
+
+def plain_preprocess_v2(frames, params, *, out_hw, norm=True,
+                        depth_mode=False):
+    """The function of the v2 kernel in plain torch.
+
+    frames: u8 or f32 [B, H, W, C]; params: [B, 8] -> f32 [B, h, w, C].
+    R = Ay . X in f32, rounded to bf16; Z = R . T with bf16 operands and f32
+    sums (the bf16 products are exact in f32, so only the order of the sums
+    differs from the kernel); then v1's epilogue.
+    """
+    b, h_in, w_in, c = frames.shape
+    h_out, w_out = out_hw
+    params = params.to(device=frames.device, dtype=torch.float32)
+    ay, t = v2_operands(params, (h_in, w_in), out_hw, c)
+    t = t.to(torch.float32)
+    x = frames.to(torch.float32).reshape(b, h_in, w_in * c)
+    g = geometry_of(params)
+
+    def resample(x):
+        r = torch.bmm(ay, x).to(torch.bfloat16).to(torch.float32)
+        return torch.bmm(r, t)
+
+    if depth_mode:
+        v = _valid_depth(x)
+        z, zv = resample(x * v), resample(v)
+        d = z / torch.clamp(zv, min=1e-6)
+        out = torch.where(zv >= ref.DEPTH_VALID_RESAMPLE_THRESH,
+                          d * g["out_scale"].reshape(-1, 1, 1),
+                          torch.zeros_like(d))
+    else:
+        z = resample(x)
+        if norm:
+            scale, bias = _norm_affine(w_out * c, c, frames.device)
+            n = z * scale + bias
+        else:
+            n = z / 255.0
+        out = _photometric(n, g, (1, 2))
+    return out.reshape(b, h_out, w_out, c)
+
+
+def v2_error_bound(t, *, depth_mode=False):
+    """How far two correct implementations of the v2 function may differ.
+
+    Both compute R = Ay . X in f32 and round it to bf16; summed in another
+    order, an R next to a bf16 rounding boundary may round one ulp apart.
+    Everything after that agrees to f32 rounding (bf16 products are exact
+    in f32). One such flip moves z by ulp(R) * max(T), so:
+
+    - image: R < 256 (ulp <= 1), output max-abs <= max(T) * 1.2 (largest
+      contrast) / (255 * min sd);
+    - depth: R <= 70 (ulp <= 0.5) and Rv <= 1 (ulp <= 2^-8); where the
+      validity decisions agree, |d - d'| <= (0.5 + 70 * 2^-8) * max(T) /
+      0.5 m, and decisions may differ only where |zv - 0.5| <= 2^-8 *
+      max(T).
+
+    Returns dict(max_abs=..., decision_band=...) for the operand t.
+    """
+    w_max = float(t.float().max())
+    if depth_mode:
+        return dict(max_abs=(0.5 + 70.0 * 2.0 ** -8) * w_max / 0.5 + 1e-4,
+                    decision_band=2.0 ** -8 * w_max)
+    return dict(max_abs=w_max * 1.2 / (255.0 * min(ref.RGB_STD)) + 1e-5,
+                decision_band=0.0)
+
+
 def plain_preprocess_s2d(frames, params, *, out_hw, factor=4,
                          out_dtype=torch.bfloat16):
     """RGB preprocess emitting the space-to-depth layout directly.
@@ -179,23 +277,40 @@ def plain_preprocess_s2d(frames, params, *, out_hw, factor=4,
 # The kernel's wrapper.
 # ---------------------------------------------------------------------------
 
-_LIB = None
+_LIBS: dict = {}
+_VP, _I32 = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "fused_preprocess": dict(
+        launch=[_VP, _I32, _VP, _VP, _VP] + [_I32] * 8 + [_VP],
+        num_partials=[_I32, _I32]),
+    "fused_preprocess_v2": dict(
+        launch=[_VP, _I32] + [_VP] * 7 + [_I32] * 8 + [_VP],
+        num_partials=[_I32, _I32, _I32]),
+}
 
 
-def _lib():
-    global _LIB
-    if _LIB is None:
-        lib = _kernels.load("fused_preprocess")
-        vp, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.fused_preprocess_launch.argtypes = [
-            vp, i32, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, i32, vp]
-        lib.fused_preprocess_launch.restype = i32
-        lib.fused_preprocess_num_partials.argtypes = [i32, i32]
-        lib.fused_preprocess_num_partials.restype = i32
-        lib.fused_preprocess_error_string.argtypes = [i32]
-        lib.fused_preprocess_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
+def _lib(name="fused_preprocess"):
+    """The kernel's library (built at first use) with its ctypes
+    signatures declared."""
+    if name not in _LIBS:
+        lib = _kernels.load(name)
+        sig = _SIGNATURES[name]
+        for fn, argtypes, restype in (
+                ("launch", sig["launch"], _I32),
+                ("num_partials", sig["num_partials"], _I32),
+                ("error_string", [_I32], ctypes.c_char_p)):
+            f = getattr(lib, f"{name}_{fn}")
+            f.argtypes, f.restype = argtypes, restype
+        _LIBS[name] = lib
+    return _LIBS[name]
+
+
+def _raise_on(err, name):
+    if err:
+        lib = _lib(name)
+        raise RuntimeError(
+            f"{name} launch failed: "
+            f"{getattr(lib, f'{name}_error_string')(err).decode()} ({err})")
 
 
 def _check_cuda_args(frames, params, out_hw, norm, depth_mode):
@@ -252,12 +367,65 @@ def fused_preprocess(frames, params, *, out_hw, norm=True, depth_mode=False):
             params.data_ptr(), out.data_ptr(), partials.data_ptr(),
             b, h_in, w_in, c, h_out, w_out, int(norm), int(depth_mode),
             stream)
-    if err:
-        raise RuntimeError(
-            "fused_preprocess launch failed: "
-            f"{lib.fused_preprocess_error_string(err).decode()} ({err})")
+    _raise_on(err, "fused_preprocess")
     fused_preprocess.launches += 1
     return out
 
 
 fused_preprocess.launches = 0
+
+
+def fused_preprocess_v2(frames, params, *, out_hw, norm=True,
+                        depth_mode=False):
+    """`fused_preprocess` with v2's precision (module docstring).
+
+    A CPU tensor runs `plain_preprocess_v2`; on a CUDA tensor the wrapper
+    builds Ay and T with torch ops and launches the v2 kernel."""
+    if frames.device.type == "cpu":
+        return plain_preprocess_v2(frames, params, out_hw=out_hw, norm=norm,
+                                   depth_mode=depth_mode)
+    if frames.device.type != "cuda":
+        raise ValueError(f"no fused_preprocess_v2 for device {frames.device}")
+    out_hw = tuple(int(s) for s in out_hw)
+    _check_cuda_args(frames, params, out_hw, norm, depth_mode)
+    ay, t = v2_operands(params, frames.shape[1:3], out_hw, frames.shape[3])
+    return launch_v2(frames, params, ay, t, out_hw=out_hw, norm=norm,
+                     depth_mode=depth_mode)
+
+
+def launch_v2(frames, params, ay, t, *, out_hw, norm=True, depth_mode=False):
+    """The v2 kernel alone, on operands from `v2_operands`: 3 launches in
+    image mode (row pass, column pass, photometric), 2 in depth mode;
+    counted once in `fused_preprocess_v2.launches`."""
+    b, h_in, w_in, c = frames.shape
+    h_out, w_out = out_hw
+    dev = frames.device
+    if (ay.shape != (b, h_out, h_in) or ay.dtype != torch.float32
+            or t.shape != (b, w_in * c, w_out * c) or t.dtype != torch.bfloat16
+            or ay.device != dev or t.device != dev
+            or not (ay.is_contiguous() and t.is_contiguous())):
+        raise ValueError(
+            f"ay must be contiguous f32 [{b}, {h_out}, {h_in}] and t bf16 "
+            f"[{b}, {w_in * c}, {w_out * c}] on {dev}, got {ay.dtype} "
+            f"{tuple(ay.shape)} and {t.dtype} {tuple(t.shape)}")
+    lib = _lib("fused_preprocess_v2")
+    out = torch.empty((b, h_out, w_out, c), dtype=torch.float32, device=dev)
+    r = torch.empty((b, h_out, w_in * c), dtype=torch.bfloat16, device=dev)
+    rv = torch.empty_like(r) if depth_mode else None
+    partials = torch.empty(
+        (b, lib.fused_preprocess_v2_num_partials(h_out, w_out, c)),
+        dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fused_preprocess_v2_launch(
+            frames.data_ptr(), int(frames.dtype == torch.uint8),
+            params.data_ptr(), ay.data_ptr(), t.data_ptr(), r.data_ptr(),
+            None if rv is None else rv.data_ptr(), out.data_ptr(),
+            partials.data_ptr(), b, h_in, w_in, c, h_out, w_out, int(norm),
+            int(depth_mode), stream)
+    _raise_on(err, "fused_preprocess_v2")
+    fused_preprocess_v2.launches += 1
+    return out
+
+
+fused_preprocess_v2.launches = 0

@@ -1,0 +1,106 @@
+"""Checkpoint save and restore in a torch format.
+
+Counterpart of `ann3depth_tpu/train/checkpoint.py` (which writes orbax
+checkpoints; the port does not read those). Each checkpoint is one file,
+`<ckpt_dir>/ckpt_<step>.pt`, holding the step, the model's state_dict, the
+optimizer's state_dict and, when the trainer keeps one, the EMA params. A
+save writes a temporary file and renames it into place, so a checkpoint
+that exists is complete. The newest `max_to_keep` are kept.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+from typing import Optional
+
+import torch
+
+_NAME = re.compile(r"^ckpt_(\d+)\.pt$")
+
+
+class CheckpointManager:
+    def __init__(self, ckpt_dir: str, max_to_keep: int = 3):
+        self.dir = os.path.abspath(ckpt_dir)
+        self.max_to_keep = max_to_keep
+        os.makedirs(self.dir, exist_ok=True)
+
+    def _path(self, step: int) -> str:
+        return os.path.join(self.dir, f"ckpt_{int(step)}.pt")
+
+    def save(self, step: int, state) -> None:
+        """Save step, params, optimizer state and (if kept) the EMA, then
+        delete the oldest checkpoints beyond max_to_keep."""
+        payload = {"step": int(state.step),
+                   "model": state.model.state_dict(),
+                   "optimizer": state.optimizer.state_dict()}
+        if state.ema_params is not None:
+            payload["ema_params"] = state.ema_params
+        path = self._path(step)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+        for old in self.all_steps()[:-self.max_to_keep]:
+            self.delete(old)
+
+    def all_steps(self):
+        return sorted(int(m.group(1)) for m in
+                      map(_NAME.match, os.listdir(self.dir)) if m)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def delete(self, step: int):
+        os.remove(self._path(step))
+
+    def _resolve_step(self, step):
+        """None -> latest; an explicit step must exist."""
+        if step is None:
+            return self.latest_step()
+        if step not in self.all_steps():
+            raise ValueError(f"no checkpoint at step {step} in {self.dir}; "
+                             f"have {self.all_steps()}")
+        return step
+
+    def _load(self, step, state):
+        device = next(state.model.parameters()).device
+        return torch.load(self._path(step), map_location=device,
+                          weights_only=True)
+
+    def restore(self, state, step=None):
+        """Restore into `state` in place; returns (state, step), or
+        (state, None) when there is no checkpoint.
+
+        A run that keeps an EMA but restores a checkpoint without one
+        re-seeds the EMA from the restored params."""
+        step = self._resolve_step(step)
+        if step is None:
+            return state, None
+        saved = self._load(step, state)
+        state.model.load_state_dict(saved["model"])
+        state.optimizer.load_state_dict(saved["optimizer"])
+        state.step = int(saved["step"])
+        if state.ema_params is not None:
+            source = saved.get("ema_params") or {
+                k: v.detach() for k, v in state.model.named_parameters()}
+            state.ema_params = {k: v.clone() for k, v in source.items()}
+        return state, step
+
+    def restore_params(self, state, use_ema: bool = False, step=None):
+        """Restore only the step and the params (the EMA params with
+        use_ema) into `state.model`, whatever the optimizer."""
+        step = self._resolve_step(step)
+        if step is None:
+            return state, None
+        saved = self._load(step, state)
+        if use_ema:
+            if "ema_params" not in saved:
+                raise ValueError(
+                    f"checkpoint {step} in {self.dir} has no ema_params — "
+                    "it was trained without ema_decay")
+            state.model.load_state_dict(saved["ema_params"])
+        else:
+            state.model.load_state_dict(saved["model"])
+        state.step = int(saved["step"])
+        return state, step

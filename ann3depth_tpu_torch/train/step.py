@@ -1,17 +1,35 @@
-"""Inference steps of the port.
+"""Train, eval and inference steps of the port.
 
-Counterpart of the inference subset of `ann3depth_tpu/train/step.py`:
-`init_params`, `apply_with_tta` and `infer_step`. Training steps come in a
-later slice.
+Counterpart of `ann3depth_tpu/train/step.py`. One `train_step` is
+preprocess (the CUDA kernel on the card) -> forward -> backward -> update,
+split so that a caller can put another preprocess in front of the same
+update: `train_step` = `preprocess.preprocess_batch` + `step_on_batch`.
+
+Where the JAX step is a pure function of its state, the port updates the
+state in place (params, optimizer moments, EMA and the step counter), as
+the JAX step's buffer donation does on the device. The step makes no host
+sync: its metrics stay device tensors, and the step counter and learning
+rate live on the host.
+
+The update rule is the optax chain of the JAX package, written with torch
+optimizers whose learning rate is set before each update to
+`schedule(count)`, with `count` the step before the increment (optax's
+`scale_by_schedule`), after a global-norm clip that leaves gradients
+unchanged below `clip_norm` and scales them by `clip_norm / norm` above it
+(optax's `clip_by_global_norm`; torch's `clip_grad_norm_` adds 1e-6).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Callable, Optional
 
 import torch
 
+from ann3depth_tpu_torch.compat import reference_spec as ref
 from ann3depth_tpu_torch.pipeline import preprocess
+from ann3depth_tpu_torch.train import losses
 
 
 def init_params(model, seed=0, *, device=None):
@@ -21,6 +39,232 @@ def init_params(model, seed=0, *, device=None):
     gen = torch.Generator().manual_seed(int(seed))
     return model.init_weights(gen).to(device or "cpu")
 
+
+# ---------------------------------------------------------------------------
+# Learning-rate schedule and update rule.
+# ---------------------------------------------------------------------------
+
+def _linear(init_value, end_value, transition_steps):
+    """optax.linear_schedule."""
+    if transition_steps <= 0:
+        return lambda count: init_value
+
+    def schedule(count):
+        frac = 1 - min(max(count, 0), transition_steps) / transition_steps
+        return (init_value - end_value) * frac + end_value
+    return schedule
+
+
+def _cosine(init_value, decay_steps):
+    """optax.cosine_decay_schedule with alpha 0 and exponent 1."""
+    def schedule(count):
+        count = min(count, decay_steps)
+        return init_value * 0.5 * (1 + math.cos(math.pi * count
+                                                / decay_steps))
+    return schedule
+
+
+def _join(first, second, boundary):
+    """optax.join_schedules of two schedules."""
+    return lambda count: (first(count) if count < boundary
+                          else second(count - boundary))
+
+
+def make_schedule(learning_rate, warmup_steps=0, total_steps=None,
+                  schedule="cosine") -> Callable[[int], float]:
+    """count -> learning rate, as the JAX package's `make_schedule`.
+
+    schedule="cosine": linear warmup from 0, then cosine decay to 0 at
+    total_steps (warmup_steps=0 disables only the warmup); total_steps None
+    -> constant lr. schedule="constant": fixed lr, after a linear warmup
+    when warmup_steps > 0."""
+    if schedule == "constant":
+        if warmup_steps:
+            return _linear(0.0, learning_rate, warmup_steps)
+        return lambda count: learning_rate
+    if schedule != "cosine":
+        raise ValueError(f"unknown schedule {schedule!r}; "
+                         "have cosine | constant")
+    if total_steps:
+        decay_steps = max(total_steps, warmup_steps + 1)
+        return _join(_linear(0.0, learning_rate, warmup_steps),
+                     _cosine(learning_rate, decay_steps - warmup_steps),
+                     warmup_steps)
+    return lambda count: learning_rate
+
+
+@dataclasses.dataclass(frozen=True)
+class UpdateRule:
+    """The port's counterpart of an optax chain: `build(params)` makes the
+    torch optimizer; each `apply` clips the gradients by global norm (when
+    clip_norm > 0), sets the learning rate to `schedule(count)` and steps."""
+
+    build: Callable
+    schedule: Callable[[int], float]
+    clip_norm: float = 0.0
+
+    def init(self, params) -> torch.optim.Optimizer:
+        return self.build(list(params))
+
+    def apply(self, optimizer, count: int):
+        """One update from the gradients in `.grad`; returns their global
+        norm before the clip (a device scalar)."""
+        grads = [p.grad for g in optimizer.param_groups for p in g["params"]
+                 if p.grad is not None]
+        norm = global_norm(grads)
+        if self.clip_norm > 0:
+            factor = torch.where(norm < self.clip_norm,
+                                 torch.ones_like(norm), self.clip_norm / norm)
+            torch._foreach_mul_(grads, factor)
+        lr = float(self.schedule(count))
+        for group in optimizer.param_groups:
+            group["lr"] = lr
+        optimizer.step()
+        return norm
+
+
+def global_norm(tensors):
+    """sqrt of the sum of squares of every element (optax.global_norm)."""
+    return torch.sqrt(sum(t.float().pow(2).sum() for t in tensors))
+
+
+def make_inner_optimizer(sched, optimizer="adamw", b1=0.9, b2=0.999,
+                         weight_decay=0.0) -> UpdateRule:
+    """The clip-free update rule.
+
+    adamw: decoupled weight decay on the current params. adam: no weight
+    decay (a nonzero one raises). sgd: momentum = b1, weight decay as an
+    additive L2 term before the momentum."""
+    if optimizer == "adamw":
+        def build(params):
+            return torch.optim.AdamW(params, lr=0.0, betas=(b1, b2),
+                                     eps=1e-8, weight_decay=weight_decay)
+    elif optimizer == "adam":
+        if weight_decay:
+            raise ValueError(
+                "--optimizer adam ignores weight decay (plain Adam has "
+                f"none); got weight_decay={weight_decay}. Use adamw for "
+                "decoupled decay or sgd for additive L2, or pass "
+                "--weight-decay 0.")
+
+        def build(params):
+            return torch.optim.Adam(params, lr=0.0, betas=(b1, b2), eps=1e-8)
+    elif optimizer == "sgd":
+        def build(params):
+            return torch.optim.SGD(params, lr=0.0,
+                                   momentum=b1 if b1 > 0 else 0.0,
+                                   weight_decay=weight_decay)
+    else:
+        raise ValueError(f"unknown optimizer {optimizer!r}; "
+                         "have adamw | adam | sgd")
+    return UpdateRule(build=build, schedule=sched)
+
+
+def make_optimizer(learning_rate, warmup_steps=0, total_steps=None,
+                   b1=0.9, b2=0.999, weight_decay=0.0, clip_norm=1.0,
+                   optimizer="adamw", schedule="cosine") -> UpdateRule:
+    """The configured update rule: warmup + cosine decay, global-norm clip.
+    clip_norm <= 0 disables the clip."""
+    sched = make_schedule(learning_rate, warmup_steps, total_steps,
+                          schedule)
+    inner = make_inner_optimizer(sched, optimizer, b1=b1, b2=b2,
+                                 weight_decay=weight_decay)
+    return dataclasses.replace(inner, clip_norm=max(clip_norm, 0.0))
+
+
+# ---------------------------------------------------------------------------
+# State and steps.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class TrainState:
+    """Model (its params), optimizer, step counter and optional EMA.
+
+    ema_params: {name: tensor} exponential moving average of the params,
+    updated after each step when the trainer enables it (ema_decay > 0);
+    None otherwise."""
+
+    step: int
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    tx: UpdateRule
+    ema_params: Optional[dict] = None
+
+    @classmethod
+    def create(cls, model, tx: UpdateRule, ema: bool = False):
+        return cls(step=0, model=model, optimizer=tx.init(model.parameters()),
+                   tx=tx, ema_params=_param_copy(model) if ema else None)
+
+    @property
+    def params(self) -> dict:
+        return dict(self.model.named_parameters())
+
+
+def _param_copy(model):
+    return {k: v.detach().clone() for k, v in model.named_parameters()}
+
+
+def loss_fn(model, images, depths, si_lambda, loss_kind="si"):
+    """images: [B,h,w,3] normalized f32; depths: [B,h',w'] linear meters.
+    Returns (loss, pred_log)."""
+    pred_log = model(images)
+    loss = losses.depth_loss(pred_log, depths, kind=loss_kind,
+                             lam=si_lambda)
+    return loss, pred_log
+
+
+@torch.no_grad()
+def ema_update(ema: dict, params: dict, ema_decay):
+    """One Polyak-averaging step, in place: e = decay*e + (1-decay)*p."""
+    names = list(ema)
+    e = [ema[k] for k in names]
+    torch._foreach_mul_(e, ema_decay)
+    torch._foreach_add_(e, [params[k].detach() for k in names],
+                        alpha=1.0 - ema_decay)
+    return ema
+
+
+def step_on_batch(state: TrainState, images, depths, *, si_lambda=0.5,
+                  ema_decay=0.0, loss_kind="si"):
+    """Forward, backward, update and EMA on a preprocessed batch; returns
+    (state, metrics) with loss, grad_norm (before the clip) and rmse as
+    device scalars."""
+    state.optimizer.zero_grad(set_to_none=True)
+    loss, pred_log = loss_fn(state.model, images, depths, si_lambda,
+                             loss_kind)
+    loss.backward()
+    grad_norm = state.tx.apply(state.optimizer, state.step)
+    if state.ema_params is not None and ema_decay:
+        ema_update(state.ema_params, state.params, ema_decay)
+    with torch.no_grad():
+        rmse = losses.depth_metrics(pred_log.detach(), depths)["rmse"]
+    state.step += 1
+    return state, {"loss": loss.detach(), "grad_norm": grad_norm,
+                   "rmse": rmse}
+
+
+def train_step(state: TrainState, img_u8, depth_raw, generator=None, *,
+               input_hw, target_hw, si_lambda=0.5, augment=False,
+               ema_decay=0.0, loss_kind="si", grad_accum=1):
+    """One step: preprocess -> fwd -> bwd -> update.
+
+    img_u8: [B, H, W, 3] raw uint8 frames; depth_raw: [B, dh, dw] raw f32
+    depth; generator: the `torch.Generator` (on the frames' device) that
+    draws the augmentation when augment is set."""
+    if grad_accum != 1:
+        raise NotImplementedError(
+            f"grad_accum={grad_accum} is not ported yet (the port trains "
+            "with grad_accum=1)")
+    images, depths = preprocess.preprocess_batch(
+        img_u8, depth_raw, input_hw, target_hw,
+        generator=generator if augment else None)
+    return step_on_batch(state, images, depths, si_lambda=si_lambda,
+                         ema_decay=ema_decay, loss_kind=loss_kind)
+
+
+# ---------------------------------------------------------------------------
+# Eval and inference.
+# ---------------------------------------------------------------------------
 
 def apply_with_tta(model, images, tta=""):
     """Forward with optional test-time augmentation.
@@ -35,6 +279,89 @@ def apply_with_tta(model, images, tta=""):
     elif tta:
         raise ValueError(f"unknown tta mode {tta!r} (have: 'flip')")
     return pred_log
+
+
+def _nanmedian(x, valid):
+    """Per-row median of x over `valid` ([B, N] each) with numpy's
+    convention (the mean of the two middle values of an even count; NaN
+    for an empty row). torch.nanmedian takes the lower middle value."""
+    n = valid.sum(dim=1)
+    s = torch.sort(torch.where(valid, x, torch.inf), dim=1).values
+    lo = torch.clamp((n - 1) // 2, min=0)
+    hi = torch.clamp(n // 2, min=0)
+    med = 0.5 * (s.gather(1, lo[:, None]) + s.gather(1, hi[:, None]))[:, 0]
+    return torch.where(n > 0, med, torch.nan)
+
+
+def apply_alignment(pred_log, depths, align="", mask=None):
+    """Optional per-image median scale alignment before metrics: shift the
+    log prediction by log median(gt) - log median(pred) over the valid
+    (and masked) pixels. align="" is a no-op; an all-invalid image gets
+    shift 0."""
+    if not align:
+        return pred_log
+    if align != "median":
+        raise ValueError(f"unknown align mode {align!r} (have: 'median')")
+    t = torch.as_tensor(depths).to(torch.float32)
+    p = pred_log.reshape(t.shape).to(torch.float32)
+    valid = losses._flatten_mask(t, mask)
+    b = t.shape[0]
+    med_gt = _nanmedian(t.reshape(b, -1), valid.reshape(b, -1))
+    med_pr = _nanmedian(torch.exp(p).reshape(b, -1), valid.reshape(b, -1))
+    shift = (torch.log(torch.clamp(med_gt, min=ref.DEPTH_EPS))
+             - torch.log(torch.clamp(med_pr, min=ref.DEPTH_EPS)))
+    shift = torch.nan_to_num(shift, nan=0.0)
+    return pred_log + shift.reshape(
+        (-1,) + (1,) * (pred_log.ndim - 1)).to(pred_log.dtype)
+
+
+def _eval_forward(state, img_u8, depth_raw, input_hw, target_hw, tta, align,
+                  crop):
+    images, depths = preprocess.preprocess_batch(img_u8, depth_raw,
+                                                 input_hw, target_hw)
+    mask = losses.eval_crop_mask(target_hw, crop, device=depths.device)
+    pred_log = apply_with_tta(state.model, images, tta)
+    pred_log = apply_alignment(pred_log, depths, align, mask)
+    return images, depths, mask, pred_log
+
+
+@torch.inference_mode()
+def eval_stats_step(state: TrainState, img_u8, depth_raw, *, input_hw,
+                    target_hw, si_lambda=0.5, loss_kind="si", tta="",
+                    align="", crop=""):
+    """Eval: preprocess -> forward -> summable sufficient statistics (no
+    augment); the eval loop sums them over the split and finalizes once.
+
+    crop='eigen'|'garg' restricts the metrics (and the align window) to
+    the literature's fractional eval crop."""
+    _, depths, mask, pred_log = _eval_forward(
+        state, img_u8, depth_raw, input_hw, target_hw, tta, align, crop)
+    return losses.depth_metric_stats(pred_log, depths, mask,
+                                     si_lambda=si_lambda,
+                                     loss_kind=loss_kind)
+
+
+@torch.inference_mode()
+def eval_report_step(state: TrainState, img_u8, depth_raw, *, input_hw,
+                     target_hw, si_lambda=0.5, loss_kind="si", tta="",
+                     align="", crop=""):
+    """Eval with per-image attribution: (per-image stats with the
+    per-image training loss as "si_loss", images, depths, pred_log)."""
+    images, depths, mask, pred_log = _eval_forward(
+        state, img_u8, depth_raw, input_hw, target_hw, tta, align, crop)
+    per = losses.per_image_metric_stats(pred_log, depths, mask)
+    per["si_loss"] = losses.per_image_depth_loss(
+        pred_log, depths, mask, kind=loss_kind, lam=si_lambda)
+    return per, images, depths, pred_log
+
+
+def eval_step(state: TrainState, img_u8, depth_raw, *, input_hw, target_hw,
+              si_lambda=0.5):
+    """One-batch metric dict of host floats."""
+    stats = eval_stats_step(state, img_u8, depth_raw, input_hw=input_hw,
+                            target_hw=target_hw, si_lambda=si_lambda)
+    return losses.finalize_depth_metrics(
+        {k: float(v) for k, v in stats.items()})
 
 
 @torch.inference_mode()

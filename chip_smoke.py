@@ -10,15 +10,26 @@ last line is printed:
    started together) and print the build time and the card's name and power
    limit.
 2. Hold each kernel against its plain PyTorch version on the card, at the
-   shapes the serving path gives it and at the eval depth shape, and time
-   the kernel, the plain version and the closest single PyTorch call with
-   CUDA events.
+   shapes the serving and training paths give it and at the eval depth
+   shape, and time the kernel, the plain version and the closest PyTorch
+   call(s) with CUDA events.
 3. Serve make3d-encdec at full width (random weights from the config's
    seed) through the port's `service_from_config` and `DepthServer`, POST
    8 concurrent single frames and one 4-frame body to /v1/depth (a first
    round, then the measured one), check the answers against the same model
    fed by the plain preprocess, and check that the path launched the
    kernel.
+4. Train make3d-encdec at full width, b16, on synthetic scenes at Make3D's
+   raw shapes (RGB 480x640, laser grid 305x55) with augmentation, through
+   `train.loop.train`: 40 steps, then a resume to 50. Check that the losses
+   are finite and fall, that the resume continues the step counter and
+   that every step launched the v1 kernel twice; time the train step and
+   its preprocess on a fixed device batch; hold one step fed by the kernel
+   against one fed by the plain preprocess.
+5. The v2 kernel inside the train step: from one state and one raw batch,
+   K steps of `step_on_batch` fed by v1, by v2 and by the plain
+   preprocess, each timed, with the same augmentation draws; check that v2
+   launched in every step and that the v1- and v2-fed losses agree.
 
 The last lines are one `{"kernels": [...]}` JSON line, the nvidia-smi line
 of the card, and `{"ok": true, "device": {...}}`.
@@ -34,6 +45,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor cores
 IMAGE_TOL = 1e-4              # normalized units; both sides are f32
 DEPTH_TOL = 1e-3              # metres
 DEPTH_DECISION_BAND = 1e-5    # |zv - 0.5| within which decisions may differ
@@ -44,6 +56,22 @@ DEPTH_DECISION_BAND = 1e-5    # |zv - 0.5| within which decisions may differ
 # by up to 8.3e-3 (bf16_log_depth_spread_by_bucket below). 2e-2 leaves
 # twice that.
 SERVE_LOG_TOL = 2e-2
+# v2 against plain_preprocess_v2: both round the f32 row pass to bf16, so
+# they may differ by one bf16 ulp of a row value carried through the column
+# weights (fp.v2_error_bound, per case); in mean, far less, since such a
+# flip needs a row value within f32 rounding of a bf16 rounding boundary.
+V2_IMAGE_MEAN_TOL = 1e-4      # normalized units
+V2_DEPTH_MEAN_TOL = 1e-3      # metres
+# One train step fed by the kernel vs the plain preprocess, same state and
+# batch: the inputs agree to f32 summation order, the model rounds to bf16
+# (2^-8) after every conv.
+STEP_LOSS_RTOL = 1e-2
+# After K steps fed by v1 and by v2: v2's inputs carry a bf16 rounding of
+# the row pass (~2^-9 relative, the size of the rounding the model applies
+# to its input anyway), and K Adam steps carry it on.
+K_STEPS = 20
+INSTEP_LOSS_RTOL = 5e-2
+TRAIN_STEPS, RESUME_STEPS = 40, 50
 
 
 def check(cond, msg):
@@ -117,29 +145,33 @@ def kernel_cases(torch, fp, resize, ref):
                            device=dev, generator=gen)
     cases = []
 
-    for name, params in (
-            ("image u8 [32,480,640,3] -> [240,320], identity rows",
+    train_gen = torch.Generator(device=dev).manual_seed(16)
+    for name, src, params in (
+            ("image u8 [32,480,640,3] -> [240,320], identity rows", frames,
              fp.identity_params(32, (480, 640), (240, 320), device=dev)),
-            ("image u8 [32,480,640,3] -> [240,320], augment rows",
-             fp.augment_params(gen, 32, (480, 640), (240, 320), device=dev))):
-        got = fp.fused_preprocess(frames, params, out_hw=(240, 320))
-        want = fp.plain_preprocess(frames, params, out_hw=(240, 320))
+            ("image u8 [32,480,640,3] -> [240,320], augment rows", frames,
+             fp.augment_params(gen, 32, (480, 640), (240, 320), device=dev)),
+            ("image u8 [16,480,640,3] -> [240,320], augment rows (train)",
+             frames[:16], fp.augment_params(train_gen, 16, (480, 640),
+                                            (240, 320), device=dev))):
+        got = fp.fused_preprocess(src, params, out_hw=(240, 320))
+        want = fp.plain_preprocess(src, params, out_hw=(240, 320))
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
         check(err <= IMAGE_TOL, f"{name}: max abs err {err} > {IMAGE_TOL}")
-        bound_ms, bound_by = bound(frames, params, (240, 320), False)
+        bound_ms, bound_by = bound(src, params, (240, 320), False)
         case = dict(
             case=name, max_abs_err=err, tol=IMAGE_TOL,
             photo_frames=int((params[:, 7] > 0.5).sum()),
-            ms=time_ms(lambda: fp.fused_preprocess(frames, params,
+            ms=time_ms(lambda: fp.fused_preprocess(src, params,
                                                    out_hw=(240, 320))),
             plain_ms=time_ms(lambda: fp.plain_preprocess(
-                frames, params, out_hw=(240, 320)), iters=5),
+                src, params, out_hw=(240, 320)), iters=5),
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
-        if "identity" in name:
+        if "identity" in name or "train" in name:
             # The resize alone, antialiased, on the frames already in f32.
-            x = frames.permute(0, 3, 1, 2).float()
+            x = src.permute(0, 3, 1, 2).float()
             case["library_ms"] = time_ms(lambda: F.interpolate(
                 x, size=(240, 320), mode="bilinear", antialias=True,
                 align_corners=False))
@@ -191,6 +223,105 @@ def kernel_cases(torch, fp, resize, ref):
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
     cases.append(case)
     print(json.dumps(case), flush=True)
+    return cases
+
+
+def v2_bound(frames, out_hw, depth_mode):
+    """(bound_ms, bound_by) of the v2 function on its operands: frames, the
+    [B, 8] rows, Ay f32 [B,h,H] and T bf16 [B,W*C,w*C] read once and the
+    output written once, against the dense f32 row product and bf16 column
+    product (two of each in depth mode) at the card's peak rates."""
+    b, h_in, w_in, c = frames.shape
+    h, w = out_hw
+    n, n_out = w_in * c, w * c
+    nbytes = (frames.numel() * frames.element_size() + b * 8 * 4
+              + b * h * h_in * 4 + b * n * n_out * 2 + b * h * n_out * 4)
+    passes = 2 if depth_mode else 1
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = passes * (2.0 * b * h * h_in * n / F32_FLOPS_PER_S
+                      + 2.0 * b * h * n * n_out / BF16_FLOPS_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def v2_cases(torch, fp, ref):
+    """Phase 2, v2: fused_preprocess_v2 vs plain_preprocess_v2 at the train
+    shapes (b16)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    frames = torch.randint(0, 256, (16, 480, 640, 3), dtype=torch.uint8,
+                           device=dev, generator=gen)
+    depth = 1.0 + 59.0 * torch.rand((16, 305, 55, 1), device=dev,
+                                    generator=gen)
+    depth[:, :, 20:26] = 81.0
+    depth[:, ::7, ::5] = 0.0
+    cases = []
+    for name, x, params, out_hw, depth_mode in (
+            ("v2 image u8 [16,480,640,3] -> [240,320], identity rows",
+             frames, fp.identity_params(16, (480, 640), (240, 320),
+                                        device=dev), (240, 320), False),
+            ("v2 image u8 [16,480,640,3] -> [240,320], augment rows (train)",
+             frames, fp.augment_params(gen, 16, (480, 640), (240, 320),
+                                       device=dev), (240, 320), False),
+            ("v2 depth f32 [16,305,55,1] -> [120,160], saturated band",
+             depth, fp.augment_params(gen, 16, (305, 55), (120, 160),
+                                      device=dev), (120, 160), True)):
+        b, h_in, w_in, c = x.shape
+        got = fp.fused_preprocess_v2(x, params, out_hw=out_hw,
+                                     depth_mode=depth_mode)
+        want = fp.plain_preprocess_v2(x, params, out_hw=out_hw,
+                                      depth_mode=depth_mode)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+        ay, t = fp.v2_operands(params, (h_in, w_in), out_hw, c)
+        tol = fp.v2_error_bound(t, depth_mode=depth_mode)
+        x32 = x.reshape(b, h_in, w_in * c).float()
+        if depth_mode:
+            v = ((x32 > ref.DEPTH_EPS)
+                 & (x32 <= ref.MAKE3D_DEPTH_CAP)).float()
+            zv = torch.bmm(torch.bmm(ay, v).to(torch.bfloat16).float(),
+                           t.float()).reshape(got.shape)
+            differ = (got > 0) != (want > 0)
+            check(bool((zv[differ] - 0.5).abs().le(
+                tol["decision_band"]).all()),
+                f"{name}: validity decisions differ outside the band")
+            diff = (got - want).abs()[~differ]
+            mean_tol = V2_DEPTH_MEAN_TOL
+            operands = (x32 * v, v)
+        else:
+            differ = torch.zeros_like(got, dtype=torch.bool)
+            diff = (got - want).abs()
+            mean_tol = V2_IMAGE_MEAN_TOL
+            operands = (x32,)
+        err, mean_err = float(diff.max()), float(diff.mean())
+        check(err <= tol["max_abs"],
+              f"{name}: max abs err {err} > {tol['max_abs']}")
+        check(mean_err <= mean_tol,
+              f"{name}: mean abs err {mean_err} > {mean_tol}")
+
+        def library():
+            # The yardstick: cuBLAS f32 bmm for the rows, bf16 for columns.
+            for op in operands:
+                torch.bmm(torch.bmm(ay, op).to(torch.bfloat16), t)
+
+        bound_ms, bound_by = v2_bound(x, out_hw, depth_mode)
+        case = dict(
+            case=name, max_abs_err=err, tol=tol["max_abs"],
+            mean_abs_err=mean_err, mean_tol=mean_tol,
+            decisions_differ=int(differ.sum()),
+            decision_band=tol["decision_band"],
+            photo_frames=int((params[:, 7] > 0.5).sum()),
+            ms=time_ms(lambda: fp.launch_v2(x, params, ay, t, out_hw=out_hw,
+                                            depth_mode=depth_mode)),
+            wrapper_ms=time_ms(lambda: fp.fused_preprocess_v2(
+                x, params, out_hw=out_hw, depth_mode=depth_mode)),
+            plain_ms=time_ms(lambda: fp.plain_preprocess_v2(
+                x, params, out_hw=out_hw, depth_mode=depth_mode), iters=5),
+            bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=time_ms(library),
+            library_call="torch.bmm f32 (Ay . X), then torch.bmm bf16 "
+                         "(R . T), per resampled map")
+        cases.append(case)
+        print(json.dumps(case), flush=True)
     return cases
 
 
@@ -278,6 +409,253 @@ def serve_slice(torch, np, fp, card):
     return launches
 
 
+def _train_config(tmp):
+    """make3d-encdec at full width, b16, on synthetic scenes at Make3D's raw
+    shapes, augmented; 40 steps with warmup 10 and cadences 10/20/20."""
+    import dataclasses
+
+    from ann3depth_tpu_torch.config import get_config
+
+    cfg = get_config("make3d-encdec")
+    data = dataclasses.replace(cfg.data, datasets=("synthetic",),
+                               synth_img_hw=(480, 640),
+                               synth_depth_hw=(305, 55), synth_n=64,
+                               augment=True)
+    train = dataclasses.replace(cfg.train, steps=TRAIN_STEPS,
+                                warmup_steps=10, log_every=10,
+                                checkpoint_every=20, eval_every=20,
+                                ckpt_dir=f"{tmp}/ckpt")
+    return dataclasses.replace(cfg, data=data, train=train)
+
+
+def _preprocessed(fp, fn, img, dep, draw, input_hw, target_hw):
+    """(images, depths) of one raw batch through `fn` (a preprocess of the
+    fused_preprocess signature), with one augmentation draw on both grids."""
+    ip = fp.params_from_draw(draw, img.shape[1:3], input_hw)
+    dp = fp.params_from_draw(draw, dep.shape[1:3], target_hw)
+    images = fn(img, ip, out_hw=input_hw)
+    depths = fn(dep[..., None].contiguous(), dp, out_hw=target_hw,
+                depth_mode=True)[..., 0]
+    return images, depths
+
+
+def device_profile(torch, fn, steps, step_ms):
+    """Device time per call of `fn` from torch.profiler: the union of the
+    CUDA kernels' intervals over `steps` calls, the busy share of an
+    unprofiled call of `step_ms`, and the kernels that take the most time.
+    Returns None when the profiler recorded no kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    # Device-side user ranges (e.g. "Optimizer.step#AdamW.step") span
+    # their kernels and the gaps between them: only kernels count.
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    if not kernels:
+        return None
+    busy, end = 0.0, float("-inf")
+    by_name = {}
+    for e in sorted(kernels, key=lambda e: e.time_range.start):
+        start, stop = e.time_range.start, e.time_range.end
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+        by_name[e.name] = by_name.get(e.name, 0.0) + (stop - start)
+    busy_ms = busy / steps / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return dict(kernels_per_step=len(kernels) / steps,
+                device_busy_ms_per_step=busy_ms,
+                busy_share=busy_ms / step_ms,
+                top_kernels_ms_per_step={k[:90]: v / steps / 1e3
+                                         for k, v in top})
+
+
+def train_slice(torch, np, fp, card):
+    """Phase 4: the training path of make3d-encdec at full width."""
+    import dataclasses
+    import tempfile
+
+    from ann3depth_tpu_torch.pipeline import preprocess
+    from ann3depth_tpu_torch.train import loop
+    from ann3depth_tpu_torch.train import step as steplib
+    from ann3depth_tpu_torch.train.checkpoint import CheckpointManager
+
+    dev = torch.device("cuda")
+    seen = []  # every step's loss, as device scalars (no extra host sync)
+    inner = steplib.train_step
+
+    def recording_step(*args, **kw):
+        state, metrics = inner(*args, **kw)
+        seen.append(metrics["loss"])
+        return state, metrics
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = _train_config(tmp)
+        resumed = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, steps=RESUME_STEPS, resume=True))
+        steplib.train_step = recording_step
+        try:
+            fp.fused_preprocess.launches = 0
+            fp.fused_preprocess_v2.launches = 0
+            t0 = time.perf_counter()
+            state, _ = loop.train(cfg, workdir=tmp, progress=False)
+            first_s = time.perf_counter() - t0
+            launches = fp.fused_preprocess.launches
+            v2_in_loop = fp.fused_preprocess_v2.launches
+            fp.fused_preprocess.launches = 0
+            state2, last = loop.train(resumed, workdir=tmp, progress=False)
+            resume_launches = fp.fused_preprocess.launches
+        finally:
+            steplib.train_step = inner
+        with open(f"{tmp}/metrics.jsonl") as f:
+            records = [json.loads(line) for line in f]
+        saved = CheckpointManager(cfg.train.ckpt_dir).all_steps()
+
+    losses = torch.stack(seen).float().cpu().numpy()
+    check(len(losses) == RESUME_STEPS, f"{len(losses)} steps ran, not "
+          f"{RESUME_STEPS}: the resume did not continue at step "
+          f"{TRAIN_STEPS}")
+    check(bool(np.isfinite(losses).all()), f"non-finite losses: {losses}")
+    first10, last10 = float(losses[:10].mean()), float(
+        losses[TRAIN_STEPS - 10:TRAIN_STEPS].mean())
+    check(last10 < first10, f"the loss did not fall: mean of steps 1-10 "
+          f"{first10}, of steps 31-40 {last10}")
+    check(state.step == TRAIN_STEPS and state2.step == RESUME_STEPS,
+          f"steps {state.step} and {state2.step} after the run and resume")
+    logged = [r["step"] for r in records if "loss" in r]
+    check(logged == [10, 20, 30, 40, 50], f"logged steps {logged}")
+    evals = [r["eval_rmse"] for r in records if "eval_rmse" in r]
+    check(len(evals) == 2 and bool(np.isfinite(evals).all()),
+          f"in-loop evals {evals}")
+    check(saved == [20, 40, 50], f"checkpoints at {saved}")
+    eval_batches = loop.EVAL_SAMPLE_BATCHES * len(evals)
+    check(launches == 2 * TRAIN_STEPS + 2 * eval_batches,
+          f"fused_preprocess launched {launches} times in {TRAIN_STEPS} "
+          f"steps and {eval_batches} eval batches")
+    check(resume_launches == 2 * (RESUME_STEPS - TRAIN_STEPS),
+          f"fused_preprocess launched {resume_launches} times on resume")
+    check(v2_in_loop == 0, "the loop ran the v2 kernel")
+
+    # Steady step time on one device-resident batch (the loop above also
+    # pays for generating the synthetic scenes on the host).
+    img_np, dep_np = next(loop.build_dataset(cfg).batches(16, steps=1))
+    img = torch.from_numpy(img_np).to(dev)
+    dep = torch.from_numpy(dep_np).to(dev)
+    kw = dict(input_hw=tuple(cfg.data.input_hw),
+              target_hw=loop.resolved_target_hw(cfg))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    timed = loop.create_state(cfg, dev)
+    for _ in range(3):
+        steplib.train_step(timed, img, dep, gen, augment=True, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    iters = 20
+
+    def per_iter_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / iters * 1e3, out
+
+    step_ms, _ = per_iter_ms(lambda: steplib.train_step(
+        timed, img, dep, gen, augment=True, **kw))
+    peak = torch.cuda.max_memory_allocated()
+    pre_ms, (images, depths) = per_iter_ms(
+        lambda: preprocess.preprocess_batch(
+            img, dep, kw["input_hw"], kw["target_hw"], generator=gen))
+    update_ms, _ = per_iter_ms(lambda: steplib.step_on_batch(
+        timed, images, depths))
+    profiled = device_profile(torch, lambda: steplib.train_step(
+        timed, img, dep, gen, augment=True, **kw), 5, step_ms)
+
+    # One step from the same state and batch, fed by the kernel and by the
+    # plain preprocess, with the same augmentation draw.
+    a, b = loop.create_state(cfg, dev), loop.create_state(cfg, dev)
+    _, m_kernel = steplib.train_step(
+        a, img, dep, torch.Generator(device=dev).manual_seed(5),
+        augment=True, **kw)
+    draw = fp.draw_augment(torch.Generator(device=dev).manual_seed(5), 16,
+                           device=dev)
+    images, depths = _preprocessed(fp, fp.plain_preprocess, img, dep, draw,
+                                   kw["input_hw"], kw["target_hw"])
+    _, m_plain = steplib.step_on_batch(b, images, depths)
+    l_kernel, l_plain = float(m_kernel["loss"]), float(m_plain["loss"])
+    check(abs(l_kernel - l_plain) <= STEP_LOSS_RTOL * abs(l_plain),
+          f"kernel-fed step loss {l_kernel} vs plain-fed {l_plain}")
+
+    out = dict(
+        steps=TRAIN_STEPS, resumed_to=RESUME_STEPS, batch=16,
+        losses_first10_mean=first10, losses_31_40_mean=last10,
+        losses=[float(x) for x in losses], eval_rmse=evals,
+        fused_preprocess_launches=launches,
+        resume_launches=resume_launches, first_run_s=first_s,
+        loop_images_per_s=[r["images_per_sec"] for r in records
+                           if "images_per_sec" in r],
+        step_ms=step_ms, images_per_s=16 / step_ms * 1e3,
+        preprocess_ms=pre_ms, fwd_bwd_update_ms=update_ms,
+        max_memory_allocated_bytes=peak,
+        device_profile=profiled or "not measured: no kernel in the trace",
+        step_loss_kernel=l_kernel, step_loss_plain=l_plain,
+        step_loss_rtol=STEP_LOSS_RTOL, card=card)
+    print("train: " + json.dumps(out), flush=True)
+    return out, cfg, img, dep
+
+
+def v2_in_step(torch, fp, cfg, img, dep, card):
+    """Phase 5: K steps of step_on_batch fed by v1, v2 and the plain
+    preprocess, from one state and one raw batch, with the same draws; in
+    turns v1, v2, plain, plain, v2, v1."""
+    from ann3depth_tpu_torch.train import loop
+    from ann3depth_tpu_torch.train import step as steplib
+
+    dev = img.device
+    input_hw = tuple(cfg.data.input_hw)
+    target_hw = loop.resolved_target_hw(cfg)
+    feeds = {"v1": fp.fused_preprocess, "v2": fp.fused_preprocess_v2,
+             "plain": fp.plain_preprocess}
+
+    def run(impl):
+        state = loop.create_state(cfg, dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        fp.fused_preprocess.launches = 0
+        fp.fused_preprocess_v2.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(K_STEPS):
+            draw = fp.draw_augment(gen, img.shape[0], device=dev)
+            images, depths = _preprocessed(fp, feeds[impl], img, dep, draw,
+                                           input_hw, target_hw)
+            state, metrics = steplib.step_on_batch(state, images, depths)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / K_STEPS * 1e3
+        return dict(ms_per_step=ms, loss=float(metrics["loss"]),
+                    v1_launches=fp.fused_preprocess.launches,
+                    v2_launches=fp.fused_preprocess_v2.launches)
+
+    runs = {}
+    for impl in ("v1", "v2", "plain", "plain", "v2", "v1"):
+        runs.setdefault(impl, []).append(run(impl))
+    v1, v2 = runs["v1"][0], runs["v2"][0]
+    for r in runs["v2"]:
+        check(r["v2_launches"] == 2 * K_STEPS and r["v1_launches"] == 0,
+              f"v2-fed steps launched v2 {r['v2_launches']} and v1 "
+              f"{r['v1_launches']} times in {K_STEPS} steps")
+    check(abs(v2["loss"] - v1["loss"]) <= INSTEP_LOSS_RTOL * abs(v1["loss"]),
+          f"after {K_STEPS} steps: v2-fed loss {v2['loss']}, v1-fed "
+          f"{v1['loss']}")
+    out = dict(k_steps=K_STEPS, batch=int(img.shape[0]), runs=runs,
+               loss_rtol=INSTEP_LOSS_RTOL, card=card)
+    print("instep: " + json.dumps(out), flush=True)
+    return out
+
+
 def main():
     import torch
 
@@ -304,19 +682,33 @@ def main():
     print(f"card: {card}", flush=True)
 
     cases = kernel_cases(torch, fp, resize, ref)
-    launches = serve_slice(torch, np, fp, card)
+    cases_v2 = v2_cases(torch, fp, ref)
+    serve_launches = serve_slice(torch, np, fp, card)
+    train, cfg, img, dep = train_slice(torch, np, fp, card)
+    instep = v2_in_step(torch, fp, cfg, img, dep, card)
 
-    serve_case = cases[0]
-    kernel = dict(
+    train_case = cases[2]  # v1 at the train shape, b16 augment rows
+    v1 = dict(
         name="fused_preprocess", route="cuda",
         source="ann3depth_tpu_torch/csrc/fused_preprocess.cu",
         replaces="ann3depth_tpu/ops/pallas_preprocess.py:218",
-        launches=launches,
-        max_abs_err=max(c["max_abs_err"] for c in cases[:2]),
-        ms=serve_case["ms"], plain_ms=serve_case["plain_ms"],
-        bound_ms=serve_case["bound_ms"], bound_by=serve_case["bound_by"],
-        library_ms=serve_case["library_ms"], card=card, cases=cases)
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+        launches=train["fused_preprocess_launches"],
+        serve_launches=serve_launches,
+        max_abs_err=max(c["max_abs_err"] for c in cases[:3]),
+        ms=train_case["ms"], plain_ms=train_case["plain_ms"],
+        bound_ms=train_case["bound_ms"], bound_by=train_case["bound_by"],
+        library_ms=train_case["library_ms"], card=card, cases=cases)
+    v2_case = cases_v2[1]  # the train shape, b16 augment rows
+    v2 = dict(
+        name="fused_preprocess_v2", route="cuda",
+        source="ann3depth_tpu_torch/csrc/fused_preprocess_v2.cu",
+        replaces="ann3depth_tpu/ops/pallas_preprocess.py:337",
+        launches=instep["runs"]["v2"][0]["v2_launches"],
+        max_abs_err=max(c["max_abs_err"] for c in cases_v2[:2]),
+        ms=v2_case["ms"], plain_ms=v2_case["plain_ms"],
+        bound_ms=v2_case["bound_ms"], bound_by=v2_case["bound_by"],
+        library_ms=v2_case["library_ms"], card=card, cases=cases_v2)
+    print(json.dumps({"kernels": [v1, v2]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

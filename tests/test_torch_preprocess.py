@@ -10,6 +10,12 @@ the CPU, the port's `fused_preprocess` runs its plain version, so:
   (tests/test_pallas_preprocess.py:73 and :114), rtol .02 / atol .03 for
   images and .01 / .05 for depth, because that kernel runs its column pass
   in bf16.
+- `plain_preprocess_v2` vs the TPU v2 kernel in interpret mode: both round
+  the f32 row pass to bf16 and sum exact bf16 products in f32, so they may
+  differ only where a row-pass value rounds one bf16 ulp apart
+  (`fp.v2_error_bound`, about 7e-3 in normalized units here, tighter than
+  the rtol .02 / atol .03 of tests/test_pallas_preprocess.py:89), and in
+  mean by under 1e-4.
 """
 
 import jax
@@ -19,9 +25,11 @@ import pytest
 import torch
 
 from ann3depth_tpu.compat import reference_spec as jref
+from ann3depth_tpu.models import registry as jreg
 from ann3depth_tpu.ops import pallas_preprocess as pp
 from ann3depth_tpu.pipeline import preprocess as jpre
 from ann3depth_tpu_torch.compat import reference_spec as tref
+from ann3depth_tpu_torch.models import registry as treg
 from ann3depth_tpu_torch.ops import fused_preprocess as fp
 from ann3depth_tpu_torch.pipeline import preprocess as tpre
 
@@ -54,9 +62,24 @@ def _params(kind, b, in_hw, out_hw):
     "LIVE_FRAME_W", "MAKE3D_DEPTH_H", "MAKE3D_DEPTH_W", "MAKE3D_IMAGE_H",
     "MAKE3D_IMAGE_W", "NYU_H", "NYU_W", "DPT_RES", "RGB_MEAN", "RGB_STD",
     "MAKE3D_DEPTH_CAP", "DEPTH_EPS", "DEPTH_VALID_RESAMPLE_THRESH",
-    "SI_LOSS_LAMBDA", "RESIZE_ALIGN_CORNERS"])
+    "SI_LOSS_LAMBDA", "RESIZE_ALIGN_CORNERS", "EVAL_CROPS"])
 def test_reference_constants_match(name):
     assert getattr(tref, name) == getattr(jref, name)
+
+
+@pytest.mark.parametrize("input_hw", [(240, 320), (32, 48), (480, 640)])
+def test_registry_shapes_match(input_hw):
+    assert treg.output_hw("encdec", input_hw) == \
+        jreg.output_hw("encdec", input_hw)
+    assert treg.s2d_input_factor("encdec") == jreg.s2d_input_factor("encdec")
+
+
+@pytest.mark.parametrize("name", ["small", "multiscale", "dpt", "dpt-small"])
+def test_registry_models_not_ported_raise(name):
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        treg.output_hw(name, (240, 320))
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        treg.s2d_input_factor(name)
 
 
 def test_identity_params_match():
@@ -148,6 +171,83 @@ def test_plain_matches_pallas_kernel_interpret_depth():
                               depth_mode=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0.01,
                                atol=0.05)
+
+
+@pytest.mark.parametrize("norm", [True, False])
+@pytest.mark.parametrize("kind", ["identity", "augment"])
+def test_plain_v2_matches_pallas_v2_interpret_image(kind, norm):
+    x = _frames()
+    params = _params(kind, 2, (40, 56), (24, 32))
+    want = np.asarray(pp.fused_preprocess_v2(
+        jnp.asarray(x), params, out_hw=(24, 32), norm=norm, interpret=True))
+    got = fp.plain_preprocess_v2(_t(x), _t(params), out_hw=(24, 32),
+                                 norm=norm).numpy()
+    _, t = fp.v2_operands(_t(params), (40, 56), (24, 32), 3)
+    bound = fp.v2_error_bound(t)["max_abs"]
+    assert bound < 0.03
+    np.testing.assert_allclose(got, want, rtol=0, atol=bound)
+    assert np.abs(got - want).mean() < 1e-4
+
+
+@pytest.mark.parametrize("kind", ["identity", "augment"])
+def test_plain_v2_matches_pallas_v2_interpret_depth(kind):
+    d = _depth()
+    d[:, ::4, ::3] = 0.0           # missing pixels
+    d[:, :, 15:] = 81.0            # saturated band
+    params = _params(kind, 2, (30, 22), (15, 11))
+    want = np.asarray(pp.fused_preprocess_v2(
+        jnp.asarray(d), params, out_hw=(15, 11), depth_mode=True,
+        interpret=True))
+    got = fp.plain_preprocess_v2(_t(d), _t(params), out_hw=(15, 11),
+                                 depth_mode=True).numpy()
+    _, t = fp.v2_operands(_t(params), (30, 22), (15, 11), 1)
+    bound = fp.v2_error_bound(t, depth_mode=True)
+    assert not ((got > 0) != (want > 0)).any()
+    np.testing.assert_allclose(got, want, rtol=0, atol=bound["max_abs"])
+    assert np.abs(got - want).mean() < 1e-3
+
+
+def test_plain_v2_within_bf16_of_exact_plain():
+    """v2 differs from the exact-f32 function by its bf16 column pass only:
+    the tolerance of tests/test_pallas_preprocess.py:89."""
+    x = _frames()
+    params = _params("augment", 2, (40, 56), (24, 32))
+    got = fp.plain_preprocess_v2(_t(x), _t(params), out_hw=(24, 32))
+    want = fp.plain_preprocess(_t(x), _t(params), out_hw=(24, 32))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0.02,
+                               atol=0.03)
+
+
+def test_v2_operands_match_jax():
+    params = _params("augment", 2, (40, 56), (24, 32))
+    ay, t = fp.v2_operands(_t(params), (40, 56), (24, 32), 3)
+    assert ay.dtype == torch.float32 and t.dtype == torch.bfloat16
+    assert ay.shape == (2, 24, 40) and t.shape == (2, 168, 96)
+    g = pp.geometry_of(params)
+    from ann3depth_tpu.ops.resize import (triangle_matrix,
+                                          triangle_matrix_interleaved)
+    want_ay = jax.vmap(lambda s, sc: triangle_matrix(24, 40, s, sc))(
+        g["y_start"], g["y_scale"])
+    want_t = jax.vmap(lambda s, sc: triangle_matrix_interleaved(
+        56, 32, 3, s, sc))(g["x_start"], g["x_scale"]).astype(jnp.bfloat16)
+    np.testing.assert_allclose(ay.numpy(), np.asarray(want_ay), atol=1e-6)
+    np.testing.assert_allclose(t.float().numpy(),
+                               np.asarray(want_t.astype(jnp.float32)),
+                               atol=2 ** -8)
+
+
+def test_fused_preprocess_v2_on_cpu_runs_plain_and_counts_nothing():
+    x = _t(_frames())
+    params = fp.identity_params(2, (40, 56), (24, 32))
+    before = fp.fused_preprocess_v2.launches
+    got = fp.fused_preprocess_v2(x, params, out_hw=(24, 32))
+    want = fp.plain_preprocess_v2(x, params, out_hw=(24, 32))
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert fp.fused_preprocess_v2.launches == before
+    meta = torch.empty((1, 8, 8, 3), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="no fused_preprocess_v2"):
+        fp.fused_preprocess_v2(meta, torch.empty((1, 8), device="meta"),
+                               out_hw=(4, 4))
 
 
 @pytest.mark.parametrize("kind", ["identity", "augment"])
