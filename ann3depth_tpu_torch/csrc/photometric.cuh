@@ -16,6 +16,7 @@ namespace a3d {
 
 constexpr int kPhotoThreads = 256;
 constexpr long long kPhotoMaxBlocks = 64;  // per frame
+constexpr int kPhotoUnroll = 4;
 
 // Grid (chunks, B). Every block of a frame with photo set reduces the
 // frame's partials to its mean m, then applies the jitter to its chunk.
@@ -27,24 +28,48 @@ __global__ void __launch_bounds__(kPhotoThreads)
   const int b = blockIdx.y;
   const float* p = params + 8 * b;
   if (!(p[7] > 0.5f)) return;  // the same for the whole block
-  __shared__ double red[kPhotoThreads];
-  double s = 0.0;
-  for (int i = threadIdx.x; i < n_partials; i += kPhotoThreads)
-    s += partials[static_cast<size_t>(b) * n_partials + i];
-  red[threadIdx.x] = s;
-  __syncthreads();
-  for (int stride = kPhotoThreads / 2; stride > 0; stride >>= 1) {
-    if (threadIdx.x < stride) red[threadIdx.x] += red[threadIdx.x + stride];
-    __syncthreads();
+  __shared__ float mean;
+  if (threadIdx.x < 32) {  // one warp reduces the frame's partials in f64
+    double s = 0.0;
+    for (int i = threadIdx.x; i < n_partials; i += 32)
+      s += partials[static_cast<size_t>(b) * n_partials + i];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      s += __shfl_down_sync(0xffffffffu, s, off);
+    if (threadIdx.x == 0)
+      mean = static_cast<float>(s / static_cast<double>(per_frame));
   }
-  const float m = static_cast<float>(red[0] / static_cast<double>(per_frame));
+  __syncthreads();
+  const float m = mean;
   const float brightness = p[5];
   const float contrast = p[6];
   float* o = out + b * per_frame;
-  for (long long i = static_cast<long long>(blockIdx.x) * kPhotoThreads +
-                     threadIdx.x;
-       i < per_frame; i += static_cast<long long>(gridDim.x) * kPhotoThreads)
-    o[i] = (o[i] - m) * contrast + m + brightness;
+  const long long first =
+      static_cast<long long>(blockIdx.x) * kPhotoThreads + threadIdx.x;
+  const long long stride = static_cast<long long>(gridDim.x) * kPhotoThreads;
+  if (per_frame % 4 == 0) {  // the frame starts 16-byte aligned: float4
+    float4* o4 = reinterpret_cast<float4*>(o);
+    const long long n4 = per_frame / 4;
+    // kPhotoUnroll loads in flight a thread before the first store.
+    for (long long base = first; base < n4; base += kPhotoUnroll * stride) {
+      float4 v[kPhotoUnroll];
+#pragma unroll
+      for (int k = 0; k < kPhotoUnroll; ++k)
+        if (base + k * stride < n4) v[k] = o4[base + k * stride];
+#pragma unroll
+      for (int k = 0; k < kPhotoUnroll; ++k) {
+        if (base + k * stride >= n4) break;
+        v[k].x = (v[k].x - m) * contrast + m + brightness;
+        v[k].y = (v[k].y - m) * contrast + m + brightness;
+        v[k].z = (v[k].z - m) * contrast + m + brightness;
+        v[k].w = (v[k].w - m) * contrast + m + brightness;
+        o4[base + k * stride] = v[k];
+      }
+    }
+  } else {
+    for (long long i = first; i < per_frame; i += stride)
+      o[i] = (o[i] - m) * contrast + m + brightness;
+  }
 }
 
 // Launches the pass over out [B, per_frame]; returns cudaGetLastError().

@@ -26,13 +26,21 @@ wrapper raises.
 package's v2 kernel) computes the same function with v2's precision: the
 row resample R = Ay . X in f32, R rounded to bf16, then the column resample
 as a bf16 x bf16 product with f32 sums against T = kron(Ax^T, I_C) in bf16.
-Ay and T are built outside the kernel, as the JAX wrapper builds them in
-XLA. Its plain version is `plain_preprocess_v2`.
+Its plain version is `plain_preprocess_v2`, which builds Ay and T as the
+JAX wrapper does; the kernel builds each band's weights itself.
+
+Both kernels are one banded shared-memory resample (csrc/band_resample.cuh)
+with two precision policies. A block owns `tile_rows` output rows of one
+frame; `band_plan` sizes its shared memory from the shapes and the largest
+|scale| the param rows may have.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
+import math
 
 import torch
 
@@ -188,10 +196,19 @@ def plain_preprocess_v2(frames, params, *, out_hw, norm=True,
     sums (the bf16 products are exact in f32, so only the order of the sums
     differs from the kernel); then v1's epilogue.
     """
+    params = params.to(device=frames.device, dtype=torch.float32)
+    ay, t = v2_operands(params, frames.shape[1:3], out_hw, frames.shape[3])
+    return v2_from_operands(frames, params, ay, t, out_hw=out_hw, norm=norm,
+                            depth_mode=depth_mode)
+
+
+def v2_from_operands(frames, params, ay, t, *, out_hw, norm=True,
+                     depth_mode=False):
+    """`plain_preprocess_v2`'s arithmetic on given operands Ay f32
+    [B, h, H] and T bf16 [B, W*C, w*C] (`v2_operands`)."""
     b, h_in, w_in, c = frames.shape
     h_out, w_out = out_hw
     params = params.to(device=frames.device, dtype=torch.float32)
-    ay, t = v2_operands(params, (h_in, w_in), out_hw, c)
     t = t.to(torch.float32)
     x = frames.to(torch.float32).reshape(b, h_in, w_in * c)
     g = geometry_of(params)
@@ -218,28 +235,59 @@ def plain_preprocess_v2(frames, params, *, out_hw, norm=True,
     return out.reshape(b, h_out, w_out, c)
 
 
-def v2_error_bound(t, *, depth_mode=False):
+def _bf16_ulps(w):
+    """Elementwise bf16 spacing of w >= 0 (0 where w == 0)."""
+    _, e = torch.frexp(w)
+    return torch.where(w > 0, torch.ldexp(torch.ones_like(w), e - 8),
+                       torch.zeros_like(w))
+
+
+def v2_error_bound(t, *, depth_mode=False, weights_apart=False):
     """How far two correct implementations of the v2 function may differ.
 
-    Both compute R = Ay . X in f32 and round it to bf16; summed in another
-    order, an R next to a bf16 rounding boundary may round one ulp apart.
-    Everything after that agrees to f32 rounding (bf16 products are exact
-    in f32). One such flip moves z by ulp(R) * max(T), so:
+    Two roundings to bf16 may land one ulp apart:
 
-    - image: R < 256 (ulp <= 1), output max-abs <= max(T) * 1.2 (largest
-      contrast) / (255 * min sd);
+    - R. Both compute R = Ay . X in f32 and round it to bf16; summed in
+      another order (or with Ay weights an f32 ulp apart), an R next to a
+      bf16 rounding boundary may round one ulp apart. One such flip moves z
+      by ulp(R) * max(T).
+    - T, where the two build their weights apart (`weights_apart`: the CUDA
+      kernel builds its own, `plain_preprocess_v2` takes triangle_matrix's).
+      An f32 weight can then differ by a few f32 ulps (the kernel sums the
+      band in another order and multiplies by reciprocals where
+      triangle_matrix divides), and so round to the neighbouring bf16. Every
+      weight of an output's band may flip at once, so z moves by up to
+      u = sum over the band of ulp_bf16(weight), taken at the band where it
+      is largest, times the largest row value (255 for images, 70 m for
+      depth, 1 for Rv's validity band). A weight that is zero on one side
+      is at most a few f32 ulps (< 2^-20) on the other: a band has two
+      such ends, added to u.
+
+    Everything else agrees to f32 rounding (bf16 products are exact in
+    f32). So, with u as above where the weights are built apart and u = 0
+    where they are not:
+
+    - image: R < 256 (ulp <= 1), output max-abs <= (max(T) + 255 u) * 1.2
+      (largest contrast) / (255 * min sd);
     - depth: R <= 70 (ulp <= 0.5) and Rv <= 1 (ulp <= 2^-8); where the
-      validity decisions agree, |d - d'| <= (0.5 + 70 * 2^-8) * max(T) /
-      0.5 m, and decisions may differ only where |zv - 0.5| <= 2^-8 *
-      max(T).
+      validity decisions agree, |d - d'| <= ((0.5 + 70 * 2^-8) * max(T)
+      + (70 + 70) u) / 0.5 m, and decisions may differ only where
+      |zv - 0.5| <= 2^-8 * max(T) + u.
 
-    Returns dict(max_abs=..., decision_band=...) for the operand t.
+    t: bf16 [B, W*C, w*C] (`v2_operands`), one output's band per column.
+    Returns dict(max_abs=..., decision_band=...).
     """
-    w_max = float(t.float().max())
+    w = t.float()
+    w_max = float(w.max())
+    u = (float(_bf16_ulps(w).sum(dim=-2).max()) + 2 * 2.0 ** -20
+         if weights_apart else 0.0)
     if depth_mode:
-        return dict(max_abs=(0.5 + 70.0 * 2.0 ** -8) * w_max / 0.5 + 1e-4,
-                    decision_band=2.0 ** -8 * w_max)
-    return dict(max_abs=w_max * 1.2 / (255.0 * min(ref.RGB_STD)) + 1e-5,
+        return dict(
+            max_abs=((0.5 + 70.0 * 2.0 ** -8) * w_max + 140.0 * u) / 0.5
+            + 1e-4,
+            decision_band=2.0 ** -8 * w_max + u)
+    return dict(max_abs=(w_max + 255.0 * u) * 1.2
+                / (255.0 * min(ref.RGB_STD)) + 1e-5,
                 decision_band=0.0)
 
 
@@ -274,19 +322,110 @@ def plain_preprocess_s2d(frames, params, *, out_hw, factor=4,
 
 
 # ---------------------------------------------------------------------------
-# The kernel's wrapper.
+# The kernels' bands and tiling plan.
+# ---------------------------------------------------------------------------
+
+TILE_ROWS = 8           # output rows a block owns
+SMEM_LIMIT = 232_448    # shared memory a block may use on an H100 (227 KB)
+
+
+def band_bounds(n_out, n_in, start, scale):
+    """The source band [lo, hi] of each output index on one axis, as the
+    kernels compute it: src = start + (o + 0.5) * scale - 0.5 rounded step
+    by step in f32, r = max(|scale|, 1), lo = max(ceil(src - r), 0), hi =
+    min(floor(src + r), n_in - 1). start, scale: [...] -> int64 [..., n_out]
+    each; hi < lo where the band is empty."""
+    start = torch.as_tensor(start, dtype=torch.float32)[..., None]
+    scale = torch.as_tensor(scale, dtype=torch.float32)[..., None]
+    o = torch.arange(n_out, dtype=torch.float32, device=start.device)
+    src = (start + (o + 0.5) * scale) - 0.5
+    r = torch.clamp(scale.abs(), min=1.0)
+    lo = torch.clamp(torch.ceil(src - r), min=0).to(torch.int64)
+    hi = torch.clamp(torch.floor(src + r), max=n_in - 1).to(torch.int64)
+    return lo, hi
+
+
+def _margin(n_in, r):
+    """Room for f32 rounding in a band's span: src and src +- r carry a
+    few half-ulps of numbers up to n_in + 2r at each end."""
+    return (n_in + 2.0 * r + 1.0) * 2.0 ** -20
+
+
+def _align16(n):
+    return -(-n // 16) * 16
+
+
+@dataclasses.dataclass(frozen=True)
+class BandPlan:
+    """The kernels' tiling (csrc/band_resample.cuh): output rows a block
+    owns, source rows it stages, the most taps an output has on each axis,
+    the dynamic shared memory of its layout, and blocks per frame."""
+    tile_rows: int
+    stage_rows: int
+    taps_y: int
+    taps_x: int
+    smem_bytes: int
+    tiles: int
+
+
+def band_plan(shape, out_hw, *, tile_rows=TILE_ROWS, itemsize=1,
+              depth_mode=False):
+    """The tiling plan for frames of `shape` [B, H, W, C] (elements of
+    `itemsize` bytes) resampled to out_hw, for param rows whose |y_scale|
+    and |x_scale| are at most H/h and W/w: any window inside the frame,
+    which is what identity_params and augment_params give.
+
+    A band on an axis with radius r = max(|scale|, 1) spans at most
+    2r + rounding, so it holds floor(2r + margin) + 1 taps; the bands of
+    tile_rows consecutive rows start at most (tile_rows - 1) |scale| apart.
+    The shared-memory bytes mirror band_layout in band_resample.cuh. A
+    block whose bands exceed the plan (params outside those scales) takes
+    the kernel's slower direct path, so the plan bounds speed, not results.
+    """
+    _, h_in, w_in, c = shape
+    h_out, w_out = out_hw
+    sy, sx = h_in / h_out, w_in / w_out
+    ry, rx = max(abs(sy), 1.0), max(abs(sx), 1.0)
+    tm = max(1, min(tile_rows, h_out))
+    taps_y = min(h_in, math.floor(2 * ry + _margin(h_in, ry)) + 1)
+    taps_x = min(w_in, math.floor(2 * rx + _margin(w_in, rx)) + 1)
+    stage = min(h_in, math.floor((tm - 1) * abs(sy) + 2 * ry
+                                 + _margin(h_in, ry)) + 1)
+    n = w_in * c
+    smem = (_align16(tm * taps_y * 4) + 2 * _align16(tm * 4)
+            + _align16(w_out * taps_x * 4) + 2 * _align16(w_out * 4)
+            + _align16((2 if depth_mode else 1) * tm * n * 4)
+            + _align16(max(stage * n * itemsize + 16,
+                           tm * w_out * c * 4 + 16)))
+    return BandPlan(tm, stage, taps_y, taps_x, smem, -(-h_out // tm))
+
+
+@functools.lru_cache(maxsize=64)
+def launch_plan(shape, out_hw, *, itemsize, depth_mode,
+                tile_rows=TILE_ROWS):
+    """The plan the wrappers launch: `band_plan`, with tile_rows halved
+    until the block's shared memory fits the card; raises if one output
+    row does not fit. Cached: a wrapper call costs host time."""
+    while True:
+        plan = band_plan(shape, out_hw, tile_rows=tile_rows,
+                         itemsize=itemsize, depth_mode=depth_mode)
+        if plan.smem_bytes <= SMEM_LIMIT:
+            return plan
+        if tile_rows == 1:
+            raise ValueError(
+                f"frames {tuple(shape)} -> {tuple(out_hw)} need "
+                f"{plan.smem_bytes} bytes of shared memory for one output "
+                f"row; a block has {SMEM_LIMIT}")
+        tile_rows //= 2
+
+
+# ---------------------------------------------------------------------------
+# The kernels' wrappers.
 # ---------------------------------------------------------------------------
 
 _LIBS: dict = {}
 _VP, _I32 = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {
-    "fused_preprocess": dict(
-        launch=[_VP, _I32, _VP, _VP, _VP] + [_I32] * 8 + [_VP],
-        num_partials=[_I32, _I32]),
-    "fused_preprocess_v2": dict(
-        launch=[_VP, _I32] + [_VP] * 7 + [_I32] * 8 + [_VP],
-        num_partials=[_I32, _I32, _I32]),
-}
+_LAUNCH_ARGS = [_VP, _I32, _VP, _VP, _VP] + [_I32] * 13 + [_VP]
 
 
 def _lib(name="fused_preprocess"):
@@ -294,23 +433,13 @@ def _lib(name="fused_preprocess"):
     signatures declared."""
     if name not in _LIBS:
         lib = _kernels.load(name)
-        sig = _SIGNATURES[name]
         for fn, argtypes, restype in (
-                ("launch", sig["launch"], _I32),
-                ("num_partials", sig["num_partials"], _I32),
+                ("launch", _LAUNCH_ARGS, _I32),
                 ("error_string", [_I32], ctypes.c_char_p)):
             f = getattr(lib, f"{name}_{fn}")
             f.argtypes, f.restype = argtypes, restype
         _LIBS[name] = lib
     return _LIBS[name]
-
-
-def _raise_on(err, name):
-    if err:
-        lib = _lib(name)
-        raise RuntimeError(
-            f"{name} launch failed: "
-            f"{getattr(lib, f'{name}_error_string')(err).decode()} ({err})")
 
 
 def _check_cuda_args(frames, params, out_hw, norm, depth_mode):
@@ -338,6 +467,43 @@ def _check_cuda_args(frames, params, out_hw, norm, depth_mode):
         raise ValueError(f"bad shapes: batch {b}, out_hw {out_hw}")
 
 
+def _launch_band(name, frames, params, *, out_hw, norm=True,
+                 depth_mode=False, plan=None):
+    """One call of the kernel `name` ("fused_preprocess" or
+    "fused_preprocess_v2") on CUDA tensors: 2 launches in image mode
+    (resample, photometric pass), 1 in depth mode. `plan` defaults to
+    `launch_plan`'s. Counts nothing; the wrappers below count their
+    calls."""
+    out_hw = tuple(int(s) for s in out_hw)
+    _check_cuda_args(frames, params, out_hw, norm, depth_mode)
+    b, h_in, w_in, c = frames.shape
+    h_out, w_out = out_hw
+    dev = frames.device
+    if plan is None:
+        plan = launch_plan(tuple(frames.shape), out_hw,
+                           itemsize=frames.element_size(),
+                           depth_mode=bool(depth_mode))
+    lib = _lib(name)
+    out = torch.empty((b, h_out, w_out, c), dtype=torch.float32, device=dev)
+    # One partial sum of each tile for the photometric pass (image mode).
+    partials = None if depth_mode else torch.empty(
+        (b, plan.tiles), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, f"{name}_launch")(
+            frames.data_ptr(), int(frames.dtype == torch.uint8),
+            params.data_ptr(), out.data_ptr(),
+            None if partials is None else partials.data_ptr(),
+            b, h_in, w_in, c, h_out, w_out, plan.tile_rows, plan.stage_rows,
+            plan.taps_y, plan.taps_x, plan.smem_bytes, int(norm),
+            int(depth_mode), stream)
+    if err:
+        raise RuntimeError(
+            f"{name} launch failed: "
+            f"{getattr(lib, f'{name}_error_string')(err).decode()} ({err})")
+    return out
+
+
 def fused_preprocess(frames, params, *, out_hw, norm=True, depth_mode=False):
     """frames: u8/f32 [B, H, W, C] -> f32 [B, h, w, C].
 
@@ -350,24 +516,8 @@ def fused_preprocess(frames, params, *, out_hw, norm=True, depth_mode=False):
                                 depth_mode=depth_mode)
     if frames.device.type != "cuda":
         raise ValueError(f"no fused_preprocess for device {frames.device}")
-    out_hw = tuple(int(s) for s in out_hw)
-    _check_cuda_args(frames, params, out_hw, norm, depth_mode)
-    b, h_in, w_in, c = frames.shape
-    h_out, w_out = out_hw
-    lib = _lib()
-    out = torch.empty((b, h_out, w_out, c), dtype=torch.float32,
-                      device=frames.device)
-    partials = torch.empty(
-        (b, lib.fused_preprocess_num_partials(h_out, w_out)),
-        dtype=torch.float32, device=frames.device)
-    with torch.cuda.device(frames.device):
-        stream = torch.cuda.current_stream(frames.device).cuda_stream
-        err = lib.fused_preprocess_launch(
-            frames.data_ptr(), int(frames.dtype == torch.uint8),
-            params.data_ptr(), out.data_ptr(), partials.data_ptr(),
-            b, h_in, w_in, c, h_out, w_out, int(norm), int(depth_mode),
-            stream)
-    _raise_on(err, "fused_preprocess")
+    out = _launch_band("fused_preprocess", frames, params,
+                       out_hw=out_hw, norm=norm, depth_mode=depth_mode)
     fused_preprocess.launches += 1
     return out
 
@@ -379,51 +529,15 @@ def fused_preprocess_v2(frames, params, *, out_hw, norm=True,
                         depth_mode=False):
     """`fused_preprocess` with v2's precision (module docstring).
 
-    A CPU tensor runs `plain_preprocess_v2`; on a CUDA tensor the wrapper
-    builds Ay and T with torch ops and launches the v2 kernel."""
+    A CPU tensor runs `plain_preprocess_v2`; a CUDA tensor runs the v2
+    kernel, from frames and params alone (no Ay or T is built)."""
     if frames.device.type == "cpu":
         return plain_preprocess_v2(frames, params, out_hw=out_hw, norm=norm,
                                    depth_mode=depth_mode)
     if frames.device.type != "cuda":
         raise ValueError(f"no fused_preprocess_v2 for device {frames.device}")
-    out_hw = tuple(int(s) for s in out_hw)
-    _check_cuda_args(frames, params, out_hw, norm, depth_mode)
-    ay, t = v2_operands(params, frames.shape[1:3], out_hw, frames.shape[3])
-    return launch_v2(frames, params, ay, t, out_hw=out_hw, norm=norm,
-                     depth_mode=depth_mode)
-
-
-def launch_v2(frames, params, ay, t, *, out_hw, norm=True, depth_mode=False):
-    """The v2 kernel alone, on operands from `v2_operands`: 3 launches in
-    image mode (row pass, column pass, photometric), 2 in depth mode;
-    counted once in `fused_preprocess_v2.launches`."""
-    b, h_in, w_in, c = frames.shape
-    h_out, w_out = out_hw
-    dev = frames.device
-    if (ay.shape != (b, h_out, h_in) or ay.dtype != torch.float32
-            or t.shape != (b, w_in * c, w_out * c) or t.dtype != torch.bfloat16
-            or ay.device != dev or t.device != dev
-            or not (ay.is_contiguous() and t.is_contiguous())):
-        raise ValueError(
-            f"ay must be contiguous f32 [{b}, {h_out}, {h_in}] and t bf16 "
-            f"[{b}, {w_in * c}, {w_out * c}] on {dev}, got {ay.dtype} "
-            f"{tuple(ay.shape)} and {t.dtype} {tuple(t.shape)}")
-    lib = _lib("fused_preprocess_v2")
-    out = torch.empty((b, h_out, w_out, c), dtype=torch.float32, device=dev)
-    r = torch.empty((b, h_out, w_in * c), dtype=torch.bfloat16, device=dev)
-    rv = torch.empty_like(r) if depth_mode else None
-    partials = torch.empty(
-        (b, lib.fused_preprocess_v2_num_partials(h_out, w_out, c)),
-        dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fused_preprocess_v2_launch(
-            frames.data_ptr(), int(frames.dtype == torch.uint8),
-            params.data_ptr(), ay.data_ptr(), t.data_ptr(), r.data_ptr(),
-            None if rv is None else rv.data_ptr(), out.data_ptr(),
-            partials.data_ptr(), b, h_in, w_in, c, h_out, w_out, int(norm),
-            int(depth_mode), stream)
-    _raise_on(err, "fused_preprocess_v2")
+    out = _launch_band("fused_preprocess_v2", frames, params,
+                       out_hw=out_hw, norm=norm, depth_mode=depth_mode)
     fused_preprocess_v2.launches += 1
     return out
 

@@ -11,8 +11,10 @@ last line is printed:
    limit.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the serving and training paths give it and at the eval depth
-   shape, and time the kernel, the plain version and the closest PyTorch
-   call(s) with CUDA events.
+   shape. Time each kernel on the device (torch.profiler: its resample and
+   photometric launches apart), through its wrapper with CUDA events, the
+   plain version with CUDA events, and the closest PyTorch call(s) on the
+   device.
 3. Serve make3d-encdec at full width (random weights from the config's
    seed) through the port's `service_from_config` and `DepthServer`, POST
    8 concurrent single frames and one 4-frame body to /v1/depth (a first
@@ -45,7 +47,6 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
-BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor cores
 IMAGE_TOL = 1e-4              # normalized units; both sides are f32
 DEPTH_TOL = 1e-3              # metres
 DEPTH_DECISION_BAND = 1e-5    # |zv - 0.5| within which decisions may differ
@@ -56,10 +57,13 @@ DEPTH_DECISION_BAND = 1e-5    # |zv - 0.5| within which decisions may differ
 # by up to 8.3e-3 (bf16_log_depth_spread_by_bucket below). 2e-2 leaves
 # twice that.
 SERVE_LOG_TOL = 2e-2
-# v2 against plain_preprocess_v2: both round the f32 row pass to bf16, so
+# v2 against plain_preprocess_v2: both round the f32 row pass to bf16, and
+# the kernel builds its own weights (f32 ulps from triangle_matrix's), so
 # they may differ by one bf16 ulp of a row value carried through the column
-# weights (fp.v2_error_bound, per case); in mean, far less, since such a
-# flip needs a row value within f32 rounding of a bf16 rounding boundary.
+# weights, or by one bf16 ulp of each column weight of a band times the
+# largest row value (fp.v2_error_bound(..., weights_apart=True), per case);
+# in mean, far less, since such a flip needs a value within f32 rounding of
+# a bf16 rounding boundary.
 V2_IMAGE_MEAN_TOL = 1e-4      # normalized units
 V2_DEPTH_MEAN_TOL = 1e-3      # metres
 # One train step fed by the kernel vs the plain preprocess, same state and
@@ -105,34 +109,80 @@ def time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def band_taps(n_out, n_in, start, scale):
-    """Source taps of each output index (the kernel's band), [B, n_out]."""
-    import torch
-
-    o = torch.arange(n_out, dtype=torch.float32)
-    src = start[:, None] + (o[None] + 0.5) * scale[:, None] - 0.5
-    r = torch.clamp(scale.abs(), min=1.0)[:, None]
-    lo = torch.clamp(torch.ceil(src - r), min=0)
-    hi = torch.clamp(torch.floor(src + r), max=n_in - 1)
-    return torch.clamp(hi - lo + 1, min=0)
-
-
-def bound(frames, params, out_hw, depth_mode):
-    """(bound_ms, bound_by): the larger of the bytes the function must move
-    over the HBM rate and its multiply-adds on this run's bands over the
-    f32 rate."""
+def bound(fp, frames, params, out_hw, depth_mode):
+    """(bound_ms, bound_by) of the preprocess function, v1 or v2 alike: the
+    larger of the bytes it must move (frames and param rows read once, the
+    output written once) over the HBM rate and its multiply-adds on this
+    run's bands (fp.band_bounds, as the kernels compute them) over the f32
+    rate."""
     b, h_in, w_in, c = frames.shape
     h, w = out_hw
     p = params.float().cpu()
-    ty = band_taps(h, h_in, p[:, 0], p[:, 1]).sum(1)
-    tx = band_taps(w, w_in, p[:, 2], p[:, 3]).sum(1)
+    taps = []
+    for n_out, n_in, start, scale in ((h, h_in, p[:, 0], p[:, 1]),
+                                      (w, w_in, p[:, 2], p[:, 3])):
+        lo, hi = fp.band_bounds(n_out, n_in, start, scale)
+        taps.append((hi - lo + 1).clamp(min=0).sum(1))
     accumulators = 2 if depth_mode else c
-    flops = float((ty * tx).sum()) * accumulators * 2
+    flops = float((taps[0] * taps[1]).sum()) * accumulators * 2
     nbytes = (frames.numel() * frames.element_size() + params.numel() * 4
               + b * h * w * c * 4)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def device_ms(torch, fn, iters=20, warmup=3):
+    """Device time per call of `fn` from torch.profiler: the durations of
+    the CUDA kernels it launches, summed over `iters` calls, in total and by
+    kind ("resample", "photometric" for the port's kernels, else the
+    kernel's name)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    by_kind = {}
+    for e in prof.events():
+        if (e.device_type != DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        kind = ("resample" if "band_resample_kernel" in e.name else
+                "photometric" if "photometric_kernel" in e.name else
+                e.name[:60])
+        dur = (e.time_range.end - e.time_range.start) / 1e3 / iters
+        by_kind[kind] = by_kind.get(kind, 0.0) + dur
+    check(by_kind, "the profiler recorded no kernel")
+    return sum(by_kind.values()), by_kind
+
+
+def host_ms(torch, fn, iters=50):
+    """Host time per call of `fn`: the enqueue, before the closing sync."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / iters * 1e3
+
+
+def timings(torch, kernel, plain, plain_iters=20):
+    """The kernel's device time per call (torch.profiler; its resample and
+    photometric launches apart), the wrapper's time per call with CUDA
+    events (the host's gaps included) and on the host's clock, and the
+    plain version's with CUDA events."""
+    ms, by_kind = device_ms(torch, kernel)
+    return dict(ms=ms, resample_ms=by_kind.get("resample", 0.0),
+                photometric_ms=by_kind.get("photometric", 0.0),
+                event_ms=time_ms(kernel), host_ms=host_ms(torch, kernel),
+                plain_ms=time_ms(plain, iters=plain_iters))
 
 
 def kernel_cases(torch, fp, resize, ref):
@@ -160,21 +210,23 @@ def kernel_cases(torch, fp, resize, ref):
         err = float((got - want).abs().max())
         check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
         check(err <= IMAGE_TOL, f"{name}: max abs err {err} > {IMAGE_TOL}")
-        bound_ms, bound_by = bound(src, params, (240, 320), False)
+        bound_ms, bound_by = bound(fp, src, params, (240, 320), False)
         case = dict(
             case=name, max_abs_err=err, tol=IMAGE_TOL,
             photo_frames=int((params[:, 7] > 0.5).sum()),
-            ms=time_ms(lambda: fp.fused_preprocess(src, params,
-                                                   out_hw=(240, 320))),
-            plain_ms=time_ms(lambda: fp.plain_preprocess(
-                src, params, out_hw=(240, 320)), iters=5),
+            **timings(torch,
+                      lambda: fp.fused_preprocess(src, params,
+                                                  out_hw=(240, 320)),
+                      lambda: fp.plain_preprocess(src, params,
+                                                  out_hw=(240, 320)),
+                      plain_iters=5),
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
         if "identity" in name or "train" in name:
             # The resize alone, antialiased, on the frames already in f32.
             x = src.permute(0, 3, 1, 2).float()
-            case["library_ms"] = time_ms(lambda: F.interpolate(
+            case["library_ms"] = device_ms(torch, lambda: F.interpolate(
                 x, size=(240, 320), mode="bilinear", antialias=True,
-                align_corners=False))
+                align_corners=False))[0]
             case["library_call"] = ("F.interpolate(bilinear, antialias) of "
                                     "the f32 frames (resize only)")
             del x
@@ -211,41 +263,26 @@ def kernel_cases(torch, fp, resize, ref):
     probe = got[0, ..., 0]
     check(bool(((probe - 50.0).abs().lt(1e-3) | (probe == 0)).all()),
           f"{name}: saturated pixels blended into valid ones")
-    bound_ms, bound_by = bound(depth, params, (120, 160), True)
+    bound_ms, bound_by = bound(fp, depth, params, (120, 160), True)
     case = dict(
         case=name, max_abs_err=err, tol=DEPTH_TOL,
         decisions_differ=n_differ, decision_band=DEPTH_DECISION_BAND,
-        ms=time_ms(lambda: fp.fused_preprocess(depth, params,
-                                               out_hw=(120, 160),
-                                               depth_mode=True)),
-        plain_ms=time_ms(lambda: fp.plain_preprocess(
-            depth, params, out_hw=(120, 160), depth_mode=True)),
+        **timings(torch,
+                  lambda: fp.fused_preprocess(depth, params,
+                                              out_hw=(120, 160),
+                                              depth_mode=True),
+                  lambda: fp.plain_preprocess(depth, params,
+                                              out_hw=(120, 160),
+                                              depth_mode=True)),
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
     cases.append(case)
     print(json.dumps(case), flush=True)
     return cases
 
 
-def v2_bound(frames, out_hw, depth_mode):
-    """(bound_ms, bound_by) of the v2 function on its operands: frames, the
-    [B, 8] rows, Ay f32 [B,h,H] and T bf16 [B,W*C,w*C] read once and the
-    output written once, against the dense f32 row product and bf16 column
-    product (two of each in depth mode) at the card's peak rates."""
-    b, h_in, w_in, c = frames.shape
-    h, w = out_hw
-    n, n_out = w_in * c, w * c
-    nbytes = (frames.numel() * frames.element_size() + b * 8 * 4
-              + b * h * h_in * 4 + b * n * n_out * 2 + b * h * n_out * 4)
-    passes = 2 if depth_mode else 1
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = passes * (2.0 * b * h * h_in * n / F32_FLOPS_PER_S
-                      + 2.0 * b * h * n * n_out / BF16_FLOPS_PER_S) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def v2_cases(torch, fp, ref):
     """Phase 2, v2: fused_preprocess_v2 vs plain_preprocess_v2 at the train
-    shapes (b16)."""
+    shapes (b16). The wrapper must build no Ay or T on the card."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
     frames = torch.randint(0, 256, (16, 480, 640, 3), dtype=torch.uint8,
@@ -266,14 +303,23 @@ def v2_cases(torch, fp, ref):
              depth, fp.augment_params(gen, 16, (305, 55), (120, 160),
                                       device=dev), (120, 160), True)):
         b, h_in, w_in, c = x.shape
-        got = fp.fused_preprocess_v2(x, params, out_hw=out_hw,
-                                     depth_mode=depth_mode)
+        operand_builds = []
+        v2_operands = fp.v2_operands
+        fp.v2_operands = lambda *a, **k: operand_builds.append(a)
+        try:
+            got = fp.fused_preprocess_v2(x, params, out_hw=out_hw,
+                                         depth_mode=depth_mode)
+        finally:
+            fp.v2_operands = v2_operands
+        check(not operand_builds,
+              f"{name}: the CUDA path built the Ay/T operands")
         want = fp.plain_preprocess_v2(x, params, out_hw=out_hw,
                                       depth_mode=depth_mode)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
         ay, t = fp.v2_operands(params, (h_in, w_in), out_hw, c)
-        tol = fp.v2_error_bound(t, depth_mode=depth_mode)
+        tol = fp.v2_error_bound(t, depth_mode=depth_mode,
+                                weights_apart=True)
         x32 = x.reshape(b, h_in, w_in * c).float()
         if depth_mode:
             v = ((x32 > ref.DEPTH_EPS)
@@ -299,27 +345,28 @@ def v2_cases(torch, fp, ref):
               f"{name}: mean abs err {mean_err} > {mean_tol}")
 
         def library():
-            # The yardstick: cuBLAS f32 bmm for the rows, bf16 for columns.
+            # The yardstick: cuBLAS f32 bmm for the rows, bf16 for columns,
+            # on operands built beforehand.
             for op in operands:
                 torch.bmm(torch.bmm(ay, op).to(torch.bfloat16), t)
 
-        bound_ms, bound_by = v2_bound(x, out_hw, depth_mode)
+        bound_ms, bound_by = bound(fp, x, params, out_hw, depth_mode)
         case = dict(
             case=name, max_abs_err=err, tol=tol["max_abs"],
             mean_abs_err=mean_err, mean_tol=mean_tol,
             decisions_differ=int(differ.sum()),
             decision_band=tol["decision_band"],
             photo_frames=int((params[:, 7] > 0.5).sum()),
-            ms=time_ms(lambda: fp.launch_v2(x, params, ay, t, out_hw=out_hw,
-                                            depth_mode=depth_mode)),
-            wrapper_ms=time_ms(lambda: fp.fused_preprocess_v2(
-                x, params, out_hw=out_hw, depth_mode=depth_mode)),
-            plain_ms=time_ms(lambda: fp.plain_preprocess_v2(
-                x, params, out_hw=out_hw, depth_mode=depth_mode), iters=5),
+            **timings(torch,
+                      lambda: fp.fused_preprocess_v2(
+                          x, params, out_hw=out_hw, depth_mode=depth_mode),
+                      lambda: fp.plain_preprocess_v2(
+                          x, params, out_hw=out_hw, depth_mode=depth_mode),
+                      plain_iters=5),
             bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=time_ms(library),
+            library_ms=device_ms(torch, library)[0],
             library_call="torch.bmm f32 (Ay . X), then torch.bmm bf16 "
-                         "(R . T), per resampled map")
+                         "(R . T), per resampled map, on prebuilt operands")
         cases.append(case)
         print(json.dumps(case), flush=True)
     return cases
@@ -687,27 +734,29 @@ def main():
     train, cfg, img, dep = train_slice(torch, np, fp, card)
     instep = v2_in_step(torch, fp, cfg, img, dep, card)
 
-    train_case = cases[2]  # v1 at the train shape, b16 augment rows
-    v1 = dict(
-        name="fused_preprocess", route="cuda",
+    def entry(case, **kw):
+        """One kernel's entry of the kernels line, from its train case."""
+        keys = ("ms", "resample_ms", "photometric_ms", "event_ms", "host_ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms")
+        return dict(route="cuda", **kw, **{k: case[k] for k in keys},
+                    card=card)
+
+    v1 = entry(
+        cases[2],  # the train shape, b16 augment rows
+        name="fused_preprocess",
         source="ann3depth_tpu_torch/csrc/fused_preprocess.cu",
         replaces="ann3depth_tpu/ops/pallas_preprocess.py:218",
         launches=train["fused_preprocess_launches"],
         serve_launches=serve_launches,
-        max_abs_err=max(c["max_abs_err"] for c in cases[:3]),
-        ms=train_case["ms"], plain_ms=train_case["plain_ms"],
-        bound_ms=train_case["bound_ms"], bound_by=train_case["bound_by"],
-        library_ms=train_case["library_ms"], card=card, cases=cases)
-    v2_case = cases_v2[1]  # the train shape, b16 augment rows
-    v2 = dict(
-        name="fused_preprocess_v2", route="cuda",
+        max_abs_err=max(c["max_abs_err"] for c in cases[:3]), cases=cases)
+    v2 = entry(
+        cases_v2[1],  # the train shape, b16 augment rows
+        name="fused_preprocess_v2",
         source="ann3depth_tpu_torch/csrc/fused_preprocess_v2.cu",
         replaces="ann3depth_tpu/ops/pallas_preprocess.py:337",
         launches=instep["runs"]["v2"][0]["v2_launches"],
         max_abs_err=max(c["max_abs_err"] for c in cases_v2[:2]),
-        ms=v2_case["ms"], plain_ms=v2_case["plain_ms"],
-        bound_ms=v2_case["bound_ms"], bound_by=v2_case["bound_by"],
-        library_ms=v2_case["library_ms"], card=card, cases=cases_v2)
+        cases=cases_v2)
     print(json.dumps({"kernels": [v1, v2]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

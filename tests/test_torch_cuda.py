@@ -7,11 +7,13 @@ that has only PyTorch and the CUDA toolkit:
 
 Tolerances: the v1 kernel and its plain version are both f32 and differ in
 summation order only: 1e-4 for normalized images, 1e-3 m for depth. The v2
-kernel and `plain_preprocess_v2` both round the f32 row pass to bf16, so
+kernel and `plain_preprocess_v2` both round the f32 row pass to bf16, and
+the kernel builds its own weights (f32 ulps from triangle_matrix's), so
 they may differ by one bf16 ulp of a row-pass value carried through the
-column weights (`fp.v2_error_bound`), and in mean by under 1e-4 (images) or
-1e-3 m (depth); depth validity decisions may differ only within the bound's
-band around zv = 0.5. A train step fed by the kernel and one fed by the plain
+column weights, or by one bf16 ulp of each column weight of a band times
+the largest row value (`fp.v2_error_bound(..., weights_apart=True)`), and
+in mean by under 1e-4 (images) or 1e-3 m (depth); depth validity decisions
+may differ only within the bound's band around zv = 0.5. A train step fed by the kernel and one fed by the plain
 preprocess agree to 1e-2 relative in loss: the model computes in bf16
 (2^-8 relative), and its inputs differ by f32 summation order only.
 """
@@ -114,7 +116,8 @@ def test_v2_kernel_matches_plain_image(cuda, dtype, kind):
     torch.cuda.synchronize()
     _, t = fp.v2_operands(params, in_hw, out_hw, 3)
     err = (got - want).abs()
-    assert float(err.max()) <= fp.v2_error_bound(t)["max_abs"]
+    bound = fp.v2_error_bound(t, weights_apart=True)
+    assert float(err.max()) <= bound["max_abs"]
     assert float(err.mean()) <= V2_IMAGE_MEAN_TOL
 
 
@@ -128,7 +131,7 @@ def test_v2_kernel_matches_plain_image_without_norm(cuda):
                                   norm=False)
     _, t = fp.v2_operands(params, (61, 83), (24, 32), 1)
     assert float((got - want).abs().max()) <= \
-        fp.v2_error_bound(t)["max_abs"]
+        fp.v2_error_bound(t, weights_apart=True)["max_abs"]
 
 
 @pytest.mark.parametrize("kind", ["identity", "augment"])
@@ -147,7 +150,7 @@ def test_v2_kernel_matches_plain_depth(cuda, kind):
                                   depth_mode=True)
     torch.cuda.synchronize()
     _, t = fp.v2_operands(params, (30, 22), (15, 11), 1)
-    bound = fp.v2_error_bound(t, depth_mode=True)
+    bound = fp.v2_error_bound(t, depth_mode=True, weights_apart=True)
     differ = (got > 0) != (want > 0)
     zv = _v2_zv(depth, params, (15, 11))
     assert bool((zv[differ] - 0.5).abs().le(bound["decision_band"]).all())
@@ -164,10 +167,167 @@ def test_v2_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="params"):
         fp.fused_preprocess_v2(torch.zeros((1, 8, 8, 3), device=cuda),
                                params.cpu(), out_hw=(4, 4))
-    frames = torch.zeros((1, 8, 8, 3), dtype=torch.uint8, device=cuda)
-    ay, t = fp.v2_operands(params, (8, 8), (4, 4), 3)
-    with pytest.raises(ValueError, match="ay must be"):
-        fp.launch_v2(frames, params, ay, t.float(), out_hw=(4, 4))
+    with pytest.raises(ValueError, match="image mode takes C=3"):
+        fp.fused_preprocess_v2(
+            torch.zeros((1, 8, 8, 2), dtype=torch.uint8, device=cuda),
+            params, out_hw=(4, 4))
+
+
+# The band-resample design (csrc/band_resample.cuh): tiles of
+# fp.TILE_ROWS output rows whose bands cross the frame's edges, ragged last
+# tiles, one frame, other tile sizes, and param rows outside the plan.
+
+IMPLS = {"v1": (fp.fused_preprocess, fp.plain_preprocess),
+         "v2": (fp.fused_preprocess_v2, fp.plain_preprocess_v2)}
+KERNEL_NAMES = {"v1": "fused_preprocess", "v2": "fused_preprocess_v2"}
+EDGE_DRAWS = {  # (flip, crop, crop offset on both axes)
+    "crop_at_0": (False, True, 0.0), "crop_at_1": (False, True, 1.0),
+    "flip": (True, False, 0.5), "flip_crop_at_0": (True, True, 0.0),
+    "flip_crop_at_1": (True, True, 1.0)}
+
+
+def _edge_params(kind, b, in_hw, out_hw, device):
+    flip, crop, off = EDGE_DRAWS[kind]
+    full = lambda v: torch.full((b,), v)  # noqa: E731
+    draw = dict(flip=full(flip), crop=full(crop), oy=full(off),
+                ox=full(off), brightness=torch.linspace(-0.2, 0.2, b),
+                contrast=torch.linspace(0.8, 1.2, b))
+    return fp.params_from_draw(draw, in_hw, out_hw).to(device)
+
+
+def _assert_image_close(impl, got, want, params, in_hw, out_hw):
+    """v1: f32 against f32 (1e-4); v2: fp.v2_error_bound and the mean
+    tolerance."""
+    assert bool(torch.isfinite(got).all())
+    if impl == "v1":
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+        return
+    _, t = fp.v2_operands(params, in_hw, out_hw, got.shape[-1])
+    err = (got - want).abs()
+    bound = fp.v2_error_bound(t, weights_apart=True)
+    assert float(err.max()) <= bound["max_abs"]
+    assert float(err.mean()) <= V2_IMAGE_MEAN_TOL
+
+
+def _assert_depth_close(impl, got, want, depth, params, out_hw):
+    """v1: 1e-3 m; v2: decisions differ only within the bound's band, the
+    values elsewhere within its max and the mean tolerance."""
+    if impl == "v1":
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-3)
+        return
+    _, t = fp.v2_operands(params, depth.shape[1:3], out_hw, 1)
+    bound = fp.v2_error_bound(t, depth_mode=True, weights_apart=True)
+    differ = (got > 0) != (want > 0)
+    zv = _v2_zv(depth, params, out_hw)
+    assert bool((zv[differ] - 0.5).abs().le(bound["decision_band"]).all())
+    err = (got - want).abs()[~differ]
+    assert float(err.max()) <= bound["max_abs"]
+    assert float(err.mean()) <= V2_DEPTH_MEAN_TOL
+
+
+@pytest.mark.parametrize("kind", sorted(EDGE_DRAWS))
+@pytest.mark.parametrize("impl", sorted(IMPLS))
+def test_tile_bands_across_frame_edges_image(cuda, impl, kind):
+    """Crop windows at offsets 0 and 1 and flips put the first and last
+    tiles' bands against the frame's edges; 27 output rows leave a ragged
+    last tile."""
+    kernel, plain = IMPLS[impl]
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    frames = torch.randint(0, 256, (3, 61, 83, 3), generator=gen,
+                           device=cuda).to(torch.uint8)
+    params = _edge_params(kind, 3, (61, 83), (27, 32), cuda)
+    got = kernel(frames, params, out_hw=(27, 32))
+    want = plain(frames, params, out_hw=(27, 32))
+    _assert_image_close(impl, got, want, params, (61, 83), (27, 32))
+
+
+@pytest.mark.parametrize("kind", sorted(EDGE_DRAWS))
+@pytest.mark.parametrize("impl", sorted(IMPLS))
+def test_tile_bands_across_frame_edges_depth(cuda, impl, kind):
+    """Make3D's laser grid (305x55 -> 120x160): 220-byte source rows, not
+    16-byte aligned, and an upsampled x axis."""
+    kernel, plain = IMPLS[impl]
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    depth = 1 + 59 * torch.rand((2, 305, 55, 1), generator=gen, device=cuda)
+    depth[:, :, 20:26] = 81.0
+    depth[:, ::7, ::5] = 0.0
+    params = _edge_params(kind, 2, (305, 55), (120, 160), cuda)
+    got = kernel(depth, params, out_hw=(120, 160), depth_mode=True)
+    want = plain(depth, params, out_hw=(120, 160), depth_mode=True)
+    _assert_depth_close(impl, got, want, depth, params, (120, 160))
+
+
+@pytest.mark.parametrize("h_out", [1, 7, 9, 17])
+@pytest.mark.parametrize("impl", sorted(IMPLS))
+def test_output_height_not_a_multiple_of_the_tile(cuda, impl, h_out):
+    kernel, plain = IMPLS[impl]
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    frames = torch.randint(0, 256, (2, 40, 56, 3), generator=gen,
+                           device=cuda).to(torch.uint8)
+    params = fp.augment_params(gen, 2, (40, 56), (h_out, 24), device=cuda)
+    got = kernel(frames, params, out_hw=(h_out, 24))
+    want = plain(frames, params, out_hw=(h_out, 24))
+    _assert_image_close(impl, got, want, params, (40, 56), (h_out, 24))
+
+
+@pytest.mark.parametrize("impl", sorted(IMPLS))
+def test_batch_of_one(cuda, impl):
+    kernel, plain = IMPLS[impl]
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    frames = torch.randint(0, 256, (1, 120, 160, 3), generator=gen,
+                           device=cuda).to(torch.uint8)
+    params = fp.augment_params(gen, 1, (120, 160), (60, 80), device=cuda)
+    got = kernel(frames, params, out_hw=(60, 80))
+    want = plain(frames, params, out_hw=(60, 80))
+    _assert_image_close(impl, got, want, params, (120, 160), (60, 80))
+
+
+@pytest.mark.parametrize("tile_rows", [1, 4, 16])
+@pytest.mark.parametrize("impl", sorted(IMPLS))
+def test_other_tile_sizes(cuda, impl, tile_rows):
+    _, plain = IMPLS[impl]
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    frames = torch.randint(0, 256, (2, 61, 83, 3), generator=gen,
+                           device=cuda).to(torch.uint8)
+    params = fp.augment_params(gen, 2, (61, 83), (27, 32), device=cuda)
+    plan = fp.band_plan(frames.shape, (27, 32), tile_rows=tile_rows)
+    got = fp._launch_band(KERNEL_NAMES[impl], frames, params,
+                          out_hw=(27, 32), plan=plan)
+    want = plain(frames, params, out_hw=(27, 32))
+    _assert_image_close(impl, got, want, params, (61, 83), (27, 32))
+
+
+@pytest.mark.parametrize("depth_mode", [False, True])
+@pytest.mark.parametrize("impl", sorted(IMPLS))
+def test_params_outside_the_plan_take_the_direct_path(cuda, impl,
+                                                      depth_mode):
+    """Windows wider than the frame (|scale| above in/out) have more taps
+    than the plan holds: those blocks compute from device memory, with the
+    same result."""
+    kernel, plain = IMPLS[impl]
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    in_hw, out_hw = (61, 83), (24, 32)
+    params = fp.identity_params(2, in_hw, out_hw, device=cuda)
+    params[:, 1] *= 1.7
+    params[1, 3] *= -2.5
+    params[1, 2] = 83.0
+    if depth_mode:
+        frames = 1 + 59 * torch.rand((2, *in_hw, 1), generator=gen,
+                                     device=cuda)
+        frames[:, ::4, ::3] = 0.0
+    else:
+        frames = torch.randint(0, 256, (2, *in_hw, 3), generator=gen,
+                               device=cuda).to(torch.uint8)
+    plan = fp.band_plan(frames.shape, out_hw)
+    lo, hi = fp.band_bounds(out_hw[1], in_hw[1], params[:, 2].cpu(),
+                            params[:, 3].cpu())
+    assert int((hi - lo + 1).max()) > plan.taps_x
+    got = kernel(frames, params, out_hw=out_hw, depth_mode=depth_mode)
+    want = plain(frames, params, out_hw=out_hw, depth_mode=depth_mode)
+    if depth_mode:
+        _assert_depth_close(impl, got, want, frames, params, out_hw)
+    else:
+        _assert_image_close(impl, got, want, params, in_hw, out_hw)
 
 
 def _small_state(device):

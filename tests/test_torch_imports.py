@@ -1,5 +1,5 @@
-"""The port stands alone: no module of ann3depth_tpu_torch, and not
-chip_smoke.py, imports JAX, its libraries or the JAX package, and none
+"""The port stands alone: no module of ann3depth_tpu_torch, and neither
+chip_smoke.py nor probe_preprocess.py, imports JAX, its libraries or the JAX package, and none
 imports triton at module level (it exists only on the machine with the
 card, so an import at module level would break every CPU import)."""
 
@@ -15,7 +15,8 @@ ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "ann3depth_tpu")
 PORT_FILES = sorted(
     str(p.relative_to(ROOT))
-    for p in (ROOT / "ann3depth_tpu_torch").rglob("*.py")) + ["chip_smoke.py"]
+    for p in (ROOT / "ann3depth_tpu_torch").rglob("*.py")) + [
+        "chip_smoke.py", "probe_preprocess.py"]
 
 
 def _imports(tree):

@@ -207,6 +207,74 @@ def test_plain_v2_matches_pallas_v2_interpret_depth(kind):
     assert np.abs(got - want).mean() < 1e-3
 
 
+def _nudged(w, direction):
+    """The f32 weights moved one f32 ulp towards +inf or -inf (zeros stay:
+    the kernel's bands hold the same zeros)."""
+    return torch.where(w != 0,
+                       torch.nextafter(w, torch.full_like(w, direction)), w)
+
+
+@pytest.mark.parametrize("direction", [float("inf"), float("-inf")])
+@pytest.mark.parametrize("kind", ["identity", "augment", "depth"])
+def test_v2_error_bound_covers_weights_an_ulp_apart(kind, direction):
+    """The v2 kernel builds its own f32 weights, which may sit a few f32
+    ulps from triangle_matrix's and so round to the neighbouring bf16. The
+    widened `v2_error_bound` covers plain v2's arithmetic on weights nudged
+    by one ulp, on T with its largest entry one bf16 ulp up, and on T with
+    every weight of one band one bf16 ulp up."""
+    from ann3depth_tpu_torch.ops.resize import (triangle_matrix,
+                                                triangle_matrix_interleaved)
+    depth_mode = kind == "depth"
+    if depth_mode:
+        x = _depth()
+        x[:, ::4, ::3] = 0.0
+        x[:, :, 15:] = 81.0
+        in_hw, out_hw = (30, 22), (15, 11)
+        params = _t(_params("augment", 2, in_hw, out_hw))
+    else:
+        x = _frames()
+        in_hw, out_hw = (40, 56), (24, 32)
+        params = _t(_params(kind, 2, in_hw, out_hw))
+    x, c = _t(x), x.shape[-1]
+    g = fp.geometry_of(params)
+    ay = triangle_matrix(out_hw[0], in_hw[0], g["y_start"], g["y_scale"])
+    ax_t = triangle_matrix_interleaved(in_hw[1], out_hw[1], c, g["x_start"],
+                                       g["x_scale"])
+    t = ax_t.to(torch.bfloat16)
+    bound = fp.v2_error_bound(t, depth_mode=depth_mode, weights_apart=True)
+    kw = dict(out_hw=out_hw, depth_mode=depth_mode)
+    want = fp.v2_from_operands(x, params, ay, t, **kw)
+    torch.testing.assert_close(want, fp.plain_preprocess_v2(x, params, **kw),
+                               rtol=0, atol=0)
+    ulps = fp._bf16_ulps(t.float())
+    t_flip = t.clone().reshape(-1)
+    k = int(t_flip.float().argmax())
+    t_flip[k] = (t_flip[k].float() + ulps.reshape(-1)[k]).to(torch.bfloat16)
+    # Every weight of the band whose ulps sum highest, one bf16 ulp up.
+    col = ulps.sum(dim=-2)
+    b_, j = divmod(int(col.argmax()), col.shape[-1])
+    t_band = t.clone()
+    t_band[b_, :, j] = (t_band[b_, :, j].float() + ulps[b_, :, j]).to(
+        torch.bfloat16)
+    variants = [(_nudged(ay, direction),
+                 _nudged(ax_t, direction).to(torch.bfloat16)),
+                (ay, t_flip.reshape(t.shape)), (ay, t_band)]
+    for ay_v, t_v in variants:
+        got = fp.v2_from_operands(x, params, ay_v, t_v, **kw)
+        if depth_mode:
+            v = ((x > tref.DEPTH_EPS) & (x <= tref.MAKE3D_DEPTH_CAP)).float()
+            v = v.reshape(2, *in_hw)
+            zv = torch.bmm(torch.bmm(ay, v).to(torch.bfloat16).float(),
+                           t.float()).reshape(want.shape)
+            differ = (got > 0) != (want > 0)
+            assert bool((zv[differ] - 0.5).abs().le(
+                bound["decision_band"]).all())
+            diff = (got - want).abs()[~differ]
+        else:
+            diff = (got - want).abs()
+        assert float(diff.max()) <= bound["max_abs"]
+
+
 def test_plain_v2_within_bf16_of_exact_plain():
     """v2 differs from the exact-f32 function by its bf16 column pass only:
     the tolerance of tests/test_pallas_preprocess.py:89."""
