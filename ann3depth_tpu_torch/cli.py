@@ -4,13 +4,19 @@ Counterpart of `ann3depth_tpu/cli.py`, with the subcommands ported so far:
 
     python -m ann3depth_tpu_torch train --config make3d-encdec --steps 50 \\
         --datasets synthetic --synth-hw 480 640 --synth-depth-hw 305 55
+    python -m ann3depth_tpu_torch eval --config make3d-encdec --ckpt-dir DIR
+    python -m ann3depth_tpu_torch infer --ckpt-dir DIR --image a.jpg [--ply]
+    python -m ann3depth_tpu_torch infer --ckpt-dir DIR --video clip.avi
+    python -m ann3depth_tpu_torch live --config live --ckpt-dir DIR \\
+        --no-display --max-frames 300
     python -m ann3depth_tpu_torch serve --config make3d-encdec --init
+    python -m ann3depth_tpu_torch serve --ckpt-dir DIR [--ema]
     python -m ann3depth_tpu_torch serve --artifact DIR   # JAX export_serving
 
-Each takes the JAX CLI's flags for its path, plus --device (default cuda;
-it raises when no card is present, unless --device cpu is given). `train`
-also takes the JAX flags of the options the port lacks; those stop with
-"not ported yet".
+Every subcommand takes the JAX CLI's shared flags (`_COMMON_FLAGS`, the
+JAX `_common_flags`) and its own, plus --device (default cuda; it raises
+when no card is present, unless --device cpu is given). Flags of options
+the port lacks stop with "not ported yet".
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import argparse
 import dataclasses
 import json
 import logging
+import os
 import sys
 
 from ann3depth_tpu_torch import config as cfglib
@@ -29,10 +36,10 @@ def _window_epochs(v: str) -> int:
     return 0 if v == "auto" else int(v)
 
 
-# (flag, type or action, config section, field): the JAX CLI's `train`
-# flags that map onto a config field. An absent flag leaves the preset's
-# value; the loop raises for the values the port has not ported.
-_TRAIN_FLAGS = (
+# (flag, type or action, config section, field): the flags of the JAX
+# CLI's `_common_flags` that map onto a config field, shared by every
+# subcommand. An absent flag leaves the preset's value.
+_COMMON_FLAGS = (
     ("--model", str, "model", "name"),
     ("--width-mult", float, "model", "width_mult"),
     ("--quant", str, "model", "quant"),
@@ -42,7 +49,6 @@ _TRAIN_FLAGS = (
     ("--synth-test-n", int, "data", "synth_test_n"),
     ("--synth-hw", "pair", "data", "synth_img_hw"),
     ("--synth-depth-hw", "pair", "data", "synth_depth_hw"),
-    ("--augment", "bool", "data", "augment"),
     ("--use-grain", "flag", "data", "use_grain"),
     ("--num-workers", int, "data", "num_workers"),
     ("--cache-device", "flag", "data", "cache_device"),
@@ -65,6 +71,10 @@ _TRAIN_FLAGS = (
     ("--adam-b1", float, "train", "adam_b1"),
     ("--adam-b2", float, "train", "adam_b2"),
     ("--seed", int, "train", "seed"),
+)
+# The JAX CLI's `train`-only flags that map onto a config field.
+_TRAIN_FLAGS = (
+    ("--augment", "bool", "data", "augment"),
     ("--resume", "flag", "train", "resume"),
     ("--resume-step", int, "train", "resume_step"),
     ("--steps-per-dispatch", int, "train", "steps_per_dispatch"),
@@ -82,59 +92,72 @@ _TRAIN_FLAGS = (
     ("--profile", str, "train", "profile_dir"),
     ("--profile-steps", int, "train", "profile_steps"),
 )
+# The live/infer flags that map onto the live config.
+_LIVE_FLAGS = (("--smooth", float, "live", "smooth"),
+               ("--colormap", str, "live", "colormap"))
+COLORMAPS = ["turbo", "viridis", "magma", "gray"]
 _CHOICES = {"--loss": ["si", "si+grad", "l2", "berhu"],
             "--schedule": ["cosine", "constant"],
             "--optimizer": ["adamw", "adam", "sgd"],
-            "--quant": ["none", "int8", "int8-qat"]}
+            "--quant": ["none", "int8", "int8-qat"],
+            "--colormap": COLORMAPS}
 # JAX CLI flags of paths the port lacks and that map onto no config field.
-_NOT_PORTED_FLAGS = ("--multihost", "--coordinator", "--num-processes",
-                     "--process-id", "--preprocess-impl")
+_NOT_PORTED_COMMON = ("--preprocess-impl",)
+_NOT_PORTED_TRAIN = ("--multihost", "--coordinator", "--num-processes",
+                     "--process-id")
 
 
 def _dest(flag):
     return "tensor_parallel" if flag == "--tp" else flag[2:].replace("-", "_")
 
 
-def _add_train_parser(sub):
-    pt = sub.add_parser("train", help="train a depth model")
-    pt.add_argument("--config", default="make3d-encdec",
-                    choices=sorted(cfglib.PRESETS), help="named preset")
-    for flag, kind, _, _ in _TRAIN_FLAGS:
+def _add_flags(p, table):
+    for flag, kind, _, _ in table:
         dest = _dest(flag)
         if kind == "flag":
-            pt.add_argument(flag, dest=dest, action="store_true",
-                            default=None)
+            p.add_argument(flag, dest=dest, action="store_true", default=None)
         elif kind == "bool":
-            pt.add_argument(flag, dest=dest,
-                            action=argparse.BooleanOptionalAction,
-                            default=None)
+            p.add_argument(flag, dest=dest,
+                           action=argparse.BooleanOptionalAction,
+                           default=None)
         elif kind == "list":
-            pt.add_argument(flag, dest=dest, nargs="+")
+            p.add_argument(flag, dest=dest, nargs="+")
         elif kind == "pair":
-            pt.add_argument(flag, dest=dest, type=int, nargs=2,
-                            metavar=("H", "W"))
+            p.add_argument(flag, dest=dest, type=int, nargs=2,
+                           metavar=("H", "W"))
         else:
-            pt.add_argument(flag, dest=dest, type=kind,
-                            choices=_CHOICES.get(flag))
-    for flag in _NOT_PORTED_FLAGS:
-        pt.add_argument(flag, dest=_dest(flag), nargs="?", const=True,
-                        default=None, help="not ported yet")
-    pt.add_argument("--ckpt-step", type=int,
-                    help="(eval/infer flag; train reads checkpoints via "
-                         "--resume)")
-    pt.add_argument("--workdir",
-                    help="metrics/log directory (default: ckpt dir)")
-    pt.add_argument("--device", default="cuda",
-                    help="torch device (default cuda; 'cpu' runs the plain "
-                         "preprocess and the model on the CPU)")
+            p.add_argument(flag, dest=dest, type=kind,
+                           choices=_CHOICES.get(flag))
 
 
-def resolve_train_config(args) -> cfglib.Config:
-    """The preset of --config with the given train flags applied."""
+def _not_ported(p, flags):
+    for flag in flags:
+        p.add_argument(flag, dest=_dest(flag), nargs="?", const=True,
+                       default=None, help="not ported yet")
+
+
+def _common_flags(p):
+    """The JAX CLI's shared flags, plus --device."""
+    p.add_argument("--config", default="make3d-encdec",
+                   choices=sorted(cfglib.PRESETS), help="named preset")
+    _add_flags(p, _COMMON_FLAGS)
+    _not_ported(p, _NOT_PORTED_COMMON)
+    p.add_argument("--ckpt-step", type=int, metavar="N",
+                   help="use the checkpoint saved at step N instead of the "
+                        "latest (eval/infer/live/serve; train reads "
+                        "checkpoints via --resume)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; 'cpu' runs the plain "
+                        "preprocess and the model on the CPU)")
+
+
+def resolve_config(args) -> cfglib.Config:
+    """The preset of --config with the given flags applied."""
     cfg = cfglib.get_config(args.config)
-    overrides = {"data": {}, "model": {}, "train": {}}
-    for flag, kind, section, field in _TRAIN_FLAGS:
-        value = getattr(args, _dest(flag))
+    overrides = {"data": {}, "model": {}, "train": {}, "live": {}}
+    for flag, kind, section, field in (_COMMON_FLAGS + _TRAIN_FLAGS
+                                       + _LIVE_FLAGS):
+        value = getattr(args, _dest(flag), None)
         if value is None:
             continue
         if kind in ("list", "pair"):
@@ -150,18 +173,105 @@ def resolve_train_config(args) -> cfglib.Config:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="ann3depth_tpu_torch")
     sub = ap.add_subparsers(dest="mode", required=True)
-    _add_train_parser(sub)
+
+    pt = sub.add_parser("train", help="train a depth model")
+    _common_flags(pt)
+    _add_flags(pt, _TRAIN_FLAGS)
+    _not_ported(pt, _NOT_PORTED_TRAIN)
+    pt.add_argument("--workdir",
+                    help="metrics/log directory (default: ckpt dir)")
+
+    pe = sub.add_parser("eval", help="evaluate RMSE etc. on the test split")
+    _common_flags(pe)
+    pe.add_argument("--max-batches", type=int)
+    pe.add_argument("--ema", action="store_true",
+                    help="score the EMA weights of a checkpoint trained with "
+                         "--ema-decay")
+    pe.add_argument("--report-dir", metavar="DIR",
+                    help="also write per-image error attribution: "
+                         "per_image.jsonl, a worst-K rgb|gt|pred triple "
+                         "grid (worst.png), summary.json")
+    pe.add_argument("--report-worst", type=int, default=8,
+                    help="how many highest-RMSE images worst.png renders "
+                         "(default 8)")
+    pe.add_argument("--tta", choices=["flip"], default="",
+                    help="average the prediction with the mirrored-input "
+                         "prediction (second forward pass)")
+    pe.add_argument("--avg-last", type=int, metavar="K",
+                    help="score the uniform average of the last K retained "
+                         "checkpoints (exclusive with --ckpt-step)")
+    pe.add_argument("--align", choices=["median"], default="",
+                    help="per-image median scale alignment before metrics")
+    pe.add_argument("--protocols", metavar="P1,P2,...",
+                    help="score several protocol variants in one run from "
+                         "one restored checkpoint: tokens are 'plain' or "
+                         "'+'-joined subsets of tta|align|crop; --tta/"
+                         "--align/--crop supply the component values "
+                         "(defaults flip/median/eigen). Prints {token: "
+                         "metrics}. Exclusive with --report-dir and "
+                         "multi-dataset configs")
+    pe.add_argument("--crop", choices=["eigen", "garg"], default="",
+                    help="compute metrics only inside the Eigen/Garg "
+                         "fractional eval window of the depth map")
+
+    pl = sub.add_parser("live", help="continuous depth view from camera/video")
+    _common_flags(pl)
+    pl.add_argument("--camera", type=int, default=0)
+    pl.add_argument("--video", help="video file instead of camera")
+    pl.add_argument("--no-display", action="store_true",
+                    help="run headless (latency mode)")
+    pl.add_argument("--max-frames", type=int)
+    pl.add_argument("--record", metavar="OUT.avi",
+                    help="also append every displayed depth frame to this "
+                         "video file")
+    _add_flags(pl, _LIVE_FLAGS)
+
+    pi = sub.add_parser("infer", help="predict depth maps for image file(s) "
+                        "or transcode a whole video offline")
+    _common_flags(pi)
+    pi.add_argument("--image", nargs="+",
+                    help="input image file(s) (any size; resized on device)")
+    pi.add_argument("--video",
+                    help="transcode a video file instead: writes "
+                         "<stem>_depth.<ext> with colormapped depth frames")
+    pi.add_argument("--side-by-side", action="store_true",
+                    help="with --video: write input|depth side by side")
+    pi.add_argument("--video-batch", type=int, default=8,
+                    help="device batch for --video (default 8)")
+    pi.add_argument("--max-frames", type=int,
+                    help="with --video: stop after N frames")
+    pi.add_argument("--depth-npy", action="store_true",
+                    help="with --video: also write the raw depth stack "
+                         "(<stem>_depth.npy, [N, h, w] f32 meters)")
+    pi.add_argument("--out-dir", default=".",
+                    help="where <stem>_depth.npy and <stem>_depth.png go")
+    pi.add_argument("--no-png", action="store_true",
+                    help="skip the colormapped PNG, write only the .npy")
+    pi.add_argument("--ply", action="store_true",
+                    help="also export a 3-D point cloud (<stem>_cloud.ply)")
+    pi.add_argument("--fov-deg", type=float, default=55.0,
+                    help="horizontal field of view for --ply (default 55)")
+    pi.add_argument("--ema", action="store_true",
+                    help="use the EMA weights from the checkpoint")
+    pi.add_argument("--tta", choices=["flip"], default="",
+                    help="average with the mirrored-input prediction")
+    _add_flags(pi, _LIVE_FLAGS[1:])
+
     ps = sub.add_parser(
         "serve", help="batched depth-serving HTTP server: concurrent "
         "requests coalesce into device batches padded to power-of-2 "
         "buckets; POST npy frames to /v1/depth")
-    ps.add_argument("--config", default="make3d-encdec",
-                    choices=sorted(cfglib.PRESETS), help="named preset")
+    _common_flags(ps)
     ps.add_argument("--artifact",
                     help="serve the weights of a JAX `export` artifact "
                          "directory (meta.json + params.npz)")
     ps.add_argument("--init", action="store_true",
                     help="serve random-init params (smoke/testing)")
+    ps.add_argument("--ema", action="store_true",
+                    help="serve the EMA weights from the checkpoint")
+    ps.add_argument("--dp", type=int, default=1,
+                    help="data-parallel serving over local devices (not "
+                         "ported yet: 1 only)")
     ps.add_argument("--host", default="127.0.0.1")
     ps.add_argument("--port", type=int, default=8000)
     ps.add_argument("--max-batch", type=int, default=32,
@@ -170,14 +280,25 @@ def build_parser() -> argparse.ArgumentParser:
                     help="batching window after the first queued request")
     ps.add_argument("--raw-hw", type=int, nargs=2, default=[480, 640],
                     metavar=("H", "W"),
-                    help="accepted raw frame shape (--init mode; artifacts "
-                         "carry their own)")
+                    help="accepted raw frame shape (checkpoint and --init "
+                         "modes; artifacts carry their own)")
     ps.add_argument("--no-warmup", action="store_true",
                     help="skip running every batch bucket at startup")
-    ps.add_argument("--device", default="cuda",
-                    help="torch device (default cuda; 'cpu' runs the plain "
-                         "preprocess and the model on the CPU)")
     return ap
+
+
+def _refuse_not_ported(args, cfg):
+    """Stop on the flags of options the port's eval/infer/live/serve paths
+    lack (eval's --cache-device stops in `train.loop`, which every eval
+    passes through; the other paths read no dataset, as in the JAX CLI)."""
+    given = [f for f in _NOT_PORTED_COMMON
+             if getattr(args, _dest(f)) is not None]
+    if cfg.model.quant == "int8":
+        given.append("--quant int8")
+    if cfg.train.tensor_parallel > 1:
+        given.append("--tp")
+    if given:
+        raise SystemExit(f"{', '.join(given)}: not ported yet")
 
 
 def make_service(args):
@@ -186,20 +307,30 @@ def make_service(args):
     svc_kw = dict(max_batch=args.max_batch,
                   max_delay_s=args.max_delay_ms / 1e3, device=args.device)
     if args.artifact:
+        if (getattr(args, "ema", False)
+                or getattr(args, "ckpt_step", None) is not None):
+            raise SystemExit(
+                "--ema/--ckpt-step have no effect with --artifact: the "
+                "artifact's weights were baked at export time")
+        if getattr(args, "dp", 1) != 1:
+            raise SystemExit("--dp requires checkpoint mode")
         return serverlib.service_from_artifact(args.artifact, **svc_kw)
-    if not args.init:
-        raise SystemExit("serving from a checkpoint is not ported yet: pass "
-                         "--init or --artifact DIR")
-    return serverlib.service_from_config(
-        cfglib.get_config(args.config), init=True,
-        raw_hw=tuple(args.raw_hw), **svc_kw)
+    cfg = resolve_config(args)
+    _refuse_not_ported(args, cfg)
+    try:
+        return serverlib.service_from_config(
+            cfg, init=args.init, raw_hw=tuple(args.raw_hw),
+            use_ema=args.ema, ckpt_step=args.ckpt_step, dp=args.dp,
+            **svc_kw)
+    except NotImplementedError as e:
+        raise SystemExit(str(e)) from None
 
 
 def train_main(args):
     if args.ckpt_step is not None:
         raise SystemExit("train reads checkpoints via --resume, not "
                          "--ckpt-step")
-    given = [f for f in _NOT_PORTED_FLAGS
+    given = [f for f in _NOT_PORTED_COMMON + _NOT_PORTED_TRAIN
              if getattr(args, _dest(f)) is not None]
     if given:
         raise SystemExit(f"{', '.join(given)}: not ported yet")
@@ -212,7 +343,7 @@ def train_main(args):
             "configure the teacher and need --distill-from CKPT_DIR")
     from ann3depth_tpu_torch.train import loop
 
-    cfg = resolve_train_config(args)
+    cfg = resolve_config(args)
     try:
         _, metrics = loop.train(cfg, workdir=args.workdir, device=args.device)
     except NotImplementedError as e:
@@ -221,32 +352,165 @@ def train_main(args):
     return 0
 
 
+def eval_main(args):
+    from ann3depth_tpu_torch.train import loop
+
+    cfg = resolve_config(args)
+    _refuse_not_ported(args, cfg)
+    common = dict(max_batches=args.max_batches,
+                  report_worst=args.report_worst, tta=args.tta,
+                  align=args.align, crop=args.crop)
+    names = list(dict.fromkeys(cfg.data.datasets))  # dedupe, keep order
+    try:
+        if args.protocols:
+            if len(names) > 1:
+                raise SystemExit("--protocols is single-dataset (eval each "
+                                 "dataset separately)")
+            if args.report_dir:
+                raise SystemExit("--protocols and --report-dir are "
+                                 "exclusive (run a plain eval --report-dir "
+                                 "for attribution)")
+            metrics = loop.evaluate_protocols(
+                cfg, [t for t in args.protocols.split(",") if t],
+                use_ema=args.ema, ckpt_step=args.ckpt_step,
+                avg_last=args.avg_last, max_batches=args.max_batches,
+                tta=args.tta or "flip", align=args.align or "median",
+                crop=args.crop or "eigen", device=args.device)
+        elif len(names) > 1:
+            # Per-dataset metrics from one restored checkpoint.
+            try:
+                state = loop.restore_state_for_eval(
+                    cfg, use_ema=args.ema, ckpt_step=args.ckpt_step,
+                    avg_last=args.avg_last, device=args.device)
+            except ValueError as e:
+                raise SystemExit(str(e))
+            metrics = {}
+            for n in names:
+                rd = (os.path.join(args.report_dir, n)
+                      if args.report_dir else None)
+                metrics[n] = loop.evaluate(
+                    cfg, state=state,
+                    dataset=loop.build_dataset(cfg, "test", name=n),
+                    report_dir=rd, **common)
+        else:
+            metrics = loop.evaluate(cfg, report_dir=args.report_dir,
+                                    use_ema=args.ema,
+                                    ckpt_step=args.ckpt_step,
+                                    avg_last=args.avg_last,
+                                    device=args.device, **common)
+    except NotImplementedError as e:
+        raise SystemExit(str(e)) from None
+    print(json.dumps(metrics), flush=True)
+    return 0
+
+
+def live_main(args):
+    from ann3depth_tpu_torch.live import viewer
+
+    cfg = resolve_config(args)
+    _refuse_not_ported(args, cfg)
+    stats = viewer.run(cfg, camera=args.camera, video=args.video,
+                       display=not args.no_display,
+                       max_frames=args.max_frames, record=args.record,
+                       ckpt_step=args.ckpt_step, device=args.device)
+    print(json.dumps(stats), flush=True)
+    return 0
+
+
+def infer_main(args):
+    import numpy as np
+
+    if bool(args.image) == bool(args.video):
+        raise SystemExit("infer needs exactly one of --image or --video")
+    cfg = resolve_config(args)
+    _refuse_not_ported(args, cfg)
+    if args.video:
+        from ann3depth_tpu_torch.live import transcode
+
+        os.makedirs(args.out_dir, exist_ok=True)
+        stem, ext = os.path.splitext(os.path.basename(args.video))
+        out = os.path.join(args.out_dir, f"{stem}_depth{ext or '.avi'}")
+        dnpy = (os.path.join(args.out_dir, f"{stem}_depth.npy")
+                if args.depth_npy else None)
+        stats = transcode.transcode(
+            cfg, args.video, out, batch=args.video_batch,
+            side_by_side=args.side_by_side, depth_npy=dnpy,
+            max_frames=args.max_frames, use_ema=args.ema,
+            ckpt_step=args.ckpt_step, tta=args.tta, device=args.device)
+        print(json.dumps(stats), flush=True)
+        return 0
+
+    from PIL import Image
+
+    from ann3depth_tpu_torch.serving import model_from_checkpoint
+    from ann3depth_tpu_torch.train import step as steplib
+    from ann3depth_tpu_torch.utils import viz
+
+    model = model_from_checkpoint(cfg, use_ema=args.ema,
+                                  ckpt_step=args.ckpt_step,
+                                  device=args.device)
+    os.makedirs(args.out_dir, exist_ok=True)
+    outputs = []
+    for path in args.image:
+        img = np.asarray(Image.open(path).convert("RGB"), np.uint8)
+        depth = steplib.infer_image(model, img, input_hw=cfg.data.input_hw,
+                                    tta=args.tta)
+        stem = os.path.splitext(os.path.basename(path))[0]
+        npy = os.path.join(args.out_dir, f"{stem}_depth.npy")
+        np.save(npy, depth)
+        rec = {"image": path, "depth_npy": npy,
+               "depth_min_m": round(float(depth.min()), 3),
+               "depth_max_m": round(float(depth.max()), 3)}
+        if not args.no_png:
+            png = os.path.join(args.out_dir, f"{stem}_depth.png")
+            viz.save_png(png, viz.colormap_depth(depth,
+                                                 cmap=cfg.live.colormap))
+            rec["depth_png"] = png
+        if args.ply:
+            from ann3depth_tpu_torch.utils import pointcloud
+
+            h, w = depth.shape[:2]
+            colors = np.asarray(
+                Image.fromarray(img).resize((w, h), Image.BILINEAR))
+            ply = os.path.join(args.out_dir, f"{stem}_cloud.ply")
+            rec["ply"] = ply
+            rec["ply_points"] = pointcloud.depth_to_ply(
+                ply, depth, rgb=colors, fov_deg=args.fov_deg)
+        outputs.append(rec)
+    print(json.dumps(outputs), flush=True)
+    return 0
+
+
+def serve_main(args):
+    from ann3depth_tpu_torch import server as serverlib
+
+    service = make_service(args)
+    if not args.no_warmup:
+        logging.getLogger(__name__).info(
+            "warming up %d batch buckets...", len(service._buckets))
+        serverlib.warmup(service)
+    srv = serverlib.DepthServer(service, host=args.host, port=args.port)
+    print(json.dumps({"listening": f"http://{args.host}:{srv.port}",
+                      "raw_hw": list(service.raw_hw),
+                      "max_batch": service.max_batch,
+                      "device": args.device}), flush=True)
+    try:
+        srv.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        srv.close()
+    return 0
+
+
+_MODES = {"train": train_main, "eval": eval_main, "live": live_main,
+          "infer": infer_main, "serve": serve_main}
+
+
 def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     args = build_parser().parse_args(argv)
-    if args.mode == "train":
-        return train_main(args)
-    if args.mode == "serve":
-        from ann3depth_tpu_torch import server as serverlib
-
-        service = make_service(args)
-        if not args.no_warmup:
-            logging.getLogger(__name__).info(
-                "warming up %d batch buckets...", len(service._buckets))
-            serverlib.warmup(service)
-        srv = serverlib.DepthServer(service, host=args.host, port=args.port)
-        print(json.dumps({"listening": f"http://{args.host}:{srv.port}",
-                          "raw_hw": list(service.raw_hw),
-                          "max_batch": service.max_batch,
-                          "device": args.device}), flush=True)
-        try:
-            srv.serve_forever()
-        except KeyboardInterrupt:
-            pass
-        finally:
-            srv.close()
-        return 0
-    raise AssertionError(args.mode)
+    return _MODES[args.mode](args)
 
 
 if __name__ == "__main__":

@@ -11,10 +11,10 @@ One dispatch thread coalesces concurrent requests into batches of at most
 `warmup(service)` runs every bucket once in the dispatch thread before
 traffic (on the card that builds the kernel and lets cuDNN pick its
 algorithms for that thread). The wiring below builds the
-torch serving fn: `service_from_config` (random-init weights) and
-`service_from_artifact` (weights from a JAX artifact's params.npz).
-Serving from a checkpoint and data-parallel serving (dp > 1) wait for a
-later slice of the port, and asking for them raises.
+torch serving fn: `service_from_config` (random-init weights or a
+checkpoint's) and `service_from_artifact` (weights from a JAX artifact's
+params.npz). Data-parallel serving (dp > 1) waits for a later slice of
+the port, and asking for it raises.
 """
 
 from __future__ import annotations
@@ -229,24 +229,23 @@ def service_from_artifact(artifact_dir, *, device=None,
 
 
 def service_from_config(cfg, *, ckpt_dir=None, init=False, raw_hw=(480, 640),
-                        dp=1, device=None, **kw) -> BatchingService:
-    """Serve the registry model of `cfg` (init=True: random-init weights
-    from cfg.train.seed) on `device` (default CUDA)."""
-    from ann3depth_tpu_torch import serving
-    from ann3depth_tpu_torch.device import resolve_device
-    from ann3depth_tpu_torch.models import registry
-    from ann3depth_tpu_torch.train import step as steplib
+                        use_ema=False, ckpt_step=None, dp=1, device=None,
+                        **kw) -> BatchingService:
+    """Serve the registry model of `cfg` on `device` (default CUDA).
 
-    if not init:
-        raise NotImplementedError(
-            f"serving from a checkpoint ({ckpt_dir or cfg.train.ckpt_dir}) is "
-            "not ported yet; pass init=True (--init) or serve an artifact")
+    init=True serves random-init weights from cfg.train.seed; otherwise the
+    params of the checkpoint in ckpt_dir (default cfg.train.ckpt_dir): the
+    latest save, or the one at ckpt_step; use_ema serves its EMA params.
+    dp > 1 (data-parallel serving) is not ported yet and raises."""
+    from ann3depth_tpu_torch import serving
+
     if dp != 1:
         raise NotImplementedError(f"dp={dp}: data-parallel serving is not "
                                   "ported yet")
-    device = resolve_device(device)
-    model = steplib.init_params(registry.build(cfg.model), cfg.train.seed)
-    model = serving.prepare_model(model, device)
+    model = serving.model_from_checkpoint(
+        cfg, ckpt_dir=ckpt_dir, use_ema=use_ema, ckpt_step=ckpt_step,
+        device=device, init=init)
+    device = next(model.parameters()).device
     fn = serving.make_serving_fn(model, cfg.data.input_hw)
     return BatchingService(serving.numpy_predictor(fn, device), raw_hw, **kw)
 

@@ -5,12 +5,14 @@ program: raw uint8 frames -> preprocess (the fused CUDA kernel on the card)
 -> model -> exp to linear depth. `load_serving` serves the weights of an
 artifact directory written by the JAX package's `export_serving`: it reads
 `meta.json` and `params.npz`; the StableHLO program beside them cannot run
-here and is not read.
+here and is not read. `model_from_checkpoint` serves the port's own
+checkpoints.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 
 import numpy as np
 import torch
@@ -21,6 +23,8 @@ from ann3depth_tpu_torch.device import resolve_device
 from ann3depth_tpu_torch.models import registry
 from ann3depth_tpu_torch.models.encdec import EncDecDepthNet
 from ann3depth_tpu_torch.pipeline import preprocess
+
+log = logging.getLogger(__name__)
 
 
 def make_serving_fn(model, input_hw):
@@ -74,6 +78,36 @@ def model_from_artifact(meta, state_dict):
     model = registry.build(cfg)
     model.load_state_dict(state_dict, strict=True)
     return model
+
+
+def model_from_checkpoint(cfg, *, ckpt_dir=None, use_ema=False,
+                          ckpt_step=None, device=None, init=False,
+                          require=True):
+    """The registry model of `cfg` on `device` (default CUDA), prepared to
+    serve, with the params of the checkpoint in ckpt_dir (default
+    cfg.train.ckpt_dir): the latest save or the one at ckpt_step, its EMA
+    params with use_ema. init=True keeps the random init from
+    cfg.train.seed. Without a checkpoint: raises when `require`, else
+    warns and keeps the random init."""
+    from ann3depth_tpu_torch.train import step as steplib
+    from ann3depth_tpu_torch.train.checkpoint import CheckpointManager
+
+    device = resolve_device(device)
+    model = steplib.init_params(registry.build(cfg.model), cfg.train.seed)
+    if not init:
+        ckpt_dir = ckpt_dir or cfg.train.ckpt_dir
+        # restore_params reads the step and the params only, so a bare
+        # model facade is enough: no optimizer is built here.
+        facade = steplib.TrainState(step=0, model=model, optimizer=None,
+                                    tx=None)
+        _, restored = CheckpointManager(ckpt_dir).restore_params(
+            facade, use_ema=use_ema, step=ckpt_step)
+        if restored is None:
+            if require:
+                raise RuntimeError(f"no checkpoint in {ckpt_dir}")
+            log.warning("no checkpoint in %s — running with random weights",
+                        ckpt_dir)
+    return prepare_model(model, device)
 
 
 def load_serving(artifact_dir, *, device=None):

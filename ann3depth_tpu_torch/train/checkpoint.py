@@ -104,3 +104,29 @@ class CheckpointManager:
             state.model.load_state_dict(saved["model"])
         state.step = int(saved["step"])
         return state, step
+
+    def restore_avg_params(self, state, k: int, use_ema: bool = False):
+        """Uniform average of the params (the EMA params with use_ema) of
+        the last k retained checkpoints, loaded into `state.model`.
+        Returns (state, [averaged steps]); state.step is the newest
+        averaged step. Raises when fewer than k checkpoints exist."""
+        if k < 1:
+            raise ValueError(f"avg_last must be >= 1, got {k}")
+        steps = self.all_steps()
+        if len(steps) < k:
+            raise ValueError(
+                f"avg_last={k} but only {len(steps)} checkpoints are "
+                f"retained in {self.dir} (steps {steps}); raise "
+                "max_to_keep / checkpoint more often or lower k")
+        steps = steps[-k:]
+        acc = None
+        for s in steps:
+            self.restore_params(state, use_ema=use_ema, step=s)
+            sd = state.model.state_dict()
+            acc = ({n: v.clone() for n, v in sd.items()} if acc is None
+                   else {n: acc[n] + v for n, v in sd.items()})
+        inv = 1.0 / float(len(steps))
+        state.model.load_state_dict({n: (v * inv).to(v.dtype)
+                                     for n, v in acc.items()})
+        state.step = steps[-1]
+        return state, steps

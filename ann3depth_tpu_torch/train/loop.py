@@ -1,12 +1,13 @@
 """Training driver and eval loop of the port, single device.
 
-Counterpart of the plain single-device path of `ann3depth_tpu/train/loop.py`
-(`build_dataset`, `resolved_target_hw`, `create_state`, `train`, and the
-sufficient-statistics path of `evaluate`): host batches go to the device,
-then `train_step`; metrics are read and logged every `log_every` steps,
-checkpoints written every `checkpoint_every`, a 4-batch eval sample scored
-every `eval_every`, and `resume` continues the step counter from the
-latest checkpoint.
+Counterpart of the single-device path of `ann3depth_tpu/train/loop.py`
+(`build_dataset`, `resolved_target_hw`, `create_state`, `train`,
+`predict_batch`, `evaluate` with its report, `restore_state_for_eval`,
+`evaluate_protocols`): host batches go to the device, then `train_step`;
+metrics are read and logged every `log_every` steps, checkpoints written
+every `checkpoint_every`, a 4-batch eval sample scored (and an rgb|gt|pred
+grid of it written to the workdir) every `eval_every`, and `resume`
+continues the step counter from the latest checkpoint.
 
 Every option of the JAX loop outside this path raises NotImplementedError
 ("not ported yet") instead of being ignored.
@@ -14,6 +15,8 @@ Every option of the JAX loop outside this path raises NotImplementedError
 
 from __future__ import annotations
 
+import heapq
+import json
 import logging
 import math
 import os
@@ -202,6 +205,7 @@ def train(cfg: Config, *, workdir: Optional[str] = None, dataset=None,
                 writer.write(step_no + 1,
                              {**{f"eval_{k}": v for k, v in em.items()},
                               "eval_batches": EVAL_SAMPLE_BATCHES})
+                _write_viz(cfg, state, eval_ds, workdir, step_no + 1)
                 if progress:
                     log.info("eval @%d rmse=%.3f abs_rel=%.3f", step_no + 1,
                              em["rmse"], em["abs_rel"])
@@ -216,37 +220,195 @@ def train(cfg: Config, *, workdir: Optional[str] = None, dataset=None,
     return state, metrics
 
 
+def predict_batch(cfg: Config, state, img_u8, depth):
+    """(normalized imgs, resized depth, linear pred as numpy) of one raw
+    batch on the model's device, for viz and eval tooling."""
+    from ann3depth_tpu_torch.pipeline import preprocess
+
+    images, depths = preprocess.preprocess_batch(
+        img_u8, depth, cfg.data.input_hw, resolved_target_hw(cfg))
+    with torch.inference_mode():
+        pred_log = state.model(images)
+    return images, depths, np.exp(pred_log[..., 0].cpu().numpy())
+
+
+def _write_viz(cfg: Config, state, dataset, workdir, step):
+    """Render an (rgb | gt | pred) triple grid from the eval split."""
+    from ann3depth_tpu_torch.utils import viz
+
+    img_np, dep_np = next(dataset.batches(min(4, cfg.train.batch_size),
+                                          steps=1, shuffle=False))
+    dev = next(state.model.parameters()).device
+    images, depths, pred = predict_batch(cfg, state,
+                                         torch.from_numpy(img_np).to(dev),
+                                         torch.from_numpy(dep_np).to(dev))
+    return viz.write_triple_summary(workdir, step, images.cpu().numpy(),
+                                    depths.cpu().numpy(), pred)
+
+
+def _check_eval_ported(cfg: Config):
+    if cfg.data.cache_device:
+        raise NotImplementedError(
+            "eval --cache-device (an on-device eval pool) is not ported "
+            "yet; eval reads the host feed")
+
+
 def evaluate(cfg: Config, state=None, dataset=None, max_batches=None,
-             device=None, tta="", align="", crop=""):
+             device=None, use_ema=False, report_dir=None, report_worst=8,
+             ckpt_step=None, tta="", avg_last=None, align="", crop=""):
     """Eval loop: sum the sufficient statistics of every batch of the test
     split (as device scalars, one host read at the end) and finalize once,
     so the dataset RMSE is over all valid pixels of the split.
 
-    state None -> a fresh state on `device` with the params of the latest
-    checkpoint in cfg.train.ckpt_dir."""
+    state None -> a fresh state on `device` with the params restored from
+    cfg.train.ckpt_dir (`restore_state_for_eval`: the latest save, the save
+    at ckpt_step, or the mean of the last avg_last saves; the EMA params
+    with use_ema).
+
+    tta="flip", align="median" and crop="eigen"|"garg" as in
+    `train.step.eval_stats_step`.
+
+    report_dir: also write per-image error attribution: per_image.jsonl
+    (one metrics row per test image, split order), worst.png (a rgb|gt|pred
+    triple grid of the report_worst highest-RMSE images) and summary.json.
+    The dataset metrics then come from the same per-image statistics."""
+    _check_eval_ported(cfg)
     dataset = dataset or build_dataset(cfg, "test")
     if state is None:
-        state = create_state(cfg, resolve_device(device))
-        ckpt = CheckpointManager(cfg.train.ckpt_dir)
-        state, restored = ckpt.restore_params(state)
-        if restored is None:
-            raise RuntimeError(f"no checkpoint in {cfg.train.ckpt_dir}")
+        state = restore_state_for_eval(cfg, use_ema=use_ema,
+                                       ckpt_step=ckpt_step,
+                                       avg_last=avg_last, device=device)
     dev = next(state.model.parameters()).device
+    batch_size = cfg.train.batch_size
     step_kw = dict(input_hw=tuple(cfg.data.input_hw),
                    target_hw=resolved_target_hw(cfg),
                    si_lambda=cfg.train.si_lambda, loss_kind=cfg.train.loss,
                    tta=tta, align=align, crop=crop)
     totals = {}
+    rows, worst = [], []  # report mode: per-image rows + worst-K heap
     for b, (img_np, dep_np) in enumerate(dataset.batches(
-            cfg.train.batch_size, steps=max_batches, shuffle=False)):
-        stats = steplib.eval_stats_step(
-            state, torch.from_numpy(img_np).to(dev),
-            torch.from_numpy(dep_np).to(dev), **step_kw)
-        for k, v in stats.items():
-            totals[k] = totals[k] + v if k in totals else v
+            batch_size, steps=max_batches, shuffle=False)):
+        img_u8 = torch.from_numpy(img_np).to(dev)
+        depth = torch.from_numpy(dep_np).to(dev)
+        if report_dir is None:
+            stats = steplib.eval_stats_step(state, img_u8, depth, **step_kw)
+            for k, v in stats.items():
+                totals[k] = totals[k] + v if k in totals else v
+        else:
+            per, images, depths, pred_log = steplib.eval_report_step(
+                state, img_u8, depth, **step_kw)
+            per = {k: v.cpu().numpy() for k, v in per.items()}
+            bsz = per["n_valid"].shape[0]
+            batch_tot = {k: float(v.sum()) for k, v in per.items()
+                         if k != "si_loss"}
+            batch_tot["n_images"] = float(bsz)
+            batch_tot["sum_si_loss"] = float(per["si_loss"].sum())
+            for k, v in batch_tot.items():
+                totals[k] = totals.get(k, 0.0) + v
+            fin = losses.finalize_depth_metrics(
+                {**{k: v for k, v in per.items() if k != "si_loss"},
+                 "sum_si_loss": per["si_loss"],
+                 "n_images": np.ones(bsz, np.float32)})
+            for i in range(bsz):
+                idx = b * batch_size + i
+                rows.append({"index": idx,
+                             **{k: float(v[i]) for k, v in fin.items()}})
+                r = float(fin["rmse"][i])
+                if report_worst > 0 and (len(worst) < report_worst
+                                         or r > worst[0][0]):
+                    payload = (images[i].cpu().numpy(),
+                               depths[i].cpu().numpy(),
+                               np.exp(pred_log[i].cpu().numpy()[..., 0]))
+                    heapq.heappush(worst, (r, idx, payload))
+                    if len(worst) > report_worst:
+                        heapq.heappop(worst)
         if max_batches is not None and b + 1 >= max_batches:
             break
     if not totals:
         raise ValueError("eval split yielded no batches")
-    return losses.finalize_depth_metrics(
+    metrics = losses.finalize_depth_metrics(
         {k: float(v) for k, v in totals.items()})
+    if report_dir is not None:
+        _write_eval_report(report_dir, rows, worst, metrics)
+    return metrics
+
+
+def restore_state_for_eval(cfg: Config, use_ema=False, ckpt_step=None,
+                           avg_last=None, device=None):
+    """A state on `device` (default the card) with params restored once
+    from cfg.train.ckpt_dir, for the eval-family consumers (shared by
+    multi-dataset and multi-protocol eval)."""
+    state = create_state(cfg, resolve_device(device))
+    ckpt = CheckpointManager(cfg.train.ckpt_dir)
+    if avg_last:
+        if ckpt_step is not None:
+            raise ValueError("avg_last and ckpt_step are exclusive "
+                             "(the average spans the last k saves)")
+        state, restored = ckpt.restore_avg_params(state, avg_last,
+                                                  use_ema=use_ema)
+    else:
+        state, restored = ckpt.restore_params(state, use_ema=use_ema,
+                                              step=ckpt_step)
+    if restored is None:
+        raise RuntimeError(f"no checkpoint in {cfg.train.ckpt_dir}")
+    return state
+
+
+def evaluate_protocols(cfg: Config, protocols, *, state=None, use_ema=False,
+                       ckpt_step=None, avg_last=None, max_batches=None,
+                       tta="flip", align="median", crop="eigen",
+                       dataset=None, device=None):
+    """Score several eval-protocol variants from one restored checkpoint.
+
+    protocols: tokens, 'plain' or '+'-joined subsets of {'tta', 'align',
+    'crop'} (e.g. 'tta', 'tta+align+crop'); the tta/align/crop arguments
+    supply each component's value when present. Returns {token: metrics
+    dict}. No report_dir (one report per variant would be ambiguous)."""
+    if not protocols:
+        raise ValueError("protocols must be a non-empty list of tokens")
+    parsed = {}
+    for token in protocols:
+        parts = frozenset() if token == "plain" else frozenset(
+            token.split("+"))
+        unknown = parts - {"tta", "align", "crop"}
+        if unknown:
+            raise ValueError(
+                f"unknown protocol component(s) {sorted(unknown)} in "
+                f"{token!r}; tokens are 'plain' or '+'-joined subsets of "
+                "tta|align|crop")
+        parsed[token] = parts
+    _check_eval_ported(cfg)
+    dataset = dataset or build_dataset(cfg, "test")
+    if state is None:
+        state = restore_state_for_eval(cfg, use_ema=use_ema,
+                                       ckpt_step=ckpt_step,
+                                       avg_last=avg_last, device=device)
+    return {token: evaluate(cfg, state=state, dataset=dataset,
+                            max_batches=max_batches,
+                            tta=tta if "tta" in parts else "",
+                            align=align if "align" in parts else "",
+                            crop=crop if "crop" in parts else "")
+            for token, parts in parsed.items()}
+
+
+def _write_eval_report(report_dir, rows, worst, metrics):
+    """per_image.jsonl + worst.png triple grid + summary.json."""
+    from ann3depth_tpu_torch.utils import viz
+
+    os.makedirs(report_dir, exist_ok=True)
+    with open(os.path.join(report_dir, "per_image.jsonl"), "w") as f:
+        for row in rows:
+            f.write(json.dumps(row) + "\n")
+    ranked = sorted(worst, key=lambda t: -t[0])  # worst first
+    if ranked:
+        imgs = np.stack([p[0] for _, _, p in ranked])
+        gts = np.stack([p[1] for _, _, p in ranked])
+        preds = np.stack([p[2] for _, _, p in ranked])
+        grid = viz.triple_grid(imgs, gts, preds, max_rows=len(ranked))
+        viz.save_png(os.path.join(report_dir, "worst.png"), grid)
+    with open(os.path.join(report_dir, "summary.json"), "w") as f:
+        json.dump({"metrics": metrics, "images": len(rows),
+                   "worst": [{"index": idx, "rmse": r}
+                             for r, idx, _ in ranked]}, f, indent=2)
+    log.info("eval report: %d images -> %s (worst %d rendered)",
+             len(rows), report_dir, len(ranked))

@@ -25,6 +25,7 @@ import dataclasses
 import math
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from ann3depth_tpu_torch.compat import reference_spec as ref
@@ -369,3 +370,13 @@ def infer_step(model, img_u8, *, input_hw, tta=""):
     """Raw uint8 frames [B,H,W,3] -> linear depth maps [B,h,w]."""
     images = preprocess.preprocess_image(img_u8, input_hw)
     return torch.exp(apply_with_tta(model, images, tta)[..., 0])
+
+
+def infer_image(model, img_u8, *, input_hw, tta=""):
+    """One decoded uint8 numpy frame [H,W,3] -> linear depth, numpy f32
+    [h,w]: `infer_step` on the model's device (the device half of
+    `cli infer --image`)."""
+    dev = next(model.parameters()).device
+    x = torch.from_numpy(np.array(img_u8, dtype=np.uint8))
+    return infer_step(model, x[None].to(dev), input_hw=input_hw,
+                      tta=tta)[0].cpu().numpy()

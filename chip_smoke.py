@@ -32,6 +32,19 @@ last line is printed:
    K steps of `step_on_batch` fed by v1, by v2 and by the plain
    preprocess, each timed, with the same augmentation draws; check that v2
    launched in every step and that the v1- and v2-fed losses agree.
+6. Eval, infer and live on phase 4's checkpoint (50 steps, full width):
+   `cli eval` plain, with a report and tta, and with two protocols (finite
+   metrics, two kernel calls a batch; the plain run against the same eval
+   fed by the plain preprocess, and against a control that is one source
+   pixel off); serving the checkpoint, one round, then each of its batches
+   against the restored model fed by the plain preprocess; the headless
+   live viewer on the `live` config at 640x480, 30 fps, 300 frames,
+   without and with smoothing (fps, latency p50/p99, the native ring, a
+   kernel call every frame), the engine's device-program latency and
+   latency decomposition and its frames (one of uniform noise) against
+   plain-fed `live_step`; the `infer --image` device helper and the
+   transcode device loop at batch 8 on 64 frames. The v1 kernel is held
+   and timed at the live (b1, uniform noise) and eval (b16) image shapes.
 
 The last lines are one `{"kernels": [...]}` JSON line, the nvidia-smi line
 of the card, and `{"ok": true, "device": {...}}`.
@@ -39,10 +52,13 @@ of the card, and `{"ok": true, "device": {...}}`.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
@@ -76,6 +92,16 @@ STEP_LOSS_RTOL = 1e-2
 K_STEPS = 20
 INSTEP_LOSS_RTOL = 5e-2
 TRAIN_STEPS, RESUME_STEPS = 40, 50
+# Phase 6. Eval fed by the kernel vs the plain preprocess, same restored
+# model and batches: the inputs agree to f32 summation order and the model
+# rounds them to bf16, so a metric moves only where an input rounds to the
+# other bf16 neighbour. The tolerance lies between the largest such reading
+# and that of a control whose image window is one source pixel off
+# (`_shifted_window`), which every run checks it fails.
+EVAL_METRIC_RTOL = 3e-4
+EVAL_BATCHES = 2
+LIVE_FRAMES = 300
+TRANSCODE_BATCH, TRANSCODE_FRAMES = 8, 64
 
 
 def check(cond, msg):
@@ -132,33 +158,37 @@ def bound(fp, frames, params, out_hw, depth_mode):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def device_ms(torch, fn, iters=20, warmup=3):
+def device_ms(torch, fn, iters=20, warmup=3, attempts=3):
     """Device time per call of `fn` from torch.profiler: the durations of
     the CUDA kernels it launches, summed over `iters` calls, in total and by
     kind ("resample", "photometric" for the port's kernels, else the
-    kernel's name)."""
+    kernel's name). A trace now and then comes back without its device
+    activity; it is taken again, up to `attempts` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
     by_kind = {}
-    for e in prof.events():
-        if (e.device_type != DeviceType.CUDA
-                or getattr(e, "is_user_annotation", False)):
-            continue
-        kind = ("resample" if "band_resample_kernel" in e.name else
-                "photometric" if "photometric_kernel" in e.name else
-                e.name[:60])
-        dur = (e.time_range.end - e.time_range.start) / 1e3 / iters
-        by_kind[kind] = by_kind.get(kind, 0.0) + dur
-    check(by_kind, "the profiler recorded no kernel")
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if (e.device_type != DeviceType.CUDA
+                    or getattr(e, "is_user_annotation", False)):
+                continue
+            kind = ("resample" if "band_resample_kernel" in e.name else
+                    "photometric" if "photometric_kernel" in e.name else
+                    e.name[:60])
+            dur = (e.time_range.end - e.time_range.start) / 1e3 / iters
+            by_kind[kind] = by_kind.get(kind, 0.0) + dur
+        if by_kind:
+            break
+    check(by_kind, f"the profiler recorded no kernel in {attempts} traces")
     return sum(by_kind.values()), by_kind
 
 
@@ -185,10 +215,42 @@ def timings(torch, kernel, plain, plain_iters=20):
                 plain_ms=time_ms(plain, iters=plain_iters))
 
 
-def kernel_cases(torch, fp, resize, ref):
-    """Phase 2: fused_preprocess vs plain_preprocess on the card."""
+def image_case(torch, fp, name, src, params, library, out_hw=(240, 320)):
+    """One image case of the v1 kernel: held against plain_preprocess, its
+    timings and bound, and with `library` the time of the antialiased
+    resize alone through F.interpolate."""
     import torch.nn.functional as F
 
+    got = fp.fused_preprocess(src, params, out_hw=out_hw)
+    want = fp.plain_preprocess(src, params, out_hw=out_hw)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+    check(err <= IMAGE_TOL, f"{name}: max abs err {err} > {IMAGE_TOL}")
+    bound_ms, bound_by = bound(fp, src, params, out_hw, False)
+    case = dict(
+        case=name, max_abs_err=err, tol=IMAGE_TOL,
+        photo_frames=int((params[:, 7] > 0.5).sum()),
+        **timings(torch,
+                  lambda: fp.fused_preprocess(src, params, out_hw=out_hw),
+                  lambda: fp.plain_preprocess(src, params, out_hw=out_hw),
+                  plain_iters=5),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    if library:
+        # The resize alone, antialiased, on the frames already in f32.
+        x = src.permute(0, 3, 1, 2).float()
+        case["library_ms"] = device_ms(torch, lambda: F.interpolate(
+            x, size=out_hw, mode="bilinear", antialias=True,
+            align_corners=False))[0]
+        case["library_call"] = ("F.interpolate(bilinear, antialias) of "
+                                "the f32 frames (resize only)")
+        del x
+    print(json.dumps(case), flush=True)
+    return case
+
+
+def kernel_cases(torch, fp, resize, ref):
+    """Phase 2: fused_preprocess vs plain_preprocess on the card."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     frames = torch.randint(0, 256, (32, 480, 640, 3), dtype=torch.uint8,
@@ -204,34 +266,9 @@ def kernel_cases(torch, fp, resize, ref):
             ("image u8 [16,480,640,3] -> [240,320], augment rows (train)",
              frames[:16], fp.augment_params(train_gen, 16, (480, 640),
                                             (240, 320), device=dev))):
-        got = fp.fused_preprocess(src, params, out_hw=(240, 320))
-        want = fp.plain_preprocess(src, params, out_hw=(240, 320))
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
-        check(err <= IMAGE_TOL, f"{name}: max abs err {err} > {IMAGE_TOL}")
-        bound_ms, bound_by = bound(fp, src, params, (240, 320), False)
-        case = dict(
-            case=name, max_abs_err=err, tol=IMAGE_TOL,
-            photo_frames=int((params[:, 7] > 0.5).sum()),
-            **timings(torch,
-                      lambda: fp.fused_preprocess(src, params,
-                                                  out_hw=(240, 320)),
-                      lambda: fp.plain_preprocess(src, params,
-                                                  out_hw=(240, 320)),
-                      plain_iters=5),
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
-        if "identity" in name or "train" in name:
-            # The resize alone, antialiased, on the frames already in f32.
-            x = src.permute(0, 3, 1, 2).float()
-            case["library_ms"] = device_ms(torch, lambda: F.interpolate(
-                x, size=(240, 320), mode="bilinear", antialias=True,
-                align_corners=False))[0]
-            case["library_call"] = ("F.interpolate(bilinear, antialias) of "
-                                    "the f32 frames (resize only)")
-            del x
-        cases.append(case)
-        print(json.dumps(case), flush=True)
+        cases.append(image_case(
+            torch, fp, name, src, params,
+            library="identity" in name or "train" in name))
 
     # Eval depth: Make3D laser grid with a saturated band and missing
     # pixels; frame 0 is the no-blend probe (constant 50 m, right half 81 m).
@@ -522,10 +559,10 @@ def device_profile(torch, fn, steps, step_ms):
                                          for k, v in top})
 
 
-def train_slice(torch, np, fp, card):
-    """Phase 4: the training path of make3d-encdec at full width."""
+def train_slice(torch, np, fp, card, tmp):
+    """Phase 4: the training path of make3d-encdec at full width; its
+    checkpoints stay in `tmp`/ckpt for phase 6."""
     import dataclasses
-    import tempfile
 
     from ann3depth_tpu_torch.pipeline import preprocess
     from ann3depth_tpu_torch.train import loop
@@ -541,27 +578,27 @@ def train_slice(torch, np, fp, card):
         seen.append(metrics["loss"])
         return state, metrics
 
-    with tempfile.TemporaryDirectory() as tmp:
-        cfg = _train_config(tmp)
-        resumed = dataclasses.replace(cfg, train=dataclasses.replace(
-            cfg.train, steps=RESUME_STEPS, resume=True))
-        steplib.train_step = recording_step
-        try:
-            fp.fused_preprocess.launches = 0
-            fp.fused_preprocess_v2.launches = 0
-            t0 = time.perf_counter()
-            state, _ = loop.train(cfg, workdir=tmp, progress=False)
-            first_s = time.perf_counter() - t0
-            launches = fp.fused_preprocess.launches
-            v2_in_loop = fp.fused_preprocess_v2.launches
-            fp.fused_preprocess.launches = 0
-            state2, last = loop.train(resumed, workdir=tmp, progress=False)
-            resume_launches = fp.fused_preprocess.launches
-        finally:
-            steplib.train_step = inner
-        with open(f"{tmp}/metrics.jsonl") as f:
-            records = [json.loads(line) for line in f]
-        saved = CheckpointManager(cfg.train.ckpt_dir).all_steps()
+    cfg = _train_config(tmp)
+    resumed = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, steps=RESUME_STEPS, resume=True))
+    steplib.train_step = recording_step
+    try:
+        fp.fused_preprocess.launches = 0
+        fp.fused_preprocess_v2.launches = 0
+        t0 = time.perf_counter()
+        state, _ = loop.train(cfg, workdir=tmp, progress=False)
+        first_s = time.perf_counter() - t0
+        launches = fp.fused_preprocess.launches
+        v2_in_loop = fp.fused_preprocess_v2.launches
+        fp.fused_preprocess.launches = 0
+        state2, last = loop.train(resumed, workdir=tmp, progress=False)
+        resume_launches = fp.fused_preprocess.launches
+    finally:
+        steplib.train_step = inner
+    with open(f"{tmp}/metrics.jsonl") as f:
+        records = [json.loads(line) for line in f]
+    saved = CheckpointManager(cfg.train.ckpt_dir).all_steps()
+    grids = sorted(p for p in os.listdir(tmp) if p.startswith("triples_"))
 
     losses = torch.stack(seen).float().cpu().numpy()
     check(len(losses) == RESUME_STEPS, f"{len(losses)} steps ran, not "
@@ -580,10 +617,13 @@ def train_slice(torch, np, fp, card):
     check(len(evals) == 2 and bool(np.isfinite(evals).all()),
           f"in-loop evals {evals}")
     check(saved == [20, 40, 50], f"checkpoints at {saved}")
-    eval_batches = loop.EVAL_SAMPLE_BATCHES * len(evals)
+    check(grids == ["triples_step0000020.png", "triples_step0000040.png"],
+          f"eval grids {grids}")
+    # Each in-loop eval also renders its rgb|gt|pred grid: one more batch.
+    eval_batches = (loop.EVAL_SAMPLE_BATCHES + 1) * len(evals)
     check(launches == 2 * TRAIN_STEPS + 2 * eval_batches,
           f"fused_preprocess launched {launches} times in {TRAIN_STEPS} "
-          f"steps and {eval_batches} eval batches")
+          f"steps and {eval_batches} eval and grid batches")
     check(resume_launches == 2 * (RESUME_STEPS - TRAIN_STEPS),
           f"fused_preprocess launched {resume_launches} times on resume")
     check(v2_in_loop == 0, "the loop ran the v2 kernel")
@@ -703,6 +743,382 @@ def v2_in_step(torch, fp, cfg, img, dep, card):
     return out
 
 
+def _cli_json(cli, argv):
+    """Run the port's CLI; its last line of output, as JSON."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    check(rc == 0, f"cli {argv[0]} returned {rc}")
+    return json.loads(out.getvalue().strip().splitlines()[-1])
+
+
+def _all_finite(np, metrics):
+    return bool(metrics) and all(
+        _all_finite(np, v) if isinstance(v, dict) else bool(np.isfinite(v))
+        for v in metrics.values())
+
+
+@contextlib.contextmanager
+def fed_by(fp, preprocess_fn):
+    """Within the block every path's v1 preprocess (the pipeline calls
+    `fp.fused_preprocess` through the module) runs `preprocess_fn`, a
+    function of its signature: `fp.plain_preprocess` gives the plain-fed
+    path that a kernel-fed one is held against."""
+    kernel = fp.fused_preprocess
+    fp.fused_preprocess = preprocess_fn
+    try:
+        yield
+    finally:
+        fp.fused_preprocess = kernel
+
+
+def _shifted_window(fp):
+    """plain_preprocess with each image's source window moved one source
+    pixel down and right (a band off by one), depth as it is: the control
+    that EVAL_METRIC_RTOL must fail."""
+    def shifted(frames, params, *, out_hw, norm=True, depth_mode=False):
+        if not depth_mode:
+            params = params.clone()
+            params[:, 0] += 1.0
+            params[:, 2] += 1.0
+        return fp.plain_preprocess(frames, params, out_hw=out_hw, norm=norm,
+                                   depth_mode=depth_mode)
+    return shifted
+
+
+def eval_phase(torch, np, fp, cfg, tmp, card):
+    """Phase 6, eval: `cli eval` on phase 4's checkpoint (plain, with a
+    report and tta, with two protocols); the plain run against the same
+    eval fed by the plain preprocess; the device rate of the eval step; the
+    kernel at the eval image shape."""
+    from ann3depth_tpu_torch import cli
+    from ann3depth_tpu_torch.train import loop
+    from ann3depth_tpu_torch.train import step as steplib
+
+    flags = ["--config", "make3d-encdec", "--datasets", "synthetic",
+             "--synth-hw", "480", "640", "--synth-depth-hw", "305", "55",
+             "--ckpt-dir", cfg.train.ckpt_dir,
+             "--max-batches", str(EVAL_BATCHES)]
+    report = f"{tmp}/report"
+    runs = {}
+    for name, extra, n_protocols in (
+            ("plain", [], 1),
+            ("report_tta", ["--report-dir", report, "--tta", "flip"], 1),
+            ("protocols", ["--protocols", "plain,tta+align+crop"], 2)):
+        fp.fused_preprocess.launches = 0
+        t0 = time.perf_counter()
+        metrics = _cli_json(cli, ["eval"] + flags + extra)
+        seconds = time.perf_counter() - t0
+        launches = fp.fused_preprocess.launches
+        check(_all_finite(np, metrics), f"eval {name}: {metrics}")
+        check(launches == 2 * EVAL_BATCHES * n_protocols,
+              f"eval {name} launched the kernel {launches} times in "
+              f"{EVAL_BATCHES * n_protocols} batches")
+        runs[name] = dict(metrics=metrics, seconds=seconds,
+                          launches=launches)
+    with open(f"{report}/per_image.jsonl") as f:
+        rows = f.readlines()
+    check(len(rows) == 16 * EVAL_BATCHES and os.path.exists(
+        f"{report}/worst.png") and os.path.exists(f"{report}/summary.json"),
+        f"eval report: {len(rows)} rows, {os.listdir(report)}")
+    check(sorted(runs["protocols"]["metrics"]) == ["plain",
+                                                    "tta+align+crop"],
+          "eval protocols")
+
+    # The plain run against the same eval fed by plain_preprocess, and
+    # against the control, a resample off by one source pixel.
+    state = loop.restore_state_for_eval(cfg)
+    kernel = runs["plain"]["metrics"]
+    rel = {}
+    for name, fn in (("plain_fed", fp.plain_preprocess),
+                     ("shifted_window_control", _shifted_window(fp))):
+        with fed_by(fp, fn):
+            other = loop.evaluate(cfg, state=state, max_batches=EVAL_BATCHES)
+        rel[name] = {k: abs(kernel[k] - other[k]) / max(abs(other[k]), 1e-3)
+                     for k in other}
+    worst = {name: max(r.values()) for name, r in rel.items()}
+    check(worst["plain_fed"] <= EVAL_METRIC_RTOL
+          < worst["shifted_window_control"],
+          f"eval metrics, largest relative difference of the kernel-fed "
+          f"run: {worst} (tolerance {EVAL_METRIC_RTOL} must hold the "
+          f"plain-fed run and fail the control)")
+
+    # Device rate of the eval step on one device-resident b16 batch.
+    img_np, dep_np = next(loop.build_dataset(cfg, "test").batches(
+        16, steps=1, shuffle=False))
+    img = torch.from_numpy(img_np).cuda()
+    dep = torch.from_numpy(dep_np).cuda()
+    kw = dict(input_hw=tuple(cfg.data.input_hw),
+              target_hw=loop.resolved_target_hw(cfg),
+              si_lambda=cfg.train.si_lambda)
+    rate = {}
+    for tta in ("", "flip"):
+        ms = time_ms(lambda: steplib.eval_stats_step(state, img, dep,
+                                                     tta=tta, **kw))
+        rate[tta or "plain"] = dict(ms_per_batch=ms,
+                                    images_per_s=16 / ms * 1e3)
+    case = image_case(
+        torch, fp, "image u8 [16,480,640,3] -> [240,320], identity rows "
+        "(eval)", img, fp.identity_params(16, (480, 640), (240, 320),
+                                          device=img.device), library=True)
+    out = dict(runs=runs, report_rows=len(rows), rel_to=rel,
+               largest_rel=worst, rtol=EVAL_METRIC_RTOL,
+               eval_step_device_rate=rate, card=card)
+    print("eval: " + json.dumps(out), flush=True)
+    return out, case
+
+
+def _plain_log_depth(torch, fp, model, input_hw, frames):
+    """The model's log-depth of u8 numpy frames fed by the plain
+    preprocess, as one batch."""
+    from ann3depth_tpu_torch.pipeline import preprocess
+
+    with torch.inference_mode(), fed_by(fp, fp.plain_preprocess):
+        x = torch.from_numpy(frames).cuda()
+        return model(preprocess.preprocess_image(
+            x, input_hw))[..., 0].cpu().numpy()
+
+
+def serve_checkpoint(torch, np, fp, cfg, card):
+    """Phase 6, serve from phase 4's checkpoint: one HTTP round of 12
+    frames; after it, each dispatched batch against the restored model fed
+    by the plain preprocess on the same batch (cuDNN picks its algorithms
+    per batch size, so the same batch is the yardstick)."""
+    from ann3depth_tpu_torch import server, serving
+    from ann3depth_tpu_torch.probe_serving import (http_round, request_bodies,
+                                                   round_stats)
+
+    raw_hw = (480, 640)
+    svc = server.service_from_config(cfg, raw_hw=raw_hw, max_batch=32,
+                                     max_delay_s=0.005, device="cuda")
+    model = serving.model_from_checkpoint(cfg, device="cuda")
+    dispatched = []
+
+    def recorded(frames):
+        out = served(frames)
+        dispatched.append((frames, out))  # the batcher stacks a new array
+        return out
+
+    srv = None
+    try:
+        server.warmup(svc)
+        served, svc._fn = svc._fn, recorded
+        srv = server.DepthServer(svc, host="127.0.0.1", port=0)
+        srv.serve_background()
+        frames = np.random.default_rng(2).integers(
+            0, 256, (12, *raw_hw, 3), dtype=np.uint8)
+        fp.fused_preprocess.launches = 0
+        results, elapsed = http_round(
+            f"http://127.0.0.1:{srv.port}/v1/depth", request_bodies(frames))
+        launches = fp.fused_preprocess.launches
+    finally:
+        if srv is not None:
+            srv.close()
+        else:
+            svc.close()
+    check(launches > 0, "the served checkpoint never launched the kernel")
+    answers = [np.load(io.BytesIO(r[0])) for r in results[:8]]
+    answers += list(np.load(io.BytesIO(results[8][0])))
+    answers = np.stack(answers)
+    check(answers.shape == (12, 120, 160) and bool(
+        np.isfinite(answers).all() and (answers > 0).all()),
+        f"served answers {answers.shape}")
+    check(dispatched, "the round dispatched no batch")
+    err = max(float(np.abs(np.log(out) - _plain_log_depth(
+        torch, fp, model, cfg.data.input_hw, batch)).max())
+        for batch, out in dispatched)
+    check(err <= SERVE_LOG_TOL, f"served checkpoint differs from the plain "
+          f"path by {err} > {SERVE_LOG_TOL}")
+    out = dict(frames=12, launches=launches, frames_per_s=12 / elapsed,
+               **round_stats(results, elapsed), batches=len(dispatched),
+               max_log_depth_err_vs_plain_same_batch=err, tol=SERVE_LOG_TOL,
+               card=card)
+    print("serve_ckpt: " + json.dumps(out), flush=True)
+    return out
+
+
+def _live_close(np, live, got, want, name):
+    """(depth, rendered) numpy pairs: log-depth within SERVE_LOG_TOL (bf16
+    model, inputs that agree to f32 summation order, same batch size), and
+    LUT indices within what that depth difference can move them: the
+    normalized depth moves by at most 3 err / (hi - lo) for a log-depth
+    error err (the value, the min and the range), the display resize is a
+    convex combination, and the int cast adds 1."""
+    (gd, gr), (wd, wr) = got, want
+    err = float(np.abs(np.log(gd) - np.log(wd)).max())
+    check(err <= SERVE_LOG_TOL, f"{name}: log-depth err {err}")
+    logd = np.log(wd).reshape(-1, *wd.shape[-2:])
+    span = max(float((logd.max(axis=(1, 2))
+                      - logd.min(axis=(1, 2))).min()), 1e-6)
+    index_tol = 1 + int(255 * 3 * err / span)
+    d = live.lut_index_distance(gr, wr)
+    check(int(d.max()) <= index_tol,
+          f"{name}: LUT index distance {int(d.max())} > {index_tol}")
+    return dict(log_err=err, index_max=int(d.max()), index_tol=index_tol,
+                index_differ_share=float((d > 0).mean()))
+
+
+def live_phase(torch, np, fp, cfg, card):
+    """Phase 6, live: the headless viewer on the `live` config at 640x480,
+    30 fps, without and with smoothing; the engine's device-program latency
+    and latency decomposition; the engine against plain-fed live_step; the
+    kernel at the live shape (b1)."""
+    import dataclasses
+
+    from ann3depth_tpu_torch import serving
+    from ann3depth_tpu_torch.config import get_config
+    from ann3depth_tpu_torch.live import infer as live
+    from ann3depth_tpu_torch.live import viewer
+    from ann3depth_tpu_torch.live.capture import SyntheticSource
+
+    base = get_config("live")
+    live_cfg = dataclasses.replace(base, train=dataclasses.replace(
+        base.train, ckpt_dir=cfg.train.ckpt_dir))
+    frame_hw, input_hw = live_cfg.live.frame_hw, live_cfg.data.input_hw
+    model = serving.model_from_checkpoint(live_cfg, device="cuda")
+    runs, launches = {}, 0
+    for smooth in (0.0, 0.8):
+        c = dataclasses.replace(live_cfg, live=dataclasses.replace(
+            live_cfg.live, smooth=smooth))
+        fp.fused_preprocess.launches = 0
+        stats = viewer.run(c, display=False, max_frames=LIVE_FRAMES,
+                           source=SyntheticSource(frame_hw,
+                                                  fps=c.live.target_fps),
+                           model=model)
+        n = fp.fused_preprocess.launches
+        check(stats["frames"] == LIVE_FRAMES and stats["ring_native"],
+              f"live (smooth {smooth}): {stats}")
+        # the warmup frame, every frame shown, and at most one in flight
+        check(LIVE_FRAMES + 1 <= n <= LIVE_FRAMES + 2,
+              f"live launched the kernel {n} times for {LIVE_FRAMES} frames")
+        runs[f"smooth_{smooth}"] = dict(stats, launches=n)
+        launches += n
+
+    engine = live.LiveEngine(model, frame_hw, input_hw)
+    # The engine alone, one frame at a time from the host, no capture
+    # thread: what a frame costs outside the viewer's loop.
+    frame = SyntheticSource(frame_hw, seed=3).read()
+    alone = [engine.infer(frame)[2] * 1e3 for _ in range(100)]
+    engine_alone = dict(p50_ms=float(np.percentile(alone, 50)),
+                        p99_ms=float(np.percentile(alone, 99)))
+    program_ms = engine.device_step_latency(200) * 1e3
+    decomposition = engine.latency_decomposition()
+    # A uniform-noise frame: the synthetic source's rows are constant, so
+    # its frames cannot tell one resample from another.
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    noise = torch.randint(0, 256, (1, *frame_hw, 3), dtype=torch.uint8,
+                          device="cuda", generator=gen)
+    profile = device_profile(torch, lambda: engine._step(noise), 20,
+                             program_ms)
+
+    src = SyntheticSource(frame_hw, seed=1)
+    frames = [noise[0].cpu().numpy()] + [src.read() for _ in range(2)]
+    plain_kw = dict(input_hw=input_hw, display_hw=frame_hw)
+    parity = {}
+    for i, f in enumerate(frames):
+        d, r, _ = engine.infer(f, fetch_depth=True)
+        with fed_by(fp, fp.plain_preprocess):
+            wd, wr = live.live_step(model, torch.from_numpy(f)[None].cuda(),
+                                    **plain_kw)
+        parity[f"frame{i}"] = _live_close(
+            np, live, (d, r), (wd[0].cpu().numpy(), wr[0].cpu().numpy()),
+            f"live frame {i}")
+    smoothed = live.LiveEngine(model, frame_hw, input_hw, smooth=0.8)
+    carry = torch.zeros((1, input_hw[0] // 2, input_hw[1] // 2),
+                        device="cuda")
+    for i, f in enumerate(frames):
+        d, r, _ = smoothed.infer(f, fetch_depth=True)
+        with fed_by(fp, fp.plain_preprocess):
+            wd, wr, carry = live.live_step(
+                model, torch.from_numpy(f)[None].cuda(), smooth=0.8,
+                prev_log=carry, has_prev=torch.tensor(float(i > 0),
+                                                      device="cuda"),
+                **plain_kw)
+        parity[f"smooth_frame{i}"] = _live_close(
+            np, live, (d, r), (wd[0].cpu().numpy(), wr[0].cpu().numpy()),
+            f"smoothed live frame {i}")
+
+    case = image_case(
+        torch, fp, "image u8 [1,480,640,3] -> [240,320], identity rows "
+        "(live, uniform noise)", noise,
+        fp.identity_params(1, frame_hw, input_hw, device=noise.device),
+        library=True)
+    out = dict(runs=runs, engine_infer_alone=engine_alone,
+               device_step_latency_ms=program_ms,
+               latency_decomposition=decomposition,
+               device_profile=profile or "not measured: no kernel in the "
+               "trace", parity_vs_plain_fed=parity, card=card)
+    print("live: " + json.dumps(out), flush=True)
+    return out, case, launches
+
+
+def infer_phase(torch, np, fp, model_cfg, card):
+    """Phase 6, infer: the `infer --image` device helper on raw frames and
+    the transcode device loop at batch 8 on 64 frames, each against the
+    plain-fed path."""
+    from ann3depth_tpu_torch import serving
+    from ann3depth_tpu_torch.live import infer as live
+    from ann3depth_tpu_torch.live.capture import SyntheticSource
+    from ann3depth_tpu_torch.live.transcode import render_batches
+    from ann3depth_tpu_torch.train import step as steplib
+
+    model = serving.model_from_checkpoint(model_cfg, device="cuda")
+    input_hw = tuple(model_cfg.data.input_hw)
+    src = SyntheticSource((480, 640), seed=2)
+    frames = np.stack([src.read() for _ in range(TRANSCODE_FRAMES)])
+    frames[:4] = np.random.default_rng(3).integers(0, 256, frames[:4].shape,
+                                                   dtype=np.uint8)
+
+    steplib.infer_image(model, frames[0], input_hw=input_hw)  # warm
+    fp.fused_preprocess.launches = 0
+    t0 = time.perf_counter()
+    depths = [steplib.infer_image(model, f, input_hw=input_hw)
+              for f in frames[:4]]
+    image_ms = (time.perf_counter() - t0) / 4 * 1e3
+    image_launches = fp.fused_preprocess.launches
+    check(image_launches == 4, f"infer launched {image_launches} times")
+    got = np.stack(depths)
+    check(got.shape == (4, 120, 160) and bool(np.isfinite(got).all()),
+          f"infer depths {got.shape}")
+    want = np.concatenate([  # one frame at a time, as infer_image
+        _plain_log_depth(torch, fp, model, input_hw, frames[i:i + 1])
+        for i in range(4)])
+    image_err = float(np.abs(np.log(got) - want).max())
+    check(image_err <= SERVE_LOG_TOL,
+          f"infer vs plain-fed: {image_err} > {SERVE_LOG_TOL}")
+
+    batches = [(frames[i:i + TRANSCODE_BATCH], TRANSCODE_BATCH)
+               for i in range(0, TRANSCODE_FRAMES, TRANSCODE_BATCH)]
+    list(render_batches(model, iter(batches[:1]), input_hw=input_hw))
+    fp.fused_preprocess.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = list(render_batches(model, iter(batches), input_hw=input_hw))
+    loop_s = time.perf_counter() - t0
+    loop_launches = fp.fused_preprocess.launches
+    check(loop_launches == len(batches),
+          f"the transcode loop launched {loop_launches} times")
+    check(sum(r.shape[0] for _, r, _ in out) == TRANSCODE_FRAMES,
+          "transcode frames")
+    # batch 0: four uniform-noise frames and four synthetic ones
+    x = torch.from_numpy(batches[0][0]).cuda()
+    with fed_by(fp, fp.plain_preprocess):
+        wd, wr = live.live_step(model, x, input_hw=input_hw,
+                                display_hw=(480, 640))
+    loop_parity = _live_close(np, live, (out[0][2], out[0][1]),
+                              (wd.cpu().numpy(), wr.cpu().numpy()),
+                              "transcode batch 0")
+    res = dict(image_ms=image_ms, image_launches=image_launches,
+               image_max_log_err_vs_plain=image_err, image_tol=SERVE_LOG_TOL,
+               transcode_batch=TRANSCODE_BATCH,
+               transcode_frames=TRANSCODE_FRAMES,
+               transcode_frames_per_s=TRANSCODE_FRAMES / loop_s,
+               transcode_launches=loop_launches,
+               transcode_parity_vs_plain_fed=loop_parity, card=card)
+    print("infer: " + json.dumps(res), flush=True)
+    return res
+
+
 def main():
     import torch
 
@@ -731,8 +1147,14 @@ def main():
     cases = kernel_cases(torch, fp, resize, ref)
     cases_v2 = v2_cases(torch, fp, ref)
     serve_launches = serve_slice(torch, np, fp, card)
-    train, cfg, img, dep = train_slice(torch, np, fp, card)
-    instep = v2_in_step(torch, fp, cfg, img, dep, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        train, cfg, img, dep = train_slice(torch, np, fp, card, tmp)
+        instep = v2_in_step(torch, fp, cfg, img, dep, card)
+        evals, eval_case = eval_phase(torch, np, fp, cfg, tmp, card)
+        served = serve_checkpoint(torch, np, fp, cfg, card)
+        lives, live_case, live_launches = live_phase(torch, np, fp, cfg,
+                                                     card)
+        infer_phase(torch, np, fp, cfg, card)
 
     def entry(case, **kw):
         """One kernel's entry of the kernels line, from its train case."""
@@ -748,7 +1170,10 @@ def main():
         replaces="ann3depth_tpu/ops/pallas_preprocess.py:218",
         launches=train["fused_preprocess_launches"],
         serve_launches=serve_launches,
-        max_abs_err=max(c["max_abs_err"] for c in cases[:3]), cases=cases)
+        eval_launches=sum(r["launches"] for r in evals["runs"].values()),
+        serve_ckpt_launches=served["launches"], live_launches=live_launches,
+        max_abs_err=max(c["max_abs_err"] for c in cases[:3]), cases=cases,
+        live=live_case, eval_image=eval_case)
     v2 = entry(
         cases_v2[1],  # the train shape, b16 augment rows
         name="fused_preprocess_v2",

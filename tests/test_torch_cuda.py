@@ -377,3 +377,79 @@ def test_train_step_with_kernel_matches_plain_preprocess(cuda, augment):
         torch.testing.assert_close(m_kernel[k], m_plain[k],
                                    rtol=STEP_LOSS_RTOL, atol=0)
     assert state.step == twin.step == 1
+
+
+# The live path at batch one: the kernel-fed program against the same
+# program fed by the plain preprocess, f32 model: log-depth within 1e-4
+# (inputs differ by f32 summation order), rendered LUT indices within 1 of
+# each other on at most 1% of the pixels.
+LIVE_LOG_TOL = 1e-4
+LIVE_INDEX_SHARE = 0.01
+
+
+def _live_model(device):
+    from ann3depth_tpu_torch import serving
+
+    model = registry.build(ModelConfig(name="encdec", width_mult=0.25,
+                                       compute_dtype="float32"))
+    return serving.prepare_model(steplib.init_params(model, 0), device)
+
+
+def _assert_live_close(got, want):
+    from ann3depth_tpu_torch.live.infer import lut_index_distance
+
+    (gd, gr), (wd, wr) = got, want
+    torch.testing.assert_close(gd.log(), wd.log(), rtol=0, atol=LIVE_LOG_TOL)
+    d = lut_index_distance(gr.cpu().numpy(), wr.cpu().numpy())
+    assert d.max() <= 1 and (d > 0).mean() <= LIVE_INDEX_SHARE
+
+
+@pytest.mark.parametrize("tta", ["", "flip"])
+def test_live_step_with_kernel_matches_plain_at_batch_one(cuda, tta,
+                                                          monkeypatch):
+    from ann3depth_tpu_torch.live import infer as live
+
+    model = _live_model(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    frame = torch.randint(0, 256, (1, 96, 128, 3), generator=gen,
+                          device=cuda).to(torch.uint8)
+    kw = dict(input_hw=(32, 48), display_hw=(96, 128), tta=tta)
+    before = fp.fused_preprocess.launches
+    got = live.live_step(model, frame, **kw)
+    assert fp.fused_preprocess.launches == before + (2 if tta else 1)
+    monkeypatch.setattr(fp, "fused_preprocess", fp.plain_preprocess)
+    want = live.live_step(model, frame, **kw)
+    assert got[1].dtype == torch.uint8 and got[1].shape == (1, 96, 128, 3)
+    _assert_live_close(got, want)
+
+
+def test_live_engine_with_smoothing_matches_plain_fed_steps(cuda,
+                                                            monkeypatch):
+    """LiveEngine (pinned copies, one frame in flight, EMA carry on the
+    card) against a chain of plain-fed live_step calls."""
+    from ann3depth_tpu_torch.live import infer as live
+
+    model = _live_model(cuda)
+    engine = live.LiveEngine(model, (96, 128), (32, 48), smooth=0.8)
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    frames = torch.randint(0, 256, (4, 96, 128, 3), generator=gen,
+                           device=cuda).to(torch.uint8)
+    before = fp.fused_preprocess.launches
+    tokens = [engine.submit(frames[0].cpu().numpy())]
+    got = []
+    for f in frames[1:]:
+        tokens.append(engine.submit(f.cpu().numpy()))
+        got.append(engine.retrieve(tokens[-2], fetch_depth=True))
+    got.append(engine.retrieve(tokens[-1], fetch_depth=True))
+    assert fp.fused_preprocess.launches == before + 4
+    monkeypatch.setattr(fp, "fused_preprocess", fp.plain_preprocess)
+    carry, has_prev = torch.zeros((1, 16, 24), device=cuda), 0.0
+    for i, (depth, rendered, _) in enumerate(got):
+        d, r, carry = live.live_step(
+            model, frames[i:i + 1], input_hw=(32, 48), display_hw=(96, 128),
+            smooth=0.8, prev_log=carry,
+            has_prev=torch.tensor(has_prev, device=cuda))
+        has_prev = 1.0
+        _assert_live_close((torch.from_numpy(depth)[None],
+                            torch.from_numpy(rendered)[None]),
+                           (d.cpu(), r.cpu()))

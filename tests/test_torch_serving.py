@@ -119,12 +119,16 @@ def test_artifact_compute_dtype_from_named_preset(artifact):
     assert model.model.widths == [32, 32, 64]
 
 
-def _f32_service(**kw):
+def _f32_cfg():
     cfg = tcfg.get_config("make3d-encdec")
-    cfg = dataclasses.replace(
+    return dataclasses.replace(
         cfg, data=dataclasses.replace(cfg.data, input_hw=IN_HW),
         model=dataclasses.replace(cfg.model, width_mult=0.25,
                                   compute_dtype="float32"))
+
+
+def _f32_service(**kw):
+    cfg = _f32_cfg()
     return cfg, server.service_from_config(cfg, init=True, raw_hw=RAW_HW,
                                            device="cpu", **kw)
 
@@ -198,10 +202,51 @@ def test_probe_serving_trivial_condition():
                for r in out["rounds"])
 
 
-def test_service_from_config_refuses_what_is_not_ported():
-    cfg = tcfg.get_config("make3d-encdec")
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        server.service_from_config(cfg, device="cpu")
+def _saved_checkpoints(ckpt_dir):
+    """Two saves of the f32 service's model (steps 1 and 2, params from
+    seeds 1 and 2, EMA params from seed 3); returns the three models."""
+    from ann3depth_tpu_torch.models import registry
+    from ann3depth_tpu_torch.train import checkpoint as tckpt
+    from ann3depth_tpu_torch.train import loop as tloop
+    from ann3depth_tpu_torch.train import step as tstep
+
+    cfg = _f32_cfg()
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, ckpt_dir=str(ckpt_dir), ema_decay=0.9))
+    models = [tstep.init_params(registry.build(cfg.model), s)
+              for s in (1, 2, 3)]
+    state = tloop.create_state(cfg, torch.device("cpu"))
+    mgr = tckpt.CheckpointManager(str(ckpt_dir))
+    for step, m in ((1, models[0]), (2, models[1])):
+        state.model.load_state_dict(m.state_dict())
+        state.ema_params = dict(models[2].named_parameters())
+        state.step = step
+        mgr.save(step, state)
+    return cfg, models
+
+
+def test_service_from_config_refuses_what_is_not_ported(tmp_path):
+    """Serving from a checkpoint is ported: the latest save, the one at
+    ckpt_step, or its EMA params, each as the same model served directly
+    (f32: 1e-5 relative); an empty directory raises. dp > 1 is still
+    refused."""
+    cfg, models = _saved_checkpoints(tmp_path / "c")
+    x = _frames(2, seed=6)
+    for kw, model in ((dict(), models[1]), (dict(ckpt_step=1), models[0]),
+                      (dict(use_ema=True), models[2])):
+        svc = server.service_from_config(cfg, raw_hw=RAW_HW, device="cpu",
+                                         **kw)
+        try:
+            got = np.stack([svc.predict(f) for f in x])
+        finally:
+            svc.close()
+        fn = serving.make_serving_fn(
+            serving.prepare_model(model, torch.device("cpu")), IN_HW)
+        np.testing.assert_allclose(got, fn(torch.from_numpy(x)).numpy(),
+                                   rtol=1e-5)
+    with pytest.raises(RuntimeError, match="no checkpoint"):
+        server.service_from_config(cfg, ckpt_dir=str(tmp_path / "empty"),
+                                   device="cpu")
     with pytest.raises(NotImplementedError, match="dp=2"):
         server.service_from_config(cfg, init=True, dp=2, device="cpu")
 
@@ -227,10 +272,35 @@ def test_cli_serve_flags():
     assert args.max_delay_ms == 2.0 and args.artifact is None
 
 
-def test_cli_without_init_or_artifact_exits():
-    args = cli.build_parser().parse_args(["serve", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="--init"):
+def test_cli_without_init_or_artifact_exits(tmp_path):
+    """Without --init or --artifact, `serve` serves the checkpoint in
+    --ckpt-dir (raising when there is none); --dp 2 and --ema with an
+    artifact stop."""
+    cfg, models = _saved_checkpoints(tmp_path / "c")
+    base = ["serve", "--device", "cpu", "--width-mult", "0.25",
+            "--raw-hw", *map(str, RAW_HW), "--max-batch", "2"]
+    args = cli.build_parser().parse_args(
+        base + ["--ckpt-dir", str(tmp_path / "empty")])
+    with pytest.raises(RuntimeError, match="no checkpoint"):
         cli.make_service(args)
+    args = cli.build_parser().parse_args(
+        base + ["--ckpt-dir", str(tmp_path / "c"), "--ema", "--ckpt-step",
+                "1"])
+    assert (args.ema, args.ckpt_step, args.dp) == (True, 1, 1)
+    svc = cli.make_service(args)
+    try:
+        assert svc.raw_hw == RAW_HW
+        out = svc.predict(_frames(1, seed=7)[0])
+        assert out.shape == (120, 160) and np.isfinite(out).all()
+    finally:
+        svc.close()
+    for flags, match in ((["--dp", "2"], "not ported yet"),
+                         (["--artifact", "x", "--ema"], "--artifact"),
+                         (["--quant", "int8"], "not ported yet")):
+        args = cli.build_parser().parse_args(
+            base + ["--ckpt-dir", str(tmp_path / "c")] + flags)
+        with pytest.raises(SystemExit, match=match):
+            cli.make_service(args)
 
 
 def test_cli_serves_an_artifact(artifact):

@@ -390,7 +390,7 @@ def test_cli_resolves_the_jax_flags():
         "--no-augment", "--loss", "si+grad", "--warmup-steps", "0",
         "--clip-norm", "0", "--optimizer", "sgd", "--resume", "--ema-decay",
         "0.99", "--eval-every", "7"])
-    cfg = cli.resolve_train_config(args)
+    cfg = cli.resolve_config(args)
     assert cfg.data.synth_img_hw == (40, 56) and cfg.data.augment is False
     assert cfg.data.datasets == ("synthetic",)
     assert cfg.model.width_mult == 0.25
