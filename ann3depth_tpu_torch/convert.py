@@ -10,6 +10,17 @@ uses numpy and torch only.
     enc0/GroupNorm_0/scale         ->  enc0.norm.weight
     enc0/GroupNorm_0/bias          ->  enc0.norm.bias
     head/bias                      ->  head.bias
+    context/mlp_in/kernel  [in, out] -> context.mlp_in.weight [out, in]
+    block0/LayerNorm_1/scale       ->  block0.norm2.weight
+    block0/MLP_0/Dense_0/kernel    ->  block0.mlp.fc1.weight  [out, in]
+    block0/MultiHeadDotProductAttention_0/query/kernel (E, H, D)
+                                   ->  block0.attn.query.weight [H*D, E]
+    block0/MultiHeadDotProductAttention_0/query/bias (H, D)
+                                   ->  block0.attn.query.bias [H*D]
+    block0/MultiHeadDotProductAttention_0/out/kernel (H, D, E)
+                                   ->  block0.attn.out.weight [E, H*D]
+    fuse1/Conv_0/kernel            ->  fuse1.conv_skip.weight
+    pos_embed                      ->  pos_embed
 """
 
 from __future__ import annotations
@@ -23,8 +34,13 @@ import torch
 PARAMS_FILE = "params.npz"
 META_FILE = "meta.json"
 
-_MODULE_NAMES = {"GroupNorm_0": "norm"}
-_LEAF_NAMES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+_MODULE_NAMES = {"GroupNorm_0": "norm", "LayerNorm_0": "norm1",
+                 "LayerNorm_1": "norm2",
+                 "MultiHeadDotProductAttention_0": "attn", "MLP_0": "mlp",
+                 "Dense_0": "fc1", "Dense_1": "fc2", "Conv_0": "conv_skip",
+                 "Conv_1": "conv1", "Conv_2": "conv2"}
+_LEAF_NAMES = {"kernel": "weight", "scale": "weight", "bias": "bias",
+               "pos_embed": "pos_embed"}
 
 
 def flatten(tree, prefix=""):
@@ -47,15 +63,29 @@ def torch_name(flax_key: str) -> str:
                     + [_LEAF_NAMES[leaf]])
 
 
+def _torch_layout(key: str, a: np.ndarray) -> np.ndarray:
+    """A flax leaf in the layout of its torch parameter."""
+    if key.endswith("/kernel"):
+        if a.ndim == 4:                      # conv HWIO -> OIHW
+            return a.transpose(3, 2, 0, 1)
+        if a.ndim == 3 and key.endswith("/out/kernel"):
+            return a.reshape(-1, a.shape[-1]).T   # (H, D, E) -> [E, H*D]
+        if a.ndim == 3:
+            return a.reshape(a.shape[0], -1).T    # (E, H, D) -> [H*D, E]
+        if a.ndim == 2:                      # Dense [in, out] -> [out, in]
+            return a.T
+    if key.endswith("/bias") and a.ndim == 2:     # (H, D) -> [H*D]
+        return a.reshape(-1)
+    return a
+
+
 def to_state_dict(params) -> dict:
     """Flax params (nested or `/`-flat dict of arrays) -> torch state_dict
-    of f32 tensors. 4-D kernels go HWIO -> OIHW."""
+    of f32 tensors, in torch's layouts (module docstring)."""
     out = {}
     for key, value in flatten(params).items():
-        a = np.asarray(value, dtype=np.float32)
-        if key.endswith("/kernel") and a.ndim == 4:
-            a = a.transpose(3, 2, 0, 1)
-        out[torch_name(key)] = torch.tensor(a)
+        a = _torch_layout(key, np.asarray(value, dtype=np.float32))
+        out[torch_name(key)] = torch.tensor(np.ascontiguousarray(a))
     return out
 
 

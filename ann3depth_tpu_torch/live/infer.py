@@ -5,16 +5,16 @@ Counterpart of `ann3depth_tpu/live/infer.py`. The per-frame device program
 
   uint8 frame -> the fused preprocess (the CUDA kernel on the card,
                  pipeline/preprocess.preprocess_image)
-              -> encdec forward (bf16 autocast)
+              -> the registry model's forward
               -> linear depth
               -> colormapped uint8 RGB at display resolution (LUT gather)
 
 so the host does nothing between capture and display but one H2D of the
 raw uint8 frame and one D2H of the rendered frame. The JAX engine feeds
 the model by default a bf16 space-to-depth layout straight from the
-preprocess (`emit_s2d`); the port feeds f32 NHWC, which the encdec rounds
-to bf16 at its first op, so the two differ by where that one rounding
-falls. `LiveEngine` keeps one frame in flight: the frame goes H2D from a
+preprocess (`emit_s2d`) when the model takes it; the port feeds f32 NHWC,
+which a bf16 model rounds to bf16 at its first op, so the two differ by
+where that one rounding falls. `LiveEngine` keeps one frame in flight: the frame goes H2D from a
 pinned host buffer, the rendered frame comes back D2H into another with
 `non_blocking=True`, and an event recorded after it is what `retrieve`
 waits on. Everything runs on the current stream, so the kernel, the model

@@ -21,6 +21,12 @@ Points where flax and torch differ, each handled here:
   are taken in f32 and its output is in the compute dtype.
 - Init is flax's lecun_normal (truncated normal, variance 1/fan_in) for
   conv kernels, zero head bias, GroupNorm scale 1 and bias 0.
+- flax's nn.remat of each stage is `remat_call`: activation checkpointing
+  (`torch.utils.checkpoint`, non-reentrant) while autograd records.
+
+`Conv`, `same_padding`, `space_to_depth`, `lecun_normal_`, `Stage` and
+`remat_call` are shared with the other models, as the JAX models import
+them from `encdec`.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 # flax's lecun_normal: a normal truncated to [-2, 2] standard deviations,
 # rescaled by this constant so that its variance is exactly 1/fan_in.
@@ -44,13 +51,36 @@ def same_padding(size: int, kernel: int, stride: int):
 
 
 def lecun_normal_(weight: torch.Tensor, generator=None):
-    """In-place flax lecun_normal for an OIHW conv kernel."""
-    fan_in = weight.shape[1] * weight.shape[2] * weight.shape[3]
+    """In-place flax lecun_normal for an OIHW conv kernel or an [out, in]
+    dense one: fan_in is everything but the output axis."""
+    fan_in = weight[0].numel()
     std = math.sqrt(1.0 / fan_in) / _TRUNC_STDDEV
     with torch.no_grad():
         nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,
                               generator=generator)
     return weight
+
+
+def init_flax_(model, generator=None):
+    """flax's default init on every layer of `model`: lecun_normal conv and
+    dense kernels with zero biases, norm scale 1 and bias 0."""
+    for m in model.modules():
+        if isinstance(m, (Conv, nn.Linear)):
+            lecun_normal_(m.weight, generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+        elif isinstance(m, (nn.GroupNorm, nn.LayerNorm)):
+            nn.init.ones_(m.weight)
+            nn.init.zeros_(m.bias)
+    return model
+
+
+def remat_call(remat: bool, module, *args):
+    """module(*args), recomputed in the backward pass instead of keeping its
+    activations when `remat` is set and autograd records (flax nn.remat)."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(module, *args, use_reentrant=False)
+    return module(*args)
 
 
 class Conv(nn.Module):
@@ -128,9 +158,10 @@ class EncDecDepthNet(nn.Module):
     OUTPUT_STRIDE = 2  # input HW -> output HW ratio
 
     def __init__(self, width_mult=1.0, compute_dtype=torch.bfloat16,
-                 enc_widths=(64, 128, 256)):
+                 enc_widths=(64, 128, 256), remat=False):
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.remat = remat
         self.widths = [max(32, int(c * width_mult) // 8 * 8)
                        for c in enc_widths]
         w0, w1, w2 = self.widths
@@ -142,18 +173,10 @@ class EncDecDepthNet(nn.Module):
         self.dec1 = UpStage(w1, w0, w0)
         self.head = Conv(w0, 1, 3, bias=True)
 
-    def init_weights(self, generator=None):
+    def init_weights(self, generator=None, input_hw=None):
         """flax init: lecun_normal conv kernels, zero head bias, GroupNorm
-        scale 1 and bias 0."""
-        for m in self.modules():
-            if isinstance(m, Conv):
-                lecun_normal_(m.weight, generator)
-                if m.bias is not None:
-                    nn.init.zeros_(m.bias)
-            elif isinstance(m, nn.GroupNorm):
-                nn.init.ones_(m.weight)
-                nn.init.zeros_(m.bias)
-        return self
+        scale 1 and bias 0 (no param depends on input_hw)."""
+        return init_flax_(self, generator)
 
     def forward(self, x):
         if x.shape[-1] == 3:
@@ -167,11 +190,11 @@ class EncDecDepthNet(nn.Module):
         with torch.autocast(x.device.type, dtype=self.compute_dtype,
                             enabled=low):
             x = x.to(self.compute_dtype)
-            s0 = self.enc0(x)
-            s1 = self.enc1(s0)
-            x = self.enc2(s1)
-            x = self.dec0(x, s1)
-            x = self.dec1(x, s0)
+            s0 = remat_call(self.remat, self.enc0, x)
+            s1 = remat_call(self.remat, self.enc1, s0)
+            x = remat_call(self.remat, self.enc2, s1)
+            x = remat_call(self.remat, self.dec0, x, s1)
+            x = remat_call(self.remat, self.dec1, x, s0)
         with torch.autocast(x.device.type, enabled=False):
             y = self.head(x.float())
             y = F.interpolate(y, scale_factor=2, mode="bilinear",

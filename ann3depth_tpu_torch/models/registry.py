@@ -1,9 +1,12 @@
 """Model registry: name -> torch module.
 
-Counterpart of `ann3depth_tpu/models/registry.py`, holding the models the
-port has so far. All share the JAX package's contract:
+Counterpart of `ann3depth_tpu/models/registry.py`, with the same five
+models and the same contract:
 
     model(x: NHWC [B,H,W,3] normalized f32) -> NHWC [B,h,w,1] log-depth f32
+
+with `h, w = output_hw(name, (H, W))`. The port builds `quant="none"`
+models only.
 """
 
 from __future__ import annotations
@@ -11,56 +14,55 @@ from __future__ import annotations
 import torch
 
 from ann3depth_tpu_torch.config import ModelConfig
+from ann3depth_tpu_torch.models.dpt import DPTDepthNet
+from ann3depth_tpu_torch.models.encdec import EncDecDepthNet
+from ann3depth_tpu_torch.models.multiscale import MultiScaleDepthNet
+from ann3depth_tpu_torch.models.small_depth import SmallDepthNet
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-
-
-def _encdec(cfg: ModelConfig):
-    from ann3depth_tpu_torch.models.encdec import EncDecDepthNet
-    return EncDecDepthNet(width_mult=cfg.width_mult,
-                          compute_dtype=_DTYPES[cfg.compute_dtype])
-
-
-_REGISTRY = {"encdec": _encdec}
+_CLASSES = {"small": SmallDepthNet, "encdec": EncDecDepthNet,
+            "multiscale": MultiScaleDepthNet, "dpt": DPTDepthNet,
+            "dpt-small": DPTDepthNet}
+# dpt-small: the CPU-sized member of the DPT family.
+DPT_SMALL = dict(dim=128, depth=6, heads=4, fusion_features=64,
+                 tap_layers=(1, 2, 4, 5))
 
 
 def available():
-    return sorted(_REGISTRY)
+    return sorted(_CLASSES)
+
+
+def model_class(name: str):
+    """The torch module class of a registry name."""
+    try:
+        return _CLASSES[name]
+    except KeyError:
+        raise KeyError(f"unknown model {name!r}; have {available()}") from None
 
 
 def build(cfg: ModelConfig):
-    """Instantiate the (uninitialized) torch module for a ModelConfig."""
-    try:
-        ctor = _REGISTRY[cfg.name]
-    except KeyError:
-        raise KeyError(f"model {cfg.name!r} is not ported yet; the port has "
-                       f"{available()}") from None
+    """Instantiate the (uninitialized) torch module for a ModelConfig, with
+    the JAX registry's arguments: remat for every family but small."""
+    cls = model_class(cfg.name)
     if cfg.quant != "none":
         raise ValueError(f"quant={cfg.quant!r} is not ported yet; the port "
                          "serves quant='none' only")
-    return ctor(cfg)
-
-
-# Models of the JAX package whose port is still to come.
-_NOT_PORTED = ("small", "multiscale", "dpt", "dpt-small")
-
-
-def _model_class(name: str):
-    if name == "encdec":
-        from ann3depth_tpu_torch.models.encdec import EncDecDepthNet
-        return EncDecDepthNet
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"model {name!r} is not ported yet; the "
-                                  f"port has {available()}")
-    raise KeyError(name)
+    kw = dict(compute_dtype=_DTYPES[cfg.compute_dtype])
+    if cfg.name != "small":
+        kw["remat"] = cfg.remat
+    if cfg.name in ("small", "encdec", "multiscale"):
+        kw["width_mult"] = cfg.width_mult
+    if cfg.name == "dpt-small":
+        kw.update(DPT_SMALL)
+    return cls(**kw)
 
 
 def output_hw(name: str, input_hw):
     """Static output shape for a registered model at a given input size."""
-    return _model_class(name).output_hw(input_hw)
+    return model_class(name).output_hw(input_hw)
 
 
 def s2d_input_factor(name: str) -> int:
     """Space-to-depth factor of pre-s2d input the model's stem accepts
     directly (0 = RGB only)."""
-    return _model_class(name).S2D_INPUT_FACTOR
+    return model_class(name).S2D_INPUT_FACTOR

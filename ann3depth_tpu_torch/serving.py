@@ -21,7 +21,6 @@ from ann3depth_tpu_torch import convert
 from ann3depth_tpu_torch.config import PRESETS, ModelConfig
 from ann3depth_tpu_torch.device import resolve_device
 from ann3depth_tpu_torch.models import registry
-from ann3depth_tpu_torch.models.encdec import EncDecDepthNet
 from ann3depth_tpu_torch.pipeline import preprocess
 
 log = logging.getLogger(__name__)
@@ -65,17 +64,22 @@ class ServingModel:
 
 
 def model_from_artifact(meta, state_dict):
-    """The (CPU) module that serves an artifact's weights: widths from the
-    stored params, compute dtype from the artifact's named preset (bf16
-    when it names none)."""
+    """The (CPU) module that serves an artifact's weights: the model its
+    meta names, at the width of the stored params (small, encdec and
+    multiscale) and the input size of its meta (DPT's token grid), with
+    the compute dtype of the artifact's named preset (bf16 when it names
+    none), loaded strictly."""
+    from ann3depth_tpu_torch.train import step as steplib
+
     preset = PRESETS.get(meta.get("config") or "")
     cfg = preset.model if preset else ModelConfig()
     cfg = dataclasses.replace(cfg, name=meta["model"],
                               quant=meta.get("quant", "none"))
-    if cfg.name == "encdec":
-        cfg = dataclasses.replace(
-            cfg, width_mult=EncDecDepthNet.width_mult_of(state_dict))
-    model = registry.build(cfg)
+    width_mult_of = getattr(registry.model_class(cfg.name), "width_mult_of",
+                            None)
+    if width_mult_of is not None:
+        cfg = dataclasses.replace(cfg, width_mult=width_mult_of(state_dict))
+    model = steplib.init_params(registry.build(cfg), meta["input_hw"])
     model.load_state_dict(state_dict, strict=True)
     return model
 
@@ -93,7 +97,8 @@ def model_from_checkpoint(cfg, *, ckpt_dir=None, use_ema=False,
     from ann3depth_tpu_torch.train.checkpoint import CheckpointManager
 
     device = resolve_device(device)
-    model = steplib.init_params(registry.build(cfg.model), cfg.train.seed)
+    model = steplib.init_params(registry.build(cfg.model), cfg.data.input_hw,
+                                cfg.train.seed)
     if not init:
         ckpt_dir = ckpt_dir or cfg.train.ckpt_dir
         # restore_params reads the step and the params only, so a bare

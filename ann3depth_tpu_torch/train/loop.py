@@ -70,8 +70,8 @@ def resolved_target_hw(cfg: Config):
 
 def create_state(cfg: Config, device=None):
     """Model (initialized from cfg.train.seed) + update rule + TrainState."""
-    model = steplib.init_params(registry.build(cfg.model), cfg.train.seed,
-                                device=device)
+    model = steplib.init_params(registry.build(cfg.model), cfg.data.input_hw,
+                                cfg.train.seed, device=device)
     tx = steplib.make_optimizer(
         cfg.train.learning_rate, cfg.train.warmup_steps, cfg.train.steps,
         b1=cfg.train.adam_b1, b2=cfg.train.adam_b2,

@@ -33,12 +33,13 @@ from ann3depth_tpu_torch.pipeline import preprocess
 from ann3depth_tpu_torch.train import losses
 
 
-def init_params(model, seed=0, *, device=None):
-    """flax-style initialization from a seeded `torch.Generator`; returns
-    the model on `device`. The draws differ from jax.random's, the
+def init_params(model, input_hw, seed=0, *, device=None):
+    """flax-style initialization for inputs of `input_hw` (DPT's pos_embed
+    has a row per token) from a seeded `torch.Generator`; returns the
+    model on `device`. The draws differ from jax.random's, the
     distributions are the same."""
     gen = torch.Generator().manual_seed(int(seed))
-    return model.init_weights(gen).to(device or "cpu")
+    return model.init_weights(gen, tuple(input_hw)).to(device or "cpu")
 
 
 # ---------------------------------------------------------------------------

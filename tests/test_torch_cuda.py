@@ -34,6 +34,7 @@ pytestmark = pytest.mark.cuda
 V2_IMAGE_MEAN_TOL = 1e-4
 V2_DEPTH_MEAN_TOL = 1e-3
 STEP_LOSS_RTOL = 1e-2
+IN_HW = (32, 48)  # the small models' input size
 
 
 @pytest.fixture
@@ -330,9 +331,61 @@ def test_params_outside_the_plan_take_the_direct_path(cuda, impl,
         _assert_image_close(impl, got, want, params, in_hw, out_hw)
 
 
+# The shapes of the other model families' paths: dpt-384 (480x640 frames
+# and NYU-shaped depth to 384x384; Make3D's laser grid to 384x384, which
+# upsamples both axes) and make3d-small (Make3D's grid to 30x40: a row band
+# of 21 taps).
+
+@pytest.mark.parametrize("kind", ["identity", "augment"])
+@pytest.mark.parametrize("impl", sorted(IMPLS))
+def test_dpt_image_shape(cuda, impl, kind):
+    kernel, plain = IMPLS[impl]
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    frames = torch.randint(0, 256, (2, 480, 640, 3), generator=gen,
+                           device=cuda).to(torch.uint8)
+    if kind == "augment":
+        params = fp.augment_params(gen, 2, (480, 640), (384, 384),
+                                   device=cuda)
+    else:
+        params = fp.identity_params(2, (480, 640), (384, 384), device=cuda)
+    got = kernel(frames, params, out_hw=(384, 384))
+    want = plain(frames, params, out_hw=(384, 384))
+    _assert_image_close(impl, got, want, params, (480, 640), (384, 384))
+
+
+DEPTH_SHAPES = {  # (raw grid, out_hw, param rows)
+    "nyu_to_384": ((480, 640), (384, 384), "identity"),
+    "make3d_to_384_upsampled": ((305, 55), (384, 384), "augment"),
+    "make3d_to_30x40_21_taps": ((305, 55), (30, 40), "identity")}
+
+
+@pytest.mark.parametrize("shape", sorted(DEPTH_SHAPES))
+@pytest.mark.parametrize("impl", sorted(IMPLS))
+def test_family_depth_shapes(cuda, impl, shape):
+    kernel, plain = IMPLS[impl]
+    in_hw, out_hw, rows = DEPTH_SHAPES[shape]
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    depth = 1 + 59 * torch.rand((2, *in_hw, 1), generator=gen, device=cuda)
+    depth[:, :, in_hw[1] // 3:in_hw[1] // 3 + 5] = 81.0
+    depth[:, ::7, ::5] = 0.0
+    if rows == "augment":
+        params = fp.augment_params(gen, 2, in_hw, out_hw, device=cuda)
+    else:
+        params = fp.identity_params(2, in_hw, out_hw, device=cuda)
+    plan = fp.band_plan(depth.shape, out_hw, itemsize=4, depth_mode=True)
+    if shape == "make3d_to_30x40_21_taps":
+        assert plan.taps_y == 21
+    if shape == "make3d_to_384_upsampled":
+        assert in_hw[0] < out_hw[0] and in_hw[1] < out_hw[1]
+    got = kernel(depth, params, out_hw=out_hw, depth_mode=True)
+    want = plain(depth, params, out_hw=out_hw, depth_mode=True)
+    assert bool(torch.isfinite(got).all())
+    _assert_depth_close(impl, got, want, depth, params, out_hw)
+
+
 def _small_state(device):
     model = registry.build(ModelConfig(name="encdec", width_mult=0.25))
-    model = steplib.init_params(model, 0, device=device)
+    model = steplib.init_params(model, IN_HW, 0, device=device)
     tx = steplib.make_optimizer(1e-3, warmup_steps=0, total_steps=10)
     return steplib.TrainState.create(model, tx)
 
@@ -392,7 +445,7 @@ def _live_model(device):
 
     model = registry.build(ModelConfig(name="encdec", width_mult=0.25,
                                        compute_dtype="float32"))
-    return serving.prepare_model(steplib.init_params(model, 0), device)
+    return serving.prepare_model(steplib.init_params(model, IN_HW, 0), device)
 
 
 def _assert_live_close(got, want):

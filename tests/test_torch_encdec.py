@@ -157,7 +157,7 @@ def test_channels_last_model_gives_the_same_output():
 
 
 def test_init_follows_flax_initializers():
-    tm = tstep.init_params(tenc.EncDecDepthNet(), seed=0)
+    tm = tstep.init_params(tenc.EncDecDepthNet(), IN_HW, seed=0)
     w = tm.enc2.conv_refine.weight.detach()
     fan_in = w.shape[1] * w.shape[2] * w.shape[3]
     std = w.std().item()
@@ -168,7 +168,7 @@ def test_init_follows_flax_initializers():
     assert torch.all(tm.head.bias == 0)
     assert torch.all(tm.enc0.norm.weight == 1)
     assert torch.all(tm.enc0.norm.bias == 0)
-    again = tstep.init_params(tenc.EncDecDepthNet(), seed=0)
+    again = tstep.init_params(tenc.EncDecDepthNet(), IN_HW, seed=0)
     torch.testing.assert_close(again.enc0.conv_down.weight,
                                tm.enc0.conv_down.weight, rtol=0, atol=0)
 
@@ -176,9 +176,10 @@ def test_init_follows_flax_initializers():
 def test_registry():
     m = registry.build(ModelConfig(name="encdec", width_mult=0.25))
     assert isinstance(m, tenc.EncDecDepthNet) and m.widths == [32, 32, 64]
-    assert registry.available() == ["encdec"]
+    assert registry.available() == ["dpt", "dpt-small", "encdec",
+                                    "multiscale", "small"]
     with pytest.raises(KeyError, match="encdec"):
-        registry.build(ModelConfig(name="dpt"))
+        registry.build(ModelConfig(name="nosuch"))
     with pytest.raises(ValueError, match="quant"):
         registry.build(ModelConfig(name="encdec", quant="int8"))
 

@@ -76,10 +76,15 @@ def test_registry_shapes_match(input_hw):
 
 @pytest.mark.parametrize("name", ["small", "multiscale", "dpt", "dpt-small"])
 def test_registry_models_not_ported_raise(name):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        treg.output_hw(name, (240, 320))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        treg.s2d_input_factor(name)
+    """These models were not ported before; now the port's registry gives
+    the JAX one's output shapes and stem layouts for them, and only an
+    unknown name raises."""
+    for input_hw in ((240, 320), (384, 384)):
+        assert treg.output_hw(name, input_hw) == \
+            jreg.output_hw(name, input_hw)
+    assert treg.s2d_input_factor(name) == jreg.s2d_input_factor(name)
+    with pytest.raises(KeyError, match="unknown model"):
+        treg.output_hw(name + "-nosuch", (240, 320))
 
 
 def test_identity_params_match():

@@ -11,6 +11,7 @@ preprocess and convs on both sides, summation order only).
 
 import argparse
 import dataclasses
+import functools
 import io
 import json
 import threading
@@ -25,6 +26,7 @@ import torch
 from ann3depth_tpu import config as jcfg
 from ann3depth_tpu import serving as jserving
 from ann3depth_tpu.models import encdec as jenc
+from ann3depth_tpu.models import registry as jreg
 from ann3depth_tpu.train import step as jstep
 from ann3depth_tpu_torch import cli, convert, server, serving
 from ann3depth_tpu_torch import config as tcfg
@@ -113,6 +115,97 @@ def test_artifact_serving_f32_matches_jax_infer_step(artifact):
                                rtol=1e-4)
 
 
+@pytest.fixture(scope="module")
+def family_artifacts(tmp_path_factory):
+    """JAX serving artifacts of the smoke preset (the small model, f32, at
+    its 240x320 input) and of dpt-small (bf16, at a 64x64 input): {name:
+    (path, params, jax model config)}."""
+    out = {}
+    for name, preset, model, input_hw in (
+            ("smoke", "smoke", "small", (240, 320)),
+            ("dpt-small", "dpt-384", "dpt-small", (64, 64))):
+        cfg = jcfg.get_config(preset)
+        cfg = dataclasses.replace(
+            cfg, data=dataclasses.replace(cfg.data, input_hw=input_hw),
+            model=dataclasses.replace(cfg.model, name=model))
+        jm = jreg.build(cfg.model)
+        params = jax.jit(functools.partial(jstep.init_params, jm,
+                                           input_hw))(seed=0)
+        path = tmp_path_factory.mktemp(name)
+        jserving.export_serving(cfg, params, path, raw_hw=RAW_HW,
+                                platforms=("cpu",), config_name=preset)
+        out[name] = (path, jax.tree.map(np.asarray, params), cfg)
+    return out
+
+
+def _jax_infer_f32(cfg, params, x):
+    """The exact-f32 JAX reference: f32 preprocess at HIGHEST, f32 model."""
+    jm = jreg.build(dataclasses.replace(cfg.model, compute_dtype="float32"))
+    with jax.default_matmul_precision("highest"):
+        return np.asarray(jstep.infer_step(jm.apply, params, jnp.asarray(x),
+                                           input_hw=cfg.data.input_hw))
+
+
+def test_smoke_artifact_serving_matches_jax(family_artifacts):
+    """The small model computes in f32: the port serves the artifact as
+    the JAX serving fn computes it, to f32 summation order."""
+    path, params, cfg = family_artifacts["smoke"]
+    model = serving.load_serving(path, device="cpu")
+    assert model.model.compute_dtype == torch.float32
+    x = _frames(3, seed=8)
+    fn = jserving.make_serving_fn(jreg.build(cfg.model), "small",
+                                  cfg.data.input_hw,
+                                  precision=jax.lax.Precision.HIGHEST)
+    want = np.asarray(jax.jit(fn)(params, jnp.asarray(x)))
+    got = model.predict(x)
+    assert got.shape == want.shape == (3, 30, 40)
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+
+
+def test_dpt_small_artifact_serving_matches_jax(family_artifacts):
+    """dpt-small at 64x64: the artifact served in bf16 (its preset's
+    dtype) against the JAX serving fn within twice the distance of that
+    bf16 output from the exact-f32 one (in log-depth, max and mean; see
+    tests/test_torch_dpt.py), and served in f32 against the exact-f32 JAX
+    reference to 1e-4 relative."""
+    path, params, cfg = family_artifacts["dpt-small"]
+    model = serving.load_serving(path, device="cpu")
+    assert model.model.compute_dtype == torch.bfloat16
+    assert model.model.pos_embed.shape == (1, 16, 128)
+    x = _frames(2, seed=9)
+    exact = _jax_infer_f32(cfg, params, x)
+    fn = jserving.make_serving_fn(jreg.build(cfg.model), "dpt-small",
+                                  cfg.data.input_hw,
+                                  precision=jax.lax.Precision.HIGHEST)
+    want = np.log(np.asarray(jax.jit(fn)(params, jnp.asarray(x))))
+    got = np.log(model.predict(x))
+    assert got.shape == want.shape == (2, 64, 64)
+    err, rounding = np.abs(got - want), np.abs(want - np.log(exact))
+    assert err.max() <= 2 * rounding.max()
+    assert err.mean() <= 2 * rounding.mean()
+    meta, state_dict = convert.read_artifact(path)
+    f32 = serving.model_from_artifact({**meta, "config": "smoke"},
+                                      state_dict)
+    assert f32.compute_dtype == torch.float32
+    fn = serving.make_serving_fn(f32.eval(), meta["input_hw"])
+    np.testing.assert_allclose(fn(torch.from_numpy(x)).numpy(), exact,
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("name,width_mult,widths", [
+    ("small", 0.3, [9, 19]), ("multiscale", 0.25, [32, 32, 64]),
+    ("encdec", 0.5, [32, 64, 128])])
+def test_artifact_loads_strictly_at_its_width(name, width_mult, widths):
+    jm = jreg.build(jcfg.ModelConfig(name=name, width_mult=width_mult))
+    params = jax.eval_shape(functools.partial(jstep.init_params, jm,
+                                              (96, 128), 0))
+    sd = convert.to_state_dict(jax.tree.map(
+        lambda a: np.zeros(a.shape, np.float32), params))
+    model = serving.model_from_artifact(
+        {"model": name, "config": None, "input_hw": [96, 128]}, sd)
+    assert model.widths == widths
+
+
 def test_artifact_compute_dtype_from_named_preset(artifact):
     model = serving.load_serving(artifact[0], device="cpu")
     assert model.model.compute_dtype == torch.bfloat16
@@ -146,7 +239,7 @@ def test_batching_service_equals_direct_calls():
     from ann3depth_tpu_torch.train import step as tstep
 
     model = serving.prepare_model(
-        tstep.init_params(registry.build(cfg.model), cfg.train.seed),
+        tstep.init_params(registry.build(cfg.model), IN_HW, cfg.train.seed),
         torch.device("cpu"))
     fn = serving.make_serving_fn(model, IN_HW)
     want = np.concatenate([fn(torch.from_numpy(x[i:i + 1])).numpy()
@@ -213,7 +306,7 @@ def _saved_checkpoints(ckpt_dir):
     cfg = _f32_cfg()
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(
         cfg.train, ckpt_dir=str(ckpt_dir), ema_decay=0.9))
-    models = [tstep.init_params(registry.build(cfg.model), s)
+    models = [tstep.init_params(registry.build(cfg.model), IN_HW, s)
               for s in (1, 2, 3)]
     state = tloop.create_state(cfg, torch.device("cpu"))
     mgr = tckpt.CheckpointManager(str(ckpt_dir))
