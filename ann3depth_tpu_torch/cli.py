@@ -4,6 +4,9 @@ Counterpart of `ann3depth_tpu/cli.py`, with the subcommands ported so far:
 
     python -m ann3depth_tpu_torch train --config make3d-encdec --steps 50 \\
         --datasets synthetic --synth-hw 480 640 --synth-depth-hw 305 55
+    python -m ann3depth_tpu_torch prepare --dataset nyu --data-dir data
+    python -m ann3depth_tpu_torch train --config nyu-encdec-aug \\
+        --datasets nyu make3d --grad-accum 2 --eval-every 100 --save-best
     python -m ann3depth_tpu_torch eval --config make3d-encdec --ckpt-dir DIR
     python -m ann3depth_tpu_torch infer --ckpt-dir DIR --image a.jpg [--ply]
     python -m ann3depth_tpu_torch infer --ckpt-dir DIR --video clip.avi
@@ -13,7 +16,7 @@ Counterpart of `ann3depth_tpu/cli.py`, with the subcommands ported so far:
     python -m ann3depth_tpu_torch serve --ckpt-dir DIR [--ema]
     python -m ann3depth_tpu_torch serve --artifact DIR   # JAX export_serving
 
-Every subcommand takes the JAX CLI's shared flags (`_COMMON_FLAGS`, the
+Every subcommand but `prepare` takes the JAX CLI's shared flags (`_COMMON_FLAGS`, the
 JAX `_common_flags`) and its own, plus --device (default cuda; it raises
 when no card is present, unless --device cpu is given). Flags of options
 the port lacks stop with "not ported yet".
@@ -257,6 +260,19 @@ def build_parser() -> argparse.ArgumentParser:
                     help="average with the mirrored-input prediction")
     _add_flags(pi, _LIVE_FLAGS[1:])
 
+    pp = sub.add_parser("prepare", help="pack a dataset into records "
+                        "(decode once, train many times)")
+    pp.add_argument("--dataset", required=True,
+                    choices=["make3d", "nyu", "synthetic"])
+    pp.add_argument("--data-dir", default="data")
+    pp.add_argument("--out-dir", help="default: <data-dir>/records")
+    pp.add_argument("--split", default="train", choices=["train", "test"])
+    pp.add_argument("--format", default="npy", choices=["npy", "npz"],
+                    help="npy: one memmap'd pair per split (shuffle-friendly"
+                    " random access, the default); npz: legacy shards")
+    pp.add_argument("--shard-size", type=int, default=64,
+                    help="npz format only")
+
     ps = sub.add_parser(
         "serve", help="batched depth-serving HTTP server: concurrent "
         "requests coalesce into device batches padded to power-of-2 "
@@ -328,8 +344,8 @@ def make_service(args):
 
 def train_main(args):
     if args.ckpt_step is not None:
-        raise SystemExit("train reads checkpoints via --resume, not "
-                         "--ckpt-step")
+        raise SystemExit("train reads checkpoints via --resume or "
+                         "--resume-step, not --ckpt-step")
     given = [f for f in _NOT_PORTED_COMMON + _NOT_PORTED_TRAIN
              if getattr(args, _dest(f)) is not None]
     if given:
@@ -481,6 +497,27 @@ def infer_main(args):
     return 0
 
 
+def prepare_main(args):
+    """Pack a dataset split into records (`data/records.pack`); prints
+    {"index": path, "examples": N}."""
+    from ann3depth_tpu_torch.data import records
+
+    if args.dataset == "synthetic":
+        from ann3depth_tpu_torch.data.synthetic import SyntheticDepthDataset
+        ds = SyntheticDepthDataset()
+    elif args.dataset == "make3d":
+        from ann3depth_tpu_torch.data.make3d import Make3DDataset
+        ds = Make3DDataset(args.data_dir, split=args.split)
+    else:
+        from ann3depth_tpu_torch.data.nyu import NYUDataset
+        ds = NYUDataset(args.data_dir, split=args.split)
+    out_dir = args.out_dir or os.path.join(args.data_dir, "records")
+    index = records.pack(ds, out_dir, args.split,
+                         shard_size=args.shard_size, format=args.format)
+    print(json.dumps({"index": index, "examples": len(ds)}), flush=True)
+    return 0
+
+
 def serve_main(args):
     from ann3depth_tpu_torch import server as serverlib
 
@@ -504,7 +541,7 @@ def serve_main(args):
 
 
 _MODES = {"train": train_main, "eval": eval_main, "live": live_main,
-          "infer": infer_main, "serve": serve_main}
+          "infer": infer_main, "serve": serve_main, "prepare": prepare_main}
 
 
 def main(argv=None):

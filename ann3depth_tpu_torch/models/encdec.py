@@ -4,7 +4,13 @@ Counterpart of `ann3depth_tpu/models/encdec.py` (`quant="none"`): a 4x4
 space-to-depth stem, three strided-conv encoder stages with one GroupNorm
 each, two decoder stages (1x1 projection, bilinear x2, 3x3 conv, projected
 additive skip) and an f32 3x3 head whose 1-channel log-depth map is
-upsampled x2 to stride 2.
+upsampled x2 to stride 2. Both x2 upsamples are `ops.resize.upsample_matmul`
+(the JAX model's `upsample="matmul"`, its default; at an integer factor the
+same function as its head's `jax.image.resize`): two fixed matmuls, so the
+backward is a GEMM with a fixed summation order, where F.interpolate's CUDA
+backward sums with atomics. The decoder's takes its bf16 map to f32 and
+rounds the result once; the JAX stage's bf16 einsums round after each
+matmul (see `UpStage`).
 
 Public layout is the JAX package's: NHWC in, NHWC out. Inside, tensors are
 NCHW in channels_last memory, which is the same bytes as NHWC, so the
@@ -37,6 +43,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from ann3depth_tpu_torch.ops.resize import upsample_matmul
 
 # flax's lecun_normal: a normal truncated to [-2, 2] standard deviations,
 # rescaled by this constant so that its variance is exactly 1/fan_in.
@@ -141,9 +149,15 @@ class UpStage(nn.Module):
 
     def forward(self, x, skip):
         x = self.proj_down(x)
-        x = F.interpolate(x, scale_factor=2, mode="bilinear",
-                          align_corners=False)
-        x = self.conv_up(x)
+        # NCHW channels_last is NHWC bytes: both permutes are views. The
+        # matmuls run in f32 and the result is rounded once to the compute
+        # dtype. Rounding after each of the two bf16 matmuls, as the JAX
+        # stage does, is the same function but moves the bf16 step further
+        # from the JAX step whenever the two sides' inputs differ by a
+        # rounding (tests/test_torch_train.py).
+        with torch.autocast(x.device.type, enabled=False):
+            up = upsample_matmul(x.permute(0, 2, 3, 1).float(), 2)
+        x = self.conv_up(up.to(x.dtype).permute(0, 3, 1, 2))
         return F.relu(x + self.proj_skip(skip))
 
 
@@ -197,9 +211,7 @@ class EncDecDepthNet(nn.Module):
             x = remat_call(self.remat, self.dec1, x, s0)
         with torch.autocast(x.device.type, enabled=False):
             y = self.head(x.float())
-            y = F.interpolate(y, scale_factor=2, mode="bilinear",
-                              align_corners=False)
-        return y.permute(0, 2, 3, 1)
+            return upsample_matmul(y.permute(0, 2, 3, 1), 2)
 
     @staticmethod
     def output_hw(input_hw):

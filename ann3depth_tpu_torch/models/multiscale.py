@@ -12,9 +12,11 @@ model does.
 Where flax and torch differ, beyond what models/encdec.py handles:
 - `GlobalContext` takes the spatial mean, then two `Dense` layers with
   bias (torch Linear, [out, in] weights) in the compute dtype.
-- The x4 of the coarse map is the JAX model's `upsample_matmul` in f32;
-  at an integer factor it is bilinear with half-pixel centers and clamped
-  edges, which is `F.interpolate(align_corners=False)`.
+- The x4 of the coarse map is the JAX model's `upsample_matmul` in f32,
+  and the final x2 (`jax.image.resize` there) is the same function at an
+  integer factor: both are `ops.resize.upsample_matmul`, two fixed
+  matmuls, whose backward (unlike F.interpolate's on CUDA) sums in a fixed
+  order.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from torch import nn
 
 from ann3depth_tpu_torch.models.encdec import (Conv, Stage, init_flax_,
                                                remat_call, space_to_depth)
+from ann3depth_tpu_torch.ops.resize import upsample_matmul
 
 
 class GlobalContext(nn.Module):
@@ -43,8 +46,8 @@ class GlobalContext(nn.Module):
 
 
 def _up(x, factor):
-    return F.interpolate(x, scale_factor=factor, mode="bilinear",
-                         align_corners=False)
+    """Bilinear integer-factor upsample of an NCHW map, in its dtype."""
+    return upsample_matmul(x.permute(0, 2, 3, 1), factor).permute(0, 3, 1, 2)
 
 
 class MultiScaleDepthNet(nn.Module):

@@ -16,6 +16,8 @@ then come back as `[..., out, in]`.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -77,14 +79,23 @@ def triangle_matrix_interleaved(in_size: int, out_size: int, channels: int,
     return t.reshape(*ax.shape[:-2], in_size * channels, out_size * channels)
 
 
+@functools.lru_cache(maxsize=64)
+def _upsample_matrix(size: int, factor: int, dtype, device):
+    """The fixed `[size*factor, size]` matrix of an integer-factor
+    upsample, built once per (size, factor, dtype, device): a model's
+    forward then launches no kernel to build it. Built outside any
+    inference_mode, so that autograd may save it."""
+    with torch.inference_mode(False):
+        return triangle_matrix(size * factor, size, 0.0, 1.0 / factor,
+                               device=device).to(dtype)
+
+
 def upsample_matmul(x, factor: int = 2):
     """Bilinear integer-factor upsample of NHWC `[B, H, W, C]` as two fixed
     matmuls (half-pixel centers, scale 1/f). Runs in x.dtype."""
     b, h, w, c = x.shape
-    ay = triangle_matrix(h * factor, h, 0.0, 1.0 / factor,
-                         device=x.device).to(x.dtype)
-    ax = triangle_matrix(w * factor, w, 0.0, 1.0 / factor,
-                         device=x.device).to(x.dtype)
+    ay = _upsample_matrix(h, factor, x.dtype, x.device)
+    ax = _upsample_matrix(w, factor, x.dtype, x.device)
     y = torch.einsum("oh,bhwc->bowc", ay, x)
     return torch.einsum("pw,bowc->bopc", ax, y)
 

@@ -3,11 +3,15 @@
 Counterpart of the single-device path of `ann3depth_tpu/train/loop.py`
 (`build_dataset`, `resolved_target_hw`, `create_state`, `train`,
 `predict_batch`, `evaluate` with its report, `restore_state_for_eval`,
-`evaluate_protocols`): host batches go to the device, then `train_step`;
-metrics are read and logged every `log_every` steps, checkpoints written
-every `checkpoint_every`, a 4-batch eval sample scored (and an rgb|gt|pred
-grid of it written to the workdir) every `eval_every`, and `resume`
-continues the step counter from the latest checkpoint.
+`evaluate_protocols`): host batches go to the device, then `train_step`
+(with gradient accumulation) or `distill_train_step`; metrics are read and
+logged every `log_every` steps (also to TensorBoard with `tensorboard`),
+checkpoints written every `checkpoint_every`, a 4-batch eval sample scored
+(and an rgb|gt|pred grid of it written to the workdir) every `eval_every`,
+with early stopping and a best-eval checkpoint on top; `resume` continues
+the step counter from the latest checkpoint, `resume_step` rolls back to
+an earlier one; several datasets train batch-interleaved; `profile_dir`
+traces a window of steps with torch.profiler.
 
 Every option of the JAX loop outside this path raises NotImplementedError
 ("not ported yet") instead of being ignored.
@@ -32,6 +36,7 @@ from ann3depth_tpu_torch.models import registry
 from ann3depth_tpu_torch.train import losses
 from ann3depth_tpu_torch.train import step as steplib
 from ann3depth_tpu_torch.train.checkpoint import CheckpointManager
+from ann3depth_tpu_torch.utils import tracing
 from ann3depth_tpu_torch.utils.metrics_writer import MetricsWriter
 
 log = logging.getLogger(__name__)
@@ -40,7 +45,10 @@ EVAL_SAMPLE_BATCHES = 4  # in-loop eval is a sample, not the full split
 
 
 def build_dataset(cfg: Config, split="train", name=None):
-    """Dataset factory: name -> raw (uint8 rgb, f32 depth) example source."""
+    """Dataset factory: name -> raw (uint8 rgb, f32 depth) example source.
+
+    Prefers packed records (`cli prepare`) under <data_dir>/records when
+    present; falls back to the raw-file loaders."""
     name = name or cfg.data.datasets[0]
     if name == "synthetic":
         from ann3depth_tpu_torch.data.synthetic import SyntheticDepthDataset
@@ -50,16 +58,20 @@ def build_dataset(cfg: Config, split="train", name=None):
             img_hw=tuple(cfg.data.synth_img_hw),
             depth_hw=tuple(cfg.data.synth_depth_hw),
             seed=0 if train else 1)
-    if os.path.exists(os.path.join(cfg.data.data_dir, "records",
-                                   f"{name}-{split}-index.json")):
-        raise NotImplementedError(
-            f"packed records ({name}-{split}) are not ported yet; the JAX "
-            "loop would read them in place of the raw files")
+
+    from ann3depth_tpu_torch.data import records
+    index = records.find_index(
+        os.path.join(cfg.data.data_dir, "records"), name, split)
+    if index:
+        log.info("using packed records: %s", index)
+        return records.RecordDataset(index)
+
     if name == "make3d":
         from ann3depth_tpu_torch.data.make3d import Make3DDataset
         return Make3DDataset(cfg.data.data_dir, split=split)
     if name == "nyu":
-        raise NotImplementedError("the nyu loader is not ported yet")
+        from ann3depth_tpu_torch.data.nyu import NYUDataset
+        return NYUDataset(cfg.data.data_dir, split=split)
     raise KeyError(f"unknown dataset {name!r}")
 
 
@@ -85,42 +97,60 @@ def _check_ported(cfg: Config):
     t, d = cfg.train, cfg.data
     not_ported = [
         ("zero1", t.zero1), ("tensor_parallel > 1", t.tensor_parallel > 1),
-        ("grad_accum > 1", t.grad_accum > 1),
-        ("distill_from", bool(t.distill_from)),
         ("cache_device", d.cache_device),
         ("cache_window_mb", bool(d.cache_window_mb)),
         ("window_epochs != 1", d.window_epochs != 1),
         ("use_grain", d.use_grain or d.num_workers > 0),
         ("steps_per_dispatch > 1", t.steps_per_dispatch > 1),
         (f"quant={cfg.model.quant!r}", cfg.model.quant == "int8-qat"),
-        ("profile_dir", bool(t.profile_dir)), ("tensorboard", t.tensorboard),
-        ("early_stop_patience", t.early_stop_patience > 0),
-        ("save_best", t.save_best), ("resume_step", t.resume_step is not None),
-        ("more than one dataset", len(d.datasets) > 1),
     ]
     missing = [name for name, on in not_ported if on]
     if missing:
         raise NotImplementedError(
             f"{', '.join(missing)}: not ported yet (the port trains the "
-            "plain single-device path)")
+            "single-device path)")
 
 
 def _validate(cfg: Config):
+    """The JAX loop's checks of the options the port trains with."""
+    t = cfg.train
     if cfg.model.quant not in ("none", "int8-qat"):
         raise ValueError(
             f"model.quant={cfg.model.quant!r} is a serving-only path "
             "(round() has zero gradient); train with quant='none'")
-    if cfg.train.batch_size <= 0:
-        raise ValueError(
-            f"batch_size must be positive, got {cfg.train.batch_size}")
-    if cfg.train.grad_accum < 1:
-        raise ValueError(f"grad_accum must be >= 1, got {cfg.train.grad_accum}")
+    if t.batch_size <= 0:
+        raise ValueError(f"batch_size must be positive, got {t.batch_size}")
+    if t.grad_accum < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {t.grad_accum}")
     for name in ("log_every", "checkpoint_every", "eval_every"):
-        if getattr(cfg.train, name) < 0:
+        if getattr(t, name) < 0:
             raise ValueError(
                 f"{name} must be >= 0 (0 disables the periodic cadence; "
-                f"the final step still logs/saves), got "
-                f"{getattr(cfg.train, name)}")
+                f"the final step still logs/saves), got {getattr(t, name)}")
+    if t.batch_size % t.grad_accum:
+        raise ValueError(f"batch_size={t.batch_size} is not divisible by "
+                         f"grad_accum={t.grad_accum}")
+    if t.early_stop_patience < 0:
+        raise ValueError("early_stop_patience must be >= 0, got "
+                         f"{t.early_stop_patience}")
+    if t.early_stop_patience and not t.eval_every:
+        raise ValueError(
+            "early_stop_patience needs in-loop eval to watch: set "
+            "eval_every > 0 (the stop criterion is the eval RMSE)")
+    if t.save_best and not t.eval_every:
+        raise ValueError("save_best needs in-loop eval to rank checkpoints: "
+                         "set eval_every > 0")
+    if t.distill_from:
+        if t.zero1 or t.tensor_parallel > 1 or t.grad_accum > 1:
+            raise ValueError(
+                "distill_from composes with plain data-parallel training "
+                "only; zero1 / tensor_parallel / grad_accum are not wired "
+                "into the distillation step")
+        if not 0.0 < t.distill_alpha <= 1.0:
+            raise ValueError(
+                f"distill_alpha must be in (0, 1], got {t.distill_alpha} "
+                "(0 would silently ignore the teacher — drop --distill-from "
+                "instead)")
     _check_ported(cfg)
 
 
@@ -132,72 +162,215 @@ def step_seed(seed: int, step: int) -> int:
         1, np.uint64)[0])
 
 
+def restore_teacher(cfg: Config, device):
+    """The frozen distillation teacher: registry model `distill_model`
+    (default the student's) at `distill_width_mult`, quant "none", with
+    the params of the latest checkpoint in cfg.train.distill_from; eval
+    mode, no gradients."""
+    import dataclasses
+
+    t = cfg.train
+    tcfg = dataclasses.replace(cfg.model, name=t.distill_model
+                               or cfg.model.name,
+                               width_mult=t.distill_width_mult, quant="none")
+    teacher = steplib.init_params(registry.build(tcfg), cfg.data.input_hw, 0,
+                                  device=device)
+    facade = steplib.TrainState(step=0, model=teacher, optimizer=None,
+                                tx=None)
+    _, restored = CheckpointManager(t.distill_from).restore_params(facade)
+    if restored is None:
+        raise RuntimeError(
+            f"no teacher checkpoint in {t.distill_from!r} (distill_model="
+            f"{tcfg.name!r}, width_mult={tcfg.width_mult})")
+    log.info("distilling from %s step %d (%s, width %g, alpha %g)",
+             t.distill_from, restored, tcfg.name, tcfg.width_mult,
+             t.distill_alpha)
+    return teacher.eval().requires_grad_(False)
+
+
+def _restore_for_resume(cfg: Config, state, ckpt):
+    """(state, start step): the latest checkpoint with `resume`, the one at
+    `resume_step` with a rollback of every newer one."""
+    t = cfg.train
+    if not (t.resume or t.resume_step is not None):
+        return state, 0
+    state, restored = ckpt.restore(state, step=t.resume_step)
+    if restored is None:
+        return state, 0
+    log.info("resumed from checkpoint at step %d", state.step)
+    if t.resume_step is not None:
+        # Explicit rollback: drop the abandoned newer timeline so this
+        # run's saves don't collide with existing steps.
+        for s in [s for s in ckpt.all_steps() if s > restored]:
+            log.warning("rollback resume: deleting newer checkpoint at "
+                        "step %d", s)
+            ckpt.delete(s)
+    return state, state.step
+
+
+class _BestTracker:
+    """Early stopping and the best-eval checkpoint over the in-loop evals.
+
+    Early stop keeps a host copy of the params at the best eval RMSE and,
+    after `patience` evals that fail to beat it by `min_delta`, puts them
+    back (Keras restore_best_weights) and asks the loop to stop. save_best
+    keeps a one-slot CheckpointManager under <ckpt_dir>/best and pins its
+    RMSE in <ckpt_dir>/best_metric.json, which a resumed run must beat."""
+
+    def __init__(self, cfg: Config):
+        t = cfg.train
+        self.patience, self.min_delta = t.early_stop_patience, \
+            t.early_stop_min_delta
+        self.best_rmse, self.stale, self.snapshot = float("inf"), 0, None
+        self.ckpt = self.metric_path = None
+        if t.save_best:
+            self.ckpt = CheckpointManager(os.path.join(t.ckpt_dir, "best"),
+                                          max_to_keep=1)
+            self.metric_path = os.path.join(t.ckpt_dir, "best_metric.json")
+            if os.path.exists(self.metric_path):
+                with open(self.metric_path) as f:
+                    prior = json.load(f)
+                self.best_rmse = float(prior["rmse"])
+                log.info("save_best: resuming against prior best rmse %.4f "
+                         "(step %d)", prior["rmse"], prior["step"])
+
+    @property
+    def active(self):
+        return bool(self.patience) or self.ckpt is not None
+
+    def update(self, state, step, rmse) -> bool:
+        """Record one eval; True when the run should stop (the best params
+        are then back in `state`)."""
+        if rmse < self.best_rmse - self.min_delta:
+            self.best_rmse, self.stale = rmse, 0
+            if self.patience:
+                self.snapshot = (step, {k: v.detach().to("cpu", copy=True)
+                                        for k, v in state.params.items()})
+            if self.ckpt is not None:
+                self.ckpt.save(step, state)
+                with open(self.metric_path, "w") as f:
+                    json.dump({"rmse": float(rmse), "step": step}, f)
+            return False
+        self.stale += 1
+        if not self.patience or self.stale < self.patience:
+            return False
+        if self.snapshot is not None:
+            best_step, params = self.snapshot
+            with torch.no_grad():
+                for k, p in state.params.items():
+                    p.copy_(params[k])
+            log.info("early stop at step %d: restored the best weights "
+                     "(eval rmse %.4f at step %d); %d stale evals", step,
+                     self.best_rmse, best_step, self.stale)
+        else:
+            log.info("early stop at step %d: eval rmse stuck at %.4f "
+                     "(best from a prior run %.4f) for %d evals", step, rmse,
+                     self.best_rmse, self.stale)
+        return True
+
+
 def train(cfg: Config, *, workdir: Optional[str] = None, dataset=None,
           progress=True, device=None):
     """Run cfg.train.steps of training; returns (state, last_metrics).
 
     device: None -> the card ("cuda"); "cpu" runs the plain preprocess and
     the model on the CPU. With cfg.train.resume, restores the latest
-    checkpoint from cfg.train.ckpt_dir and continues the step counter."""
+    checkpoint from cfg.train.ckpt_dir and continues the step counter. An
+    explicit `dataset` overrides the config's dataset list; otherwise every
+    configured dataset trains, batch-interleaved."""
     _validate(cfg)
+    t = cfg.train
     dev = resolve_device(device)
-    workdir = workdir or cfg.train.ckpt_dir
+    workdir = workdir or t.ckpt_dir
+    extra_datasets = []
     if dataset is None:
         dataset = build_dataset(cfg, "train")
+        extra_datasets = [build_dataset(cfg, "train", name=n)
+                          for n in cfg.data.datasets[1:]]
     state = create_state(cfg, dev)
-    ckpt = CheckpointManager(cfg.train.ckpt_dir)
-    start_step = 0
-    if cfg.train.resume:
-        state, restored = ckpt.restore(state)
-        if restored is not None:
-            start_step = state.step
-            log.info("resumed from checkpoint at step %d", start_step)
+    teacher = restore_teacher(cfg, dev) if t.distill_from else None
+    ckpt = CheckpointManager(t.ckpt_dir)
+    state, start_step = _restore_for_resume(cfg, state, ckpt)
 
     step_kwargs = dict(input_hw=tuple(cfg.data.input_hw),
                        target_hw=resolved_target_hw(cfg),
-                       si_lambda=cfg.train.si_lambda,
-                       augment=cfg.data.augment, loss_kind=cfg.train.loss,
-                       ema_decay=cfg.train.ema_decay)
+                       si_lambda=t.si_lambda, augment=cfg.data.augment,
+                       loss_kind=t.loss, ema_decay=t.ema_decay)
+    if teacher is None:
+        step_kwargs["grad_accum"] = t.grad_accum
+    else:
+        step_kwargs["distill_alpha"] = t.distill_alpha
     generator = torch.Generator(device=dev)
-    n_steps = cfg.train.steps - start_step
-    host_iter = dataset.batches(cfg.train.batch_size, steps=n_steps,
-                                seed=cfg.train.seed + start_step)
+    n_steps = t.steps - start_step
+    if extra_datasets:
+        from ann3depth_tpu_torch.data.batching import interleave_batches
+        host_iter = interleave_batches([dataset, *extra_datasets],
+                                       t.batch_size, steps=n_steps,
+                                       seed=t.seed + start_step)
+    else:
+        host_iter = dataset.batches(t.batch_size, steps=n_steps,
+                                    seed=t.seed + start_step)
+    # Profiler window: skip a few warm steps, then trace profile_steps.
+    prof_start = prof_stop = -1
+    if t.profile_dir:
+        prof_start = min(5, max(0, n_steps - 1))
+        prof_stop = min(prof_start + max(1, t.profile_steps), n_steps)
     writer = MetricsWriter(workdir)
+    tb = None
+    if t.tensorboard:
+        from ann3depth_tpu_torch.utils.tb_writer import TensorBoardWriter
+        tb = TensorBoardWriter(os.path.join(workdir, "tb"))
+    best = _BestTracker(cfg)
+    profiler = None
     eval_ds = None
     metrics = {}
     t0, imgs_since = time.perf_counter(), 0
     try:
         for i, (img_np, dep_np) in enumerate(host_iter):
+            if i == prof_start:
+                tracing.device_sync(dev)  # drain the warm steps
+                profiler = tracing.start_trace(dev)
             step_no = start_step + i
             img_u8 = torch.from_numpy(img_np).to(dev)
             depth = torch.from_numpy(dep_np).to(dev)
             if cfg.data.augment:
-                generator.manual_seed(step_seed(cfg.train.seed, step_no))
-            state, metrics = steplib.train_step(state, img_u8, depth,
-                                                generator, **step_kwargs)
+                generator.manual_seed(step_seed(t.seed, step_no))
+            if teacher is None:
+                state, metrics = steplib.train_step(
+                    state, img_u8, depth, generator, **step_kwargs)
+            else:
+                state, metrics = steplib.distill_train_step(
+                    state, teacher, img_u8, depth, generator, **step_kwargs)
             imgs_since += int(img_u8.shape[0])
+            if i + 1 == prof_stop and profiler is not None:
+                tracing.device_sync(dev)  # capture the window's device work
+                path = tracing.stop_trace(profiler, t.profile_dir)
+                profiler = None
+                log.info("profiler trace (%d steps) -> %s",
+                         prof_stop - prof_start, path)
             is_last = i == n_steps - 1
 
-            if (cfg.train.log_every
-                    and (step_no + 1) % cfg.train.log_every == 0) or is_last:
+            if (t.log_every and (step_no + 1) % t.log_every == 0) or is_last:
                 metrics = {k: float(v) for k, v in metrics.items()}  # sync
                 if not math.isfinite(metrics["loss"]):
                     raise FloatingPointError(
                         f"non-finite loss {metrics['loss']} at step "
                         f"{step_no + 1} (grad_norm={metrics['grad_norm']}); "
-                        f"last good checkpoint is in {cfg.train.ckpt_dir} — "
+                        f"last good checkpoint is in {t.ckpt_dir} — "
                         "lower the learning rate or inspect the data batch")
                 dt = time.perf_counter() - t0
                 ips = imgs_since / dt if dt > 0 else 0.0
                 writer.write(step_no + 1, metrics, images_per_sec=ips)
+                if tb is not None:
+                    tb.write_scalars(step_no + 1,
+                                     {**metrics, "images_per_sec": ips})
                 if progress:
                     log.info("step %d loss=%.4f rmse=%.3f %.1f img/s",
                              step_no + 1, metrics["loss"], metrics["rmse"],
                              ips)
                 t0, imgs_since = time.perf_counter(), 0
 
-            if (cfg.train.eval_every
-                    and (step_no + 1) % cfg.train.eval_every == 0):
+            if t.eval_every and (step_no + 1) % t.eval_every == 0:
                 if eval_ds is None:
                     eval_ds = build_dataset(cfg, "test")
                 em = evaluate(cfg, state=state, dataset=eval_ds,
@@ -205,18 +378,28 @@ def train(cfg: Config, *, workdir: Optional[str] = None, dataset=None,
                 writer.write(step_no + 1,
                              {**{f"eval_{k}": v for k, v in em.items()},
                               "eval_batches": EVAL_SAMPLE_BATCHES})
-                _write_viz(cfg, state, eval_ds, workdir, step_no + 1)
+                if tb is not None:
+                    tb.write_scalars(step_no + 1,
+                                     {f"eval/{k}": v for k, v in em.items()})
+                _write_viz(cfg, state, eval_ds, workdir, step_no + 1, tb)
                 if progress:
                     log.info("eval @%d rmse=%.3f abs_rel=%.3f", step_no + 1,
                              em["rmse"], em["abs_rel"])
+                if best.active and best.update(state, step_no + 1,
+                                               em["rmse"]):
+                    ckpt.save(step_no + 1, state)
+                    break
                 t0, imgs_since = time.perf_counter(), 0
 
-            if (cfg.train.checkpoint_every
-                    and (step_no + 1) % cfg.train.checkpoint_every == 0
-                    ) or is_last:
+            if (t.checkpoint_every
+                    and (step_no + 1) % t.checkpoint_every == 0) or is_last:
                 ckpt.save(step_no + 1, state)
     finally:
+        if profiler is not None:  # the loop left inside the window
+            tracing.stop_trace(profiler, t.profile_dir)
         writer.close()
+        if tb is not None:
+            tb.close()
     return state, metrics
 
 
@@ -232,8 +415,9 @@ def predict_batch(cfg: Config, state, img_u8, depth):
     return images, depths, np.exp(pred_log[..., 0].cpu().numpy())
 
 
-def _write_viz(cfg: Config, state, dataset, workdir, step):
-    """Render an (rgb | gt | pred) triple grid from the eval split."""
+def _write_viz(cfg: Config, state, dataset, workdir, step, tb=None):
+    """Render an (rgb | gt | pred) triple grid from the eval split (also
+    into TensorBoard when `tb` is given)."""
     from ann3depth_tpu_torch.utils import viz
 
     img_np, dep_np = next(dataset.batches(min(4, cfg.train.batch_size),
@@ -243,7 +427,7 @@ def _write_viz(cfg: Config, state, dataset, workdir, step):
                                          torch.from_numpy(img_np).to(dev),
                                          torch.from_numpy(dep_np).to(dev))
     return viz.write_triple_summary(workdir, step, images.cpu().numpy(),
-                                    depths.cpu().numpy(), pred)
+                                    depths.cpu().numpy(), pred, tb)
 
 
 def _check_eval_ported(cfg: Config):

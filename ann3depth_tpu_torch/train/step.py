@@ -4,6 +4,9 @@ Counterpart of `ann3depth_tpu/train/step.py`. One `train_step` is
 preprocess (the CUDA kernel on the card) -> forward -> backward -> update,
 split so that a caller can put another preprocess in front of the same
 update: `train_step` = `preprocess.preprocess_batch` + `step_on_batch`.
+With grad_accum > 1 it runs `accumulate_microbatches` instead, then one
+update; `distill_train_step` adds a frozen teacher's log-depth map as a
+second target.
 
 Where the JAX step is a pure function of its state, the port updates the
 state in place (params, optimizer moments, EMA and the step counter), as
@@ -29,6 +32,7 @@ import numpy as np
 import torch
 
 from ann3depth_tpu_torch.compat import reference_spec as ref
+from ann3depth_tpu_torch.ops import resize
 from ann3depth_tpu_torch.pipeline import preprocess
 from ann3depth_tpu_torch.train import losses
 
@@ -226,6 +230,21 @@ def ema_update(ema: dict, params: dict, ema_decay):
     return ema
 
 
+def _finish_update(state, grad_accum=1, ema_decay=0.0):
+    """The update from the gradients in `.grad` (their mean over
+    `grad_accum` microbatches), then the EMA and the step counter; returns
+    the global norm of the (mean) gradients before the clip."""
+    if grad_accum > 1:
+        grads = [p.grad for p in state.model.parameters()
+                 if p.grad is not None]
+        torch._foreach_div_(grads, float(grad_accum))
+    grad_norm = state.tx.apply(state.optimizer, state.step)
+    if state.ema_params is not None and ema_decay:
+        ema_update(state.ema_params, state.params, ema_decay)
+    state.step += 1
+    return grad_norm
+
+
 def step_on_batch(state: TrainState, images, depths, *, si_lambda=0.5,
                   ema_decay=0.0, loss_kind="si"):
     """Forward, backward, update and EMA on a preprocessed batch; returns
@@ -235,14 +254,50 @@ def step_on_batch(state: TrainState, images, depths, *, si_lambda=0.5,
     loss, pred_log = loss_fn(state.model, images, depths, si_lambda,
                              loss_kind)
     loss.backward()
-    grad_norm = state.tx.apply(state.optimizer, state.step)
-    if state.ema_params is not None and ema_decay:
-        ema_update(state.ema_params, state.params, ema_decay)
+    grad_norm = _finish_update(state, ema_decay=ema_decay)
     with torch.no_grad():
         rmse = losses.depth_metrics(pred_log.detach(), depths)["rmse"]
-    state.step += 1
     return state, {"loss": loss.detach(), "grad_norm": grad_norm,
                    "rmse": rmse}
+
+
+def _to_microbatches(x, accum):
+    """Microbatch j of a [accum*m, ...] batch is x[j::accum]: the JAX
+    step's strided split (contiguous copies, which the kernel reads)."""
+    return [x[j::accum].contiguous() for j in range(accum)]
+
+
+def accumulate_microbatches(state: TrainState, img_u8, depth_raw,
+                            generator=None, *, grad_accum, input_hw,
+                            target_hw, si_lambda=0.5, augment=False,
+                            loss_kind="si"):
+    """Preprocess, forward and backward of `grad_accum` strided
+    microbatches one after another; their gradients sum in `.grad`.
+    Returns the summed `losses.depth_metric_stats` (with the training loss
+    of `loss_kind`), whose finalize gives full-batch metrics.
+
+    With augment, microbatch j takes the j-th draw of `generator` (the
+    counterpart of the JAX step's fold_in(base_key, j))."""
+    if img_u8.shape[0] % grad_accum:
+        raise ValueError(
+            f"global batch {img_u8.shape[0]} is not divisible by "
+            f"grad_accum={grad_accum}")
+    stats = {}
+    for img, dep in zip(_to_microbatches(img_u8, grad_accum),
+                        _to_microbatches(depth_raw, grad_accum)):
+        images, depths = preprocess.preprocess_batch(
+            img, dep, input_hw, target_hw,
+            generator=generator if augment else None)
+        loss, pred_log = loss_fn(state.model, images, depths, si_lambda,
+                                 loss_kind)
+        loss.backward()
+        with torch.no_grad():
+            micro = losses.depth_metric_stats(
+                pred_log.detach(), depths, si_lambda=si_lambda,
+                loss_kind=loss_kind)
+        stats = {k: stats[k] + v if k in stats else v
+                 for k, v in micro.items()}
+    return stats
 
 
 def train_step(state: TrainState, img_u8, depth_raw, generator=None, *,
@@ -252,16 +307,68 @@ def train_step(state: TrainState, img_u8, depth_raw, generator=None, *,
 
     img_u8: [B, H, W, 3] raw uint8 frames; depth_raw: [B, dh, dw] raw f32
     depth; generator: the `torch.Generator` (on the frames' device) that
-    draws the augmentation when augment is set."""
-    if grad_accum != 1:
-        raise NotImplementedError(
-            f"grad_accum={grad_accum} is not ported yet (the port trains "
-            "with grad_accum=1)")
+    draws the augmentation when augment is set.
+
+    grad_accum > 1: one update from the mean gradients of `grad_accum`
+    microbatches of B/grad_accum images (`accumulate_microbatches`), each
+    preprocessed on its own; peak activation memory is a microbatch's.
+    Equal to one full-batch step up to f32 reassociation; loss and rmse
+    are full-batch values, grad_norm that of the mean gradients."""
+    if grad_accum > 1:
+        state.optimizer.zero_grad(set_to_none=True)
+        stats = accumulate_microbatches(
+            state, img_u8, depth_raw, generator, grad_accum=grad_accum,
+            input_hw=input_hw, target_hw=target_hw, si_lambda=si_lambda,
+            augment=augment, loss_kind=loss_kind)
+        grad_norm = _finish_update(state, grad_accum, ema_decay)
+        fin = losses.finalize_depth_metrics(stats)
+        return state, {"loss": fin["loss"], "grad_norm": grad_norm,
+                       "rmse": fin["rmse"]}
     images, depths = preprocess.preprocess_batch(
         img_u8, depth_raw, input_hw, target_hw,
         generator=generator if augment else None)
     return step_on_batch(state, images, depths, si_lambda=si_lambda,
                          ema_decay=ema_decay, loss_kind=loss_kind)
+
+
+def distill_train_step(state: TrainState, teacher, img_u8, depth_raw,
+                       generator=None, *, input_hw, target_hw, si_lambda=0.5,
+                       augment=False, distill_alpha=0.5, ema_decay=0.0,
+                       loss_kind="si"):
+    """One step with knowledge distillation: the frozen `teacher` module's
+    log-depth map is a second regression target for the student,
+
+        loss = (1 - alpha) * depth_loss(student, gt)
+             + alpha * mean((student_log - teacher_log)^2)
+
+    Both models read one preprocessed batch; the teacher runs without
+    autograd, and its map is resized to the student's grid when the two
+    grids differ, as `jax.image.resize(..., "bilinear")` resizes it: the
+    antialiased half-pixel triangle (`ops.resize.resample_2d`, the batch
+    carried as channels), whose radius widens on a downsample. Metrics:
+    loss, gt_loss, distill, grad_norm and rmse, as device scalars."""
+    images, depths = preprocess.preprocess_batch(
+        img_u8, depth_raw, input_hw, target_hw,
+        generator=generator if augment else None)
+    with torch.no_grad():
+        teacher_log = teacher(images).float()
+    if tuple(teacher_log.shape[1:3]) != tuple(target_hw):
+        teacher_log = resize.resample_2d(
+            teacher_log[..., 0].permute(1, 2, 0), target_hw).permute(
+                2, 0, 1)[..., None]
+    state.optimizer.zero_grad(set_to_none=True)
+    pred_log = state.model(images)
+    gt_loss = losses.depth_loss(pred_log, depths, kind=loss_kind,
+                                lam=si_lambda)
+    match = torch.mean(torch.square(pred_log.float() - teacher_log))
+    loss = (1.0 - distill_alpha) * gt_loss + distill_alpha * match
+    loss.backward()
+    grad_norm = _finish_update(state, ema_decay=ema_decay)
+    with torch.no_grad():
+        rmse = losses.depth_metrics(pred_log.detach(), depths)["rmse"]
+    return state, {"loss": loss.detach(), "gt_loss": gt_loss.detach(),
+                   "distill": match.detach(), "grad_norm": grad_norm,
+                   "rmse": rmse}
 
 
 # ---------------------------------------------------------------------------

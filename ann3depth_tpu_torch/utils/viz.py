@@ -79,9 +79,13 @@ def save_png(path: str, img_u8: np.ndarray) -> str:
 
 
 def write_triple_summary(workdir: str, step: int, images_norm, depth_gt,
-                         depth_pred) -> str:
-    """Render + persist a triple grid; returns the PNG path."""
+                         depth_pred, tb_writer=None) -> str:
+    """Render + persist a triple grid (and write it to `tb_writer`, a
+    utils.tb_writer.TensorBoardWriter, when given); returns the PNG path."""
     grid = triple_grid(np.asarray(images_norm), np.asarray(depth_gt),
                        np.asarray(depth_pred))
-    return save_png(os.path.join(workdir, f"triples_step{step:07d}.png"),
+    path = save_png(os.path.join(workdir, f"triples_step{step:07d}.png"),
                     grid)
+    if tb_writer is not None:
+        tb_writer.write_image(step, "triples", grid)
+    return path

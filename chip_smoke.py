@@ -56,7 +56,22 @@ last line is printed:
    phase 5, `cli eval` against its plain-fed twin and the control, one
    serving round, the `infer --image` helper and 30 frames of `cli live`;
    make3d-multiscale (b16, Make3D's raw shapes) trains, resumes and serves
-   a round; make3d-small (b1) trains, resumes and serves a round.
+   a round; make3d-small (b1) trains, resumes and serves a round. Phases 4
+   and 7 also run 20 steps twice from one state and one feed in the
+   default mode and report how far the two loss curves part.
+8. NYU and packed records, several datasets, grad accumulation,
+   distillation and the loop's stop/best/rollback/trace options, through
+   the CLI at full width: an NYU labeled file in its v7.3 layout at NYU's
+   raw shapes (48 synthetic scenes, a splits.mat) through `cli prepare`
+   (packed as records directly where h5py is missing) and Make3D-shaped
+   scenes packed as records; nyu-encdec-aug (b16, augmented) trains on
+   both, batch by batch, at grad_accum 2 with in-loop eval, early stopping,
+   the best-eval checkpoint, TensorBoard and a profiler window, rolls back
+   to a middle checkpoint and runs on, and `cli eval` scores each dataset;
+   one accumulated step is held against one full-batch step; dpt-384 trains
+   from the NYU records at grad_accum 2; make3d-small distills phase 4's
+   encdec checkpoint; the loop's rate reading records is taken against
+   phase 4's. Phase 2 holds and times v1 at this path's new shapes.
 
 The last lines are one `{"kernels": [...]}` JSON line, the nvidia-smi line
 of the card, and `{"ok": true, "device": {...}}`.
@@ -142,6 +157,16 @@ FAMILIES = (("dpt-384", NYU_DEPTH_HW, 30, 40, (10, 15, 15), None),
             ("make3d-small", MAKE3D_DEPTH_HW, 20, 25, (5, 10, 10), 10))
 FAMILY_LIVE_FRAMES = 30
 TRANSCODE_BATCH, TRANSCODE_FRAMES = 8, 64
+# Phase 8. NYU-layout scenes (32 train, 16 test: the split of the written
+# splits.mat) and Make3D-shaped scenes packed as records; nyu-encdec-aug
+# trains SLICE6_STEPS steps at grad_accum ACCUM, then rolls back to
+# ROLLBACK_TO and runs to ROLLBACK_STEPS.
+NYU_SPLIT, MAKE3D_SPLIT = (32, 16), (32, 16)
+ACCUM = 2
+SLICE6_STEPS, ROLLBACK_TO, ROLLBACK_STEPS = 40, 20, 30
+SLICE6_EVERY = 10          # log, checkpoint and eval cadence
+SLICE6_PATIENCE = 2        # early stop after 2 evals without a gain
+DPT_ACCUM_STEPS, DISTILL_STEPS, RECORDS_LOOP_STEPS = 10, 20, 20
 
 
 def check(cond, msg):
@@ -427,6 +452,25 @@ def family_specs(torch, fp):
         ("depth f32 [1,305,55,1] -> [30,40], identity rows (small b1, "
          "21-tap row band)", grid[:1],
          ident(1, MAKE3D_DEPTH_HW, (30, 40), device=dev), (30, 40), True))
+
+
+def slice6_specs(torch, fp):
+    """The v1 kernel's cases at the shapes the phase-8 paths give it:
+    nyu-encdec-aug's microbatch of 8 under grad_accum 2, its NYU depth
+    480x640 -> 120x160 and its frames 480x640 -> 240x320, augment rows."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    frames = torch.randint(0, 256, (8, 480, 640, 3), dtype=torch.uint8,
+                           device=dev, generator=gen)
+    aug = fp.augment_params
+    return (
+        ("depth f32 [8,480,640,1] -> [120,160], augment rows (nyu-encdec-"
+         "aug microbatch, NYU shape)", nyu_depth(torch, gen, 8),
+         aug(gen, 8, NYU_DEPTH_HW, (120, 160), device=dev), (120, 160),
+         True),
+        ("image u8 [8,480,640,3] -> [240,320], augment rows (microbatch "
+         "of 8)", frames, aug(gen, 8, RAW_HW, (240, 320), device=dev),
+         (240, 320), False))
 
 
 def family_cases(torch, fp, resize, ref, specs):
@@ -1454,6 +1498,8 @@ def family_phase(torch, np, fp, card, tmp):
                                            resume, label=f"train {preset}")
         runs = dict(train=train["fused_preprocess_launches"],
                     resume=train["resume_launches"])
+        if preset != "make3d-small":
+            double_run(torch, cfg, img, dep, card, label=f"repeat {preset}")
         if preset == "dpt-384":
             instep = v2_in_step(torch, fp, cfg, img, dep, card,
                                 label=f"instep {preset}")
@@ -1472,6 +1518,457 @@ def family_phase(torch, np, fp, card, tmp):
             runs["live"] = live_cli(torch, np, fp, cfg, preset, d, card,
                                     label=f"live {preset}")["launches"]
         launches[preset] = runs
+    return launches
+
+
+def double_run(torch, cfg, img, dep, card, steps=K_STEPS, label="repeat"):
+    """`steps` augmented train steps of cfg's model, twice from one state
+    and one device-resident feed, in the default mode (cuDNN may pick
+    nondeterministic algorithms): the largest relative difference of the
+    two loss curves, and whether they are equal bit for bit."""
+    from ann3depth_tpu_torch.train import loop
+    from ann3depth_tpu_torch.train import step as steplib
+
+    kw = dict(input_hw=tuple(cfg.data.input_hw),
+              target_hw=loop.resolved_target_hw(cfg), augment=True)
+    curves = []
+    for _ in range(2):
+        state = loop.create_state(cfg, img.device)
+        draws, losses = torch.Generator(device=img.device), []
+        for i in range(steps):
+            draws.manual_seed(i)
+            state, m = steplib.train_step(state, img, dep, draws, **kw)
+            losses.append(m["loss"])
+        curves.append(torch.stack(losses).float().cpu())
+    a, b = curves
+    out = dict(preset_model=cfg.model.name, steps=steps,
+               bitwise_equal=bool(torch.equal(a, b)),
+               max_rel_spread=float(((a - b).abs() / b.abs()).max()),
+               last_losses=[float(a[-1]), float(b[-1])], card=card)
+    print(f"{label}: " + json.dumps(out), flush=True)
+    return out
+
+
+class _Named:
+    """A dataset under another name (records.pack names a pack by it)."""
+
+    def __init__(self, name, dataset):
+        self.name, self._ds = name, dataset
+
+    def __len__(self):
+        return len(self._ds)
+
+    def __getitem__(self, i):
+        return self._ds[i]
+
+
+def _nyu_scenes(np, n, seed):
+    """Synthetic scenes at NYU's raw shapes (RGB and depth 480x640), depth
+    scaled into NYU's indoor range (0.4-10 m)."""
+    from ann3depth_tpu_torch.data.synthetic import SyntheticDepthDataset
+
+    class Scenes(SyntheticDepthDataset):
+        def __getitem__(self, i):
+            img, depth = super().__getitem__(i)
+            return img, depth * np.float32(10.0 / 52.0)
+
+    return Scenes(n=n, img_hw=NYU_DEPTH_HW, depth_hw=NYU_DEPTH_HW, seed=seed)
+
+
+def write_nyu_mat(np, data_dir, n_train, n_test):
+    """`nyu_depth_v2_labeled.mat` in NYU's MATLAB v7.3 layout (HDF5:
+    `images` (N,3,640,480) uint8, `depths` (N,640,480) f32, `scenes` as
+    object references to char arrays, four frames a scene) and a
+    `splits.mat` (1-based trainNdxs/testNdxs) under data_dir/nyu."""
+    import h5py
+    import scipy.io
+
+    n = n_train + n_test
+    h, w = NYU_DEPTH_HW
+    scenes = _nyu_scenes(np, n, seed=5)
+    os.makedirs(f"{data_dir}/nyu", exist_ok=True)
+    with h5py.File(f"{data_dir}/nyu/nyu_depth_v2_labeled.mat", "w") as f:
+        images = f.create_dataset("images", (n, 3, w, h), np.uint8)
+        depths = f.create_dataset("depths", (n, w, h), np.float32)
+        refs = []
+        for i in range(n):
+            img, depth = scenes[i]
+            images[i] = img.transpose(2, 1, 0)
+            depths[i] = depth.T
+            name = f"scene_{i // 4:04d}"
+            refs.append(f.create_dataset(f"#refs#/s{i}", data=np.array(
+                [[ord(c)] for c in name], dtype=np.uint16)).ref)
+        f.create_dataset("scenes", data=np.array(
+            refs, dtype=h5py.ref_dtype).reshape(1, -1))
+    scipy.io.savemat(f"{data_dir}/nyu/splits.mat", {
+        "trainNdxs": np.arange(1, n_train + 1).reshape(-1, 1),
+        "testNdxs": np.arange(n_train + 1, n + 1).reshape(-1, 1)})
+
+
+def slice6_data(torch, np, cli, data_dir):
+    """Phase 8 data: NYU through its loader and `cli prepare` when h5py is
+    there (else the same scenes packed as nyu records), Make3D-shaped
+    scenes (480x640 RGB, 305x55 grid) packed as make3d records. Returns
+    which NYU route ran."""
+    from ann3depth_tpu_torch.data import records
+    from ann3depth_tpu_torch.data.synthetic import SyntheticDepthDataset
+
+    out = f"{data_dir}/records"
+    try:
+        import h5py  # noqa: F401
+        route = "nyu_depth_v2_labeled.mat + cli prepare"
+    except ImportError:
+        route = "nyu records packed directly (no h5py)"
+    t0 = time.perf_counter()
+    if route.startswith("nyu_depth"):
+        write_nyu_mat(np, data_dir, *NYU_SPLIT)
+        for split, n in zip(("train", "test"), NYU_SPLIT):
+            line = _cli_json(cli, ["prepare", "--dataset", "nyu",
+                                   "--data-dir", data_dir, "--split", split])
+            check(line["examples"] == n and line["index"] == (
+                f"{out}/nyu-{split}-index.json"), f"prepare nyu: {line}")
+    else:
+        scenes = _nyu_scenes(np, sum(NYU_SPLIT), seed=5)
+        for split, idx in (("train", range(NYU_SPLIT[0])),
+                           ("test", range(NYU_SPLIT[0], sum(NYU_SPLIT)))):
+            records.pack(_Named("nyu", [scenes[i] for i in idx]), out, split)
+    for split, n, seed in (("train", MAKE3D_SPLIT[0], 3),
+                           ("test", MAKE3D_SPLIT[1], 4)):
+        records.pack(_Named("make3d", SyntheticDepthDataset(
+            n=n, img_hw=RAW_HW, depth_hw=MAKE3D_DEPTH_HW, seed=seed)),
+            out, split)
+    seconds = time.perf_counter() - t0
+    print(f"slice6 nyu data: {route}", flush=True)
+    return route, seconds
+
+
+@contextlib.contextmanager
+def _recording(fp, steplib):
+    """Within the block: every loss of a train or distill step (device
+    scalars), the shape and mode of every v1 call, and the loop's log
+    messages at WARNING and above."""
+    import logging
+
+    seen = dict(losses=[], calls=[], warnings=[])
+    kernel = fp.fused_preprocess
+    inner = steplib.train_step, steplib.distill_train_step
+
+    def recorded(x, params, *, out_hw, depth_mode=False, **kw):
+        seen["calls"].append((tuple(x.shape), depth_mode))
+        return kernel(x, params, out_hw=out_hw, depth_mode=depth_mode, **kw)
+
+    def wrap(fn):
+        def step(*args, **kw):
+            state, metrics = fn(*args, **kw)
+            seen["losses"].append(metrics["loss"])
+            return state, metrics
+        return step
+
+    class Handler(logging.Handler):
+        def emit(self, record):
+            seen["warnings"].append(record.getMessage())
+
+    handler = Handler(logging.WARNING)
+    logging.getLogger("ann3depth_tpu_torch").addHandler(handler)
+    steplib.train_step, steplib.distill_train_step = map(wrap, inner)
+    # The wrapper counts its launches by the module's name, which is
+    # `recorded` within the block; they go back to the kernel's count.
+    recorded.launches = 0
+    try:
+        with fed_by(fp, recorded):
+            yield seen
+    finally:
+        kernel.launches += recorded.launches
+        steplib.train_step, steplib.distill_train_step = inner
+        logging.getLogger("ann3depth_tpu_torch").removeHandler(handler)
+
+
+def _losses_fall(np, losses, n, label):
+    losses = np.asarray([float(x) for x in losses])
+    check(bool(np.isfinite(losses).all()), f"{label}: non-finite losses")
+    first, last = float(losses[:n].mean()), float(losses[-n:].mean())
+    check(last < first, f"{label}: the loss did not fall: mean of the first "
+          f"{n} steps {first}, of the last {n} {last}")
+    return first, last
+
+
+def _step_cost(torch, fn, iters=10):
+    """(ms per call between two synchronizations after 2 warm calls, peak
+    memory allocated in those calls)."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return ((time.perf_counter() - t0) / iters * 1e3,
+            torch.cuda.max_memory_allocated())
+
+
+def _fixed_batch(torch, cfg):
+    """The first batch of cfg's first training set, in order, on the card,
+    and the step's shape arguments."""
+    from ann3depth_tpu_torch.train import loop
+
+    img_np, dep_np = next(loop.build_dataset(cfg).batches(
+        cfg.train.batch_size, steps=1, shuffle=False))
+    kw = dict(input_hw=tuple(cfg.data.input_hw),
+              target_hw=loop.resolved_target_hw(cfg))
+    return (torch.from_numpy(img_np).cuda(), torch.from_numpy(dep_np).cuda(),
+            kw)
+
+
+def accum_costs(torch, cfg):
+    """Time a step and peak memory at grad_accum 1 and ACCUM, from fresh
+    states, on one fixed batch, augment off."""
+    from ann3depth_tpu_torch.train import loop
+    from ann3depth_tpu_torch.train import step as steplib
+
+    img, dep, kw = _fixed_batch(torch, cfg)
+    costs = {}
+    for a in (1, ACCUM):
+        state = loop.create_state(cfg, img.device)
+        ms, peak = _step_cost(torch, lambda: steplib.train_step(
+            state, img, dep, grad_accum=a, **kw))
+        costs[f"accum{a}"] = dict(step_ms=ms, images_per_s=len(img) / ms
+                                  * 1e3, max_memory_allocated_bytes=peak)
+        del state
+    return costs
+
+
+def accum_parity(torch, np, cfg, card, label):
+    """From one state and one fixed batch of the config's first training
+    set, augment off: one grad_accum=ACCUM step against one full-batch
+    step (loss within STEP_LOSS_RTOL; params within 2 lr everywhere and
+    lr/2 on all but 1% of the entries, as a flipped first Adam step
+    allows), then each step's time and peak memory."""
+    import dataclasses
+
+    from ann3depth_tpu_torch.train import loop
+    from ann3depth_tpu_torch.train import step as steplib
+
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, warmup_steps=0))
+    img, dep, kw = _fixed_batch(torch, cfg)
+    dev = img.device
+    full, accum = loop.create_state(cfg, dev), loop.create_state(cfg, dev)
+    _, m_full = steplib.train_step(full, img, dep, **kw)
+    _, m_accum = steplib.train_step(accum, img, dep, grad_accum=ACCUM, **kw)
+    lr = cfg.train.learning_rate
+    with torch.no_grad():
+        diff = torch.cat([(a - b).abs().flatten() for a, b in zip(
+            full.model.parameters(), accum.model.parameters())])
+    l_full, l_accum = float(m_full["loss"]), float(m_accum["loss"])
+    check(abs(l_accum - l_full) <= STEP_LOSS_RTOL * abs(l_full),
+          f"{label}: accum-{ACCUM} loss {l_accum}, full-batch {l_full}")
+    share = float((diff > lr / 2).float().mean())
+    check(float(diff.max()) <= 2 * lr + 1e-6 and share <= 0.01,
+          f"{label}: params part by {float(diff.max())} (lr {lr}); "
+          f"{share} of them by more than lr/2")
+    del full, accum
+    out = dict(batch=len(img), loss_full=l_full, loss_accum=l_accum,
+               params_max_abs_diff=float(diff.max()),
+               params_share_over_half_lr=share, lr=lr,
+               loss_rtol=STEP_LOSS_RTOL, cost=accum_costs(torch, cfg),
+               card=card)
+    print(f"{label}: " + json.dumps(out), flush=True)
+    return out
+
+
+def slice6_phase(torch, np, fp, card, tmp, encdec_ckpt, phase4_loop_ips):
+    """Phase 8: NYU and packed records, multi-dataset training, grad
+    accumulation, distillation and the loop's stop/best/rollback/trace
+    options at full width, through the CLI. Returns the v1 launches of
+    each path."""
+    import dataclasses
+    import glob
+    import importlib.util
+
+    from ann3depth_tpu_torch import cli
+    from ann3depth_tpu_torch.config import get_config
+    from ann3depth_tpu_torch.train import loop
+    from ann3depth_tpu_torch.train import step as steplib
+    from ann3depth_tpu_torch.train.checkpoint import CheckpointManager
+
+    data = f"{tmp}/data"
+    route, data_s = slice6_data(torch, np, cli, data)
+    kernel = fp.fused_preprocess
+    launches = {}
+
+    # nyu-encdec-aug at full width, b16 in microbatches of 8, on NYU and
+    # Make3D records batch by batch, with every option of the loop.
+    ck, wd, prof = f"{tmp}/s6_ckpt", f"{tmp}/s6_work", f"{tmp}/s6_trace"
+    every = str(SLICE6_EVERY)
+    base = ["train", "--config", "nyu-encdec-aug", "--datasets", "nyu",
+            "make3d", "--data-dir", data, "--ckpt-dir", ck, "--workdir", wd,
+            "--grad-accum", str(ACCUM), "--warmup-steps", "10",
+            "--log-every", every, "--checkpoint-every", every,
+            "--eval-every", every, "--early-stop-patience",
+            str(SLICE6_PATIENCE), "--save-best"]
+    kernel.launches = 0
+    t0 = time.perf_counter()
+    with _recording(fp, steplib) as seen:
+        _cli_json(cli, base + ["--steps", str(SLICE6_STEPS), "--tensorboard",
+                               "--profile", prof, "--profile-steps", "3"])
+    train_s = time.perf_counter() - t0
+    n_train = kernel.launches
+    steps_run = len(seen["losses"])
+    first, last = _losses_fall(np, seen["losses"], 10, "slice6 train")
+    with open(f"{wd}/metrics.jsonl") as f:
+        records = [json.loads(line) for line in f]
+    evals = [r["step"] for r in records if "eval_rmse" in r]
+    stopped_early = steps_run < SLICE6_STEPS
+    check(steps_run == SLICE6_STEPS or (stopped_early and evals
+                                        and evals[-1] == steps_run),
+          f"slice6 train ran {steps_run} steps; evals at {evals}")
+    per_eval = 2 * (loop.EVAL_SAMPLE_BATCHES + 1)
+    check(n_train == 2 * ACCUM * steps_run + per_eval * len(evals),
+          f"slice6 train launched v1 {n_train} times in {steps_run} steps "
+          f"and {len(evals)} evals")
+    cli_batch = get_config("nyu-encdec-aug").train.batch_size
+    micro = cli_batch // ACCUM
+    depth_shapes = {s for s, d in seen["calls"] if d and s[0] == micro}
+    want = {(micro, *NYU_DEPTH_HW, 1), (micro, *MAKE3D_DEPTH_HW, 1)}
+    check(depth_shapes == want, f"slice6 train: the kernel took depth "
+          f"microbatches {sorted(depth_shapes)}, not {sorted(want)}")
+    check(os.path.exists(f"{ck}/best_metric.json")
+          and CheckpointManager(f"{ck}/best").all_steps(),
+          "slice6 train: no best/ checkpoint or best_metric.json")
+    with open(f"{ck}/best_metric.json") as f:
+        best = json.load(f)
+    tb_present = importlib.util.find_spec("tensorboard") is not None
+    events = glob.glob(f"{wd}/tb/events.out.tfevents.*")
+    check(events if tb_present else any(
+        "tensorboard unavailable" in m for m in seen["warnings"]),
+        f"slice6 train: tensorboard {tb_present}, events {events}")
+    traces = glob.glob(f"{prof}/*.json")
+    check(len(traces) == 1, f"slice6 train: trace files {traces}")
+    with open(traces[0]) as f:
+        trace_text = f.read()
+    before = CheckpointManager(ck).all_steps()
+
+    # Roll back to ROLLBACK_TO and run on to ROLLBACK_STEPS.
+    kernel.launches = 0
+    with _recording(fp, steplib) as rolled:
+        _cli_json(cli, base + ["--steps", str(ROLLBACK_STEPS),
+                               "--resume-step", str(ROLLBACK_TO)])
+    n_rollback = kernel.launches
+    after = CheckpointManager(ck).all_steps()
+    deleted = sorted(int(m.rsplit(" ", 1)[1]) for m in rolled["warnings"]
+                     if m.startswith("rollback resume: deleting"))
+    check(deleted == [s for s in before if s > ROLLBACK_TO]
+          and len(rolled["losses"]) == ROLLBACK_STEPS - ROLLBACK_TO
+          and after[-1] == ROLLBACK_STEPS
+          and all(s <= ROLLBACK_STEPS for s in after),
+          f"rollback: checkpoints {before} -> {after}, deleted {deleted}, "
+          f"{len(rolled['losses'])} steps")
+
+    # Per-dataset eval of the rolled-back checkpoint.
+    kernel.launches = 0
+    metrics = _cli_json(cli, ["eval", "--config", "nyu-encdec-aug",
+                              "--datasets", "nyu", "make3d", "--data-dir",
+                              data, "--ckpt-dir", ck, "--max-batches", "1"])
+    n_eval = kernel.launches
+    check(sorted(metrics) == ["make3d", "nyu"] and _all_finite(np, metrics)
+          and n_eval == 4, f"slice6 eval: {n_eval} launches, {metrics}")
+    train_out = dict(
+        nyu_route=route, data_s=data_s, steps=steps_run,
+        stopped_early=stopped_early, batch=cli_batch, grad_accum=ACCUM,
+        losses_first10_mean=first, losses_last10_mean=last,
+        losses=[float(x) for x in seen["losses"]], first_run_s=train_s,
+        eval_rmse=[(r["step"], r["eval_rmse"]) for r in records
+                   if "eval_rmse" in r],
+        loop_images_per_s=[r["images_per_sec"] for r in records
+                           if "images_per_sec" in r],
+        launches=n_train, depth_microbatches=sorted(depth_shapes),
+        best=best, tensorboard_present=tb_present, event_files=len(events),
+        trace_file_bytes=len(trace_text),
+        trace_has_kernel="band_resample_kernel" in trace_text,
+        rollback=dict(before=before, after=after, deleted=deleted,
+                      launches=n_rollback),
+        eval=dict(metrics=metrics, launches=n_eval), card=card)
+    print("slice6 train: " + json.dumps(train_out), flush=True)
+    launches.update(nyu_encdec_train=n_train, rollback=n_rollback,
+                    eval=n_eval)
+
+    base_cfg = get_config("nyu-encdec-aug")
+    nyu_cfg = dataclasses.replace(
+        base_cfg, data=dataclasses.replace(base_cfg.data, data_dir=data,
+                                           augment=False))
+    accum_parity(torch, np, nyu_cfg, card, "slice6 accum")
+
+    # dpt-384 from the NYU records, b16 in microbatches of 8.
+    dpt = get_config("dpt-384")
+    dpt = dataclasses.replace(
+        dpt, data=dataclasses.replace(dpt.data, data_dir=data, augment=True),
+        train=dataclasses.replace(dpt.train, steps=DPT_ACCUM_STEPS,
+                                  grad_accum=ACCUM, log_every=5,
+                                  checkpoint_every=0, eval_every=0,
+                                  ckpt_dir=f"{tmp}/s6_dpt"))
+    kernel.launches = 0
+    with _recording(fp, steplib) as seen:
+        loop.train(dpt, workdir=f"{tmp}/s6_dpt", progress=False)
+    n_dpt = kernel.launches
+    dpt_losses = [float(x) for x in seen["losses"]]
+    check(len(dpt_losses) == DPT_ACCUM_STEPS
+          and bool(np.isfinite(dpt_losses).all())
+          and n_dpt == 2 * ACCUM * DPT_ACCUM_STEPS,
+          f"slice6 dpt: {len(dpt_losses)} steps, {n_dpt} launches, "
+          f"losses {dpt_losses}")
+    print("slice6 dpt: " + json.dumps(dict(
+        steps=DPT_ACCUM_STEPS, losses=dpt_losses, launches=n_dpt,
+        cost=accum_costs(torch, dpt), card=card)), flush=True)
+    launches["dpt_train"] = n_dpt
+
+    # make3d-small (b1) distilled from phase 4's encdec checkpoint.
+    dwd = f"{tmp}/s6_distill"
+    kernel.launches = 0
+    with _recording(fp, steplib) as seen:
+        _cli_json(cli, ["train", "--config", "make3d-small", "--datasets",
+                        "make3d", "--data-dir", data, "--ckpt-dir", dwd,
+                        "--workdir", dwd, "--steps", str(DISTILL_STEPS),
+                        "--warmup-steps", "0", "--learning-rate", "1e-3",
+                        "--log-every", "1", "--checkpoint-every", "0",
+                        "--eval-every", "0", "--distill-from", encdec_ckpt,
+                        "--distill-model", "encdec"])
+    n_distill = kernel.launches
+    with open(f"{dwd}/metrics.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    check(len(rows) == DISTILL_STEPS and all(
+        np.isfinite(r[k]) for r in rows for k in ("distill", "gt_loss")),
+        f"slice6 distill: {rows[-1:]}")
+    d_first, d_last = _losses_fall(np, [r["loss"] for r in rows], 5,
+                                   "slice6 distill")
+    check(n_distill == 2 * DISTILL_STEPS,
+          f"slice6 distill launched v1 {n_distill} times")
+    print("slice6 distill: " + json.dumps(dict(
+        steps=DISTILL_STEPS, teacher=encdec_ckpt, loss_first5_mean=d_first,
+        loss_last5_mean=d_last, gt_loss=[r["gt_loss"] for r in rows],
+        distill=[r["distill"] for r in rows], launches=n_distill,
+        card=card)), flush=True)
+    launches["distill"] = n_distill
+
+    # The loop's rate reading records, against phase 4's host-made scenes.
+    enc = get_config("make3d-encdec")
+    enc = dataclasses.replace(
+        enc, data=dataclasses.replace(enc.data, data_dir=data, augment=True),
+        train=dataclasses.replace(enc.train, steps=RECORDS_LOOP_STEPS,
+                                  warmup_steps=10, log_every=10,
+                                  checkpoint_every=0, eval_every=0,
+                                  ckpt_dir=f"{tmp}/s6_rate"))
+    kernel.launches = 0
+    loop.train(enc, workdir=f"{tmp}/s6_rate", progress=False)
+    n_rate = kernel.launches
+    with open(f"{tmp}/s6_rate/metrics.jsonl") as f:
+        rates = [json.loads(line)["images_per_sec"] for line in f]
+    check(n_rate == 2 * RECORDS_LOOP_STEPS,
+          f"records loop launched v1 {n_rate} times")
+    print("slice6 loop rate: " + json.dumps(dict(
+        records_images_per_s=rates, host_scenes_images_per_s=phase4_loop_ips,
+        batch=enc.train.batch_size, card=card)), flush=True)
+    launches["records_loop"] = n_rate
     return launches
 
 
@@ -1508,9 +2005,11 @@ def main():
                                          for spec in specs],
                         library="interpolate")
     del specs
+    slice6 = family_cases(torch, fp, resize, ref, slice6_specs(torch, fp))
     serve_launches = serve_slice(torch, np, fp, card)
     with tempfile.TemporaryDirectory() as tmp:
         train, cfg, img, dep = train_slice(torch, np, fp, card, tmp)
+        double_run(torch, cfg, img, dep, card)
         instep = v2_in_step(torch, fp, cfg, img, dep, card)
         evals, eval_case = eval_phase(torch, np, fp, cfg, tmp, card)
         served = serve_checkpoint(torch, np, fp, cfg, card)
@@ -1518,6 +2017,8 @@ def main():
                                                      card)
         infer_phase(torch, np, fp, cfg, card)
         phase7 = family_phase(torch, np, fp, card, tmp)
+        phase8 = slice6_phase(torch, np, fp, card, tmp, cfg.train.ckpt_dir,
+                              train["loop_images_per_s"])
 
     def entry(case, **kw):
         """One kernel's entry of the kernels line, from its train case."""
@@ -1538,7 +2039,8 @@ def main():
         max_abs_err=max(c["max_abs_err"] for c in cases[:3]), cases=cases,
         live=live_case, eval_image=eval_case, family_cases=family,
         family_launches={k: {p: n for p, n in v.items() if p != "v2_instep"}
-                         for k, v in phase7.items()})
+                         for k, v in phase7.items()},
+        slice6_cases=slice6, slice6_launches=phase8)
     v2 = entry(
         cases_v2[1],  # the train shape, b16 augment rows
         name="fused_preprocess_v2",

@@ -15,10 +15,14 @@ the largest row value (`fp.v2_error_bound(..., weights_apart=True)`), and
 in mean by under 1e-4 (images) or 1e-3 m (depth); depth validity decisions
 may differ only within the bound's band around zv = 0.5. A train step fed by the kernel and one fed by the plain
 preprocess agree to 1e-2 relative in loss: the model computes in bf16
-(2^-8 relative), and its inputs differ by f32 summation order only.
+(2^-8 relative), and its inputs differ by f32 summation order only; so do
+a distillation step fed both ways and an accumulated step against a
+full-batch one. Repeated train steps in torch's deterministic mode agree
+bit for bit.
 """
 
 import copy
+import math
 
 import pytest
 import torch
@@ -506,3 +510,121 @@ def test_live_engine_with_smoothing_matches_plain_fed_steps(cuda,
         _assert_live_close((torch.from_numpy(depth)[None],
                             torch.from_numpy(rendered)[None]),
                            (d.cpu(), r.cpu()))
+
+
+# Determinism of the encdec and multiscale train steps. In the default mode
+# cuDNN may pick nondeterministic algorithms; torch's deterministic mode
+# (which needs CUBLAS_WORKSPACE_CONFIG set before the process's first cuBLAS
+# handle, hence a child process) raises on any op without a deterministic
+# implementation, as F.interpolate's CUDA backward was.
+DETERMINISTIC_RUNS = r"""
+import json, sys
+import torch
+torch.use_deterministic_algorithms(True)
+from ann3depth_tpu_torch.config import ModelConfig
+from ann3depth_tpu_torch.models import registry
+from ann3depth_tpu_torch.train import step as steplib
+
+dev = torch.device("cuda")
+gen = torch.Generator(device=dev).manual_seed(0)
+img = torch.randint(0, 256, (8, 96, 128, 3), generator=gen,
+                    device=dev).to(torch.uint8)
+depth = 1 + 59 * torch.rand((8, 61, 11), generator=gen, device=dev)
+
+
+def run(name):
+    model = steplib.init_params(registry.build(ModelConfig(
+        name=name, width_mult=0.5)), (64, 96), 0, device=dev)
+    state = steplib.TrainState.create(model, steplib.make_optimizer(
+        1e-3, warmup_steps=0, total_steps=20))
+    draws, losses = torch.Generator(device=dev), []
+    for i in range(20):
+        draws.manual_seed(i)
+        state, m = steplib.train_step(state, img, depth, draws,
+                                      input_hw=(64, 96), target_hw=(32, 48),
+                                      augment=True)
+        losses.append(m["loss"])
+    return torch.stack(losses).tolist()
+
+
+print(json.dumps([run(sys.argv[1]), run(sys.argv[1])]))
+"""
+
+
+@pytest.mark.parametrize("name", ["encdec", "multiscale"])
+def test_train_steps_are_bitwise_repeatable_in_deterministic_mode(cuda,
+                                                                  name):
+    """20 augmented train steps, twice from one state and one feed, under
+    torch.use_deterministic_algorithms(True): equal losses, bit for bit."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    proc = subprocess.run([sys.executable, "-c", DETERMINISTIC_RUNS, name],
+                          cwd=root, env=env, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    first, second = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert len(first) == 20 and all(map(math.isfinite, first))
+    assert first == second
+
+
+def test_grad_accum_step_matches_full_batch_step(cuda):
+    """One grad_accum=2 step against one full-batch step from the same
+    state and batch, bf16 compute: loss and rmse within STEP_LOSS_RTOL; the
+    updated params within 2 lr (a flipped first Adam step) everywhere and
+    lr/2 on all but 1% of the entries."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    img = torch.randint(0, 256, (8, 40, 56, 3), generator=gen,
+                        device=cuda).to(torch.uint8)
+    depth = 1 + 59 * torch.rand((8, 15, 11), generator=gen, device=cuda)
+    state = _small_state(cuda)
+    twin = _copy_state(state)
+    kw = dict(input_hw=(32, 48), target_hw=(16, 24))
+    before = fp.fused_preprocess.launches
+    _, full = steplib.train_step(state, img, depth, **kw)
+    _, accum = steplib.train_step(twin, img, depth, grad_accum=2, **kw)
+    assert fp.fused_preprocess.launches == before + 2 + 4
+    for k in ("loss", "rmse"):
+        torch.testing.assert_close(accum[k], full[k], rtol=STEP_LOSS_RTOL,
+                                   atol=0)
+    lr = 1e-3
+    with torch.no_grad():
+        diff = torch.cat([(a - b).abs().flatten() for a, b in zip(
+            state.model.parameters(), twin.model.parameters())])
+    assert float(diff.max()) <= 2 * lr + 1e-6
+    assert float((diff > lr / 2).float().mean()) <= 0.01
+
+
+def test_distill_step_with_kernel_matches_plain_preprocess(cuda,
+                                                           monkeypatch):
+    """One distill_train_step (an encdec teacher into the `small` student,
+    so the teacher map is resized x4 down) through the kernel against the
+    same step fed by the plain preprocess."""
+    teacher = steplib.init_params(registry.build(ModelConfig(
+        name="encdec", width_mult=0.25)), IN_HW, 1, device=cuda)
+    teacher.eval().requires_grad_(False)
+    student = registry.build(ModelConfig(name="small",
+                                         compute_dtype="float32"))
+    student = steplib.init_params(student, IN_HW, 0, device=cuda)
+    tx = steplib.make_optimizer(1e-3, warmup_steps=0, total_steps=10)
+    state = steplib.TrainState.create(student, tx)
+    twin = _copy_state(state)
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    img = torch.randint(0, 256, (4, 40, 56, 3), generator=gen,
+                        device=cuda).to(torch.uint8)
+    depth = 1 + 59 * torch.rand((4, 15, 11), generator=gen, device=cuda)
+    kw = dict(input_hw=IN_HW, target_hw=registry.output_hw("small", IN_HW),
+              distill_alpha=0.5)
+    before = fp.fused_preprocess.launches
+    _, got = steplib.distill_train_step(state, teacher, img, depth, **kw)
+    assert fp.fused_preprocess.launches == before + 2
+    monkeypatch.setattr(fp, "fused_preprocess", fp.plain_preprocess)
+    _, want = steplib.distill_train_step(twin, teacher, img, depth, **kw)
+    for k in ("loss", "gt_loss", "distill", "rmse", "grad_norm"):
+        assert torch.isfinite(got[k])
+        torch.testing.assert_close(got[k], want[k], rtol=STEP_LOSS_RTOL,
+                                   atol=0)

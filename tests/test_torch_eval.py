@@ -223,7 +223,7 @@ def test_cli_eval(ckpts, tmp_path, capsys):
     (["--cache-device"], "not ported yet"),
     (["--quant", "int8"], "not ported yet"),
     (["--preprocess-impl", "pallas"], "not ported yet"),
-    (["--datasets", "nyu"], "not ported yet"),
+    (["--tp", "2"], "not ported yet"),
 ])
 def test_cli_eval_refuses(ckpts, flags, match):
     _, tcfg = ckpts

@@ -1,7 +1,8 @@
-"""The port stands alone: no module of ann3depth_tpu_torch, and neither
-chip_smoke.py nor probe_preprocess.py, imports JAX, its libraries or the JAX package, and none
-imports triton at module level (it exists only on the machine with the
-card, so an import at module level would break every CPU import)."""
+"""The port stands alone: no module of ann3depth_tpu_torch, and none of
+chip_smoke.py, probe_preprocess.py and probe_train_step.py, imports JAX,
+its libraries or the JAX package, and none imports triton at module level
+(it exists only on the machine with the card, so an import at module level
+would break every CPU import)."""
 
 import ast
 import os
@@ -16,7 +17,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "ann3depth_tpu")
 PORT_FILES = sorted(
     str(p.relative_to(ROOT))
     for p in (ROOT / "ann3depth_tpu_torch").rglob("*.py")) + [
-        "chip_smoke.py", "probe_preprocess.py"]
+        "chip_smoke.py", "probe_preprocess.py", "probe_train_step.py"]
 
 
 def _imports(tree):

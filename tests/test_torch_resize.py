@@ -76,8 +76,9 @@ def test_upsample_matmul(factor):
 
 
 def test_upsample2x_equals_half_pixel_bilinear_interpolate():
-    """The model's decoder uses F.interpolate(bilinear, align_corners=False)
-    for the JAX package's upsample2x_matmul: the same half-pixel x2."""
+    """F.interpolate(bilinear, align_corners=False), which DPT's fusion
+    upsample uses for the JAX model's jax.image.resize, is the same
+    half-pixel x2 as upsample2x_matmul, which encdec and multiscale use."""
     x = np.random.default_rng(1).standard_normal((2, 6, 9, 4)).astype(
         np.float32)
     want = trz.upsample2x_matmul(torch.from_numpy(x))

@@ -244,13 +244,6 @@ def test_train_step_bf16_matches_jax():
     assert diff.max() <= 2 * LR + 1e-6  # a flipped first Adam step at most
 
 
-def test_train_step_takes_only_grad_accum_1():
-    img, depth = _batch()
-    _, ts = _states("f32")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        _port_train_step(ts, img, depth, grad_accum=2)
-
-
 def test_train_step_makes_no_host_sync_and_counts_steps():
     """Metrics stay tensors; the step counter advances on the host."""
     img, depth = _batch()

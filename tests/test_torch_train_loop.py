@@ -38,7 +38,7 @@ from ann3depth_tpu_torch.train import step as tstep
 
 ROOT = Path(__file__).resolve().parent.parent
 COPIES = ["data/batching.py", "data/synthetic.py", "data/make3d.py",
-          "utils/metrics_writer.py"]
+          "data/records.py", "data/nyu.py", "utils/metrics_writer.py"]
 
 
 # ---------------------------------------------------------------------------
@@ -342,13 +342,8 @@ def test_evaluate_from_checkpoint_and_empty_dir(tmp_path):
 
 @pytest.mark.parametrize("section,field,value", [
     ("train", "zero1", True), ("train", "tensor_parallel", 2),
-    ("train", "grad_accum", 2), ("train", "distill_from", "/x"),
     ("data", "cache_device", True), ("data", "use_grain", True),
     ("train", "steps_per_dispatch", 2), ("model", "quant", "int8-qat"),
-    ("train", "profile_dir", "/x"), ("train", "tensorboard", True),
-    ("train", "early_stop_patience", 2), ("train", "save_best", True),
-    ("train", "resume_step", 1),
-    ("data", "datasets", ("synthetic", "synthetic")),
 ])
 def test_options_outside_the_slice_raise(tmp_path, section, field, value):
     cfg = _cfg(get_config, tmp_path, **{section: {field: value}})
@@ -401,10 +396,10 @@ def test_cli_resolves_the_jax_flags():
     assert args.device == "cuda"  # the card unless asked otherwise
 
 
-@pytest.mark.parametrize("flags", [["--zero1"], ["--grad-accum", "2"],
-                                   ["--multihost"], ["--tp", "2"],
+@pytest.mark.parametrize("flags", [["--zero1"], ["--multihost"],
+                                   ["--tp", "2"],
                                    ["--preprocess-impl", "pallas"],
-                                   ["--cache-device"], ["--save-best"],
+                                   ["--cache-device"],
                                    ["--distill-model", "encdec"]])
 def test_cli_flags_outside_the_slice_exit(tmp_path, flags):
     with pytest.raises(SystemExit, match="not ported yet|distill-from"):
