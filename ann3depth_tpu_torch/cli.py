@@ -7,6 +7,13 @@ Counterpart of `ann3depth_tpu/cli.py`, with the subcommands ported so far:
     python -m ann3depth_tpu_torch prepare --dataset nyu --data-dir data
     python -m ann3depth_tpu_torch train --config nyu-encdec-aug \\
         --datasets nyu make3d --grad-accum 2 --eval-every 100 --save-best
+    python -m ann3depth_tpu_torch train --config make3d-encdec --steps 1000 \\
+        --cache-device --steps-per-dispatch 10    # K-step CUDA graph
+    python -m ann3depth_tpu_torch train --config make3d-encdec \\
+        --cache-device --cache-window-mb 2048 --window-epochs auto
+    python -m ann3depth_tpu_torch train --config make3d-encdec --use-grain \\
+        --num-workers 4                           # worker-process loader
+    python -m ann3depth_tpu_torch eval --config make3d-encdec --cache-device
     python -m ann3depth_tpu_torch eval --config make3d-encdec --ckpt-dir DIR
     python -m ann3depth_tpu_torch infer --ckpt-dir DIR --image a.jpg [--ply]
     python -m ann3depth_tpu_torch infer --ckpt-dir DIR --video clip.avi
@@ -305,8 +312,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _refuse_not_ported(args, cfg):
     """Stop on the flags of options the port's eval/infer/live/serve paths
-    lack (eval's --cache-device stops in `train.loop`, which every eval
-    passes through; the other paths read no dataset, as in the JAX CLI)."""
+    lack (--cache-device is eval's device-resident test pool; the other
+    paths read no dataset and ignore it, as in the JAX CLI)."""
     given = [f for f in _NOT_PORTED_COMMON
              if getattr(args, _dest(f)) is not None]
     if cfg.model.quant == "int8":

@@ -188,7 +188,8 @@ class DPTDepthNet(nn.Module):
         def run(module, *args):
             return remat_call(self.remat, module, *args)
 
-        with torch.autocast(dev, dtype=dt, enabled=low):
+        # No weight-cast cache: a CUDA graph cannot capture it.
+        with torch.autocast(dev, dtype=dt, enabled=low, cache_enabled=False):
             tok = self.patch_embed(x.permute(0, 3, 1, 2).to(dt))
             tok = tok.permute(0, 2, 3, 1).reshape(b, gh * gw, self.dim)
             tok = tok.to(dt) + self.pos_embed.to(dt)

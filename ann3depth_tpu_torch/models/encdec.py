@@ -201,8 +201,10 @@ class EncDecDepthNet(nn.Module):
         # NHWC bytes viewed as NCHW channels_last.
         x = x.permute(0, 3, 1, 2)
         low = self.compute_dtype != torch.float32
+        # No weight-cast cache: a CUDA graph cannot capture it (the casts
+        # are the same values either way).
         with torch.autocast(x.device.type, dtype=self.compute_dtype,
-                            enabled=low):
+                            enabled=low, cache_enabled=False):
             x = x.to(self.compute_dtype)
             s0 = remat_call(self.remat, self.enc0, x)
             s1 = remat_call(self.remat, self.enc1, s0)

@@ -93,13 +93,14 @@ class MultiScaleDepthNet(nn.Module):
         def run(module, *args):
             return remat_call(self.remat, module, *args)
 
-        with torch.autocast(dev, dtype=dt, enabled=low):
+        # No weight-cast cache, here and below: a CUDA graph cannot capture it.
+        with torch.autocast(dev, dtype=dt, enabled=low, cache_enabled=False):
             stem = run(self.stem, x.to(dt))
             c = run(self.coarse2, run(self.coarse1, stem))
             c = self.context(c)
         with torch.autocast(dev, enabled=False):
             coarse = _up(self.coarse_head(c.float()), 4)
-        with torch.autocast(dev, dtype=dt, enabled=low):
+        with torch.autocast(dev, dtype=dt, enabled=low, cache_enabled=False):
             f = torch.cat([stem, coarse.to(dt)], dim=1)
             f = run(self.fine2, run(self.fine1, f))
         with torch.autocast(dev, enabled=False):

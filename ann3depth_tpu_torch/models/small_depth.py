@@ -43,8 +43,9 @@ class SmallDepthNet(nn.Module):
     def forward(self, x):
         x = x.permute(0, 3, 1, 2)
         low = self.compute_dtype != torch.float32
+        # No weight-cast cache: a CUDA graph cannot capture it.
         with torch.autocast(x.device.type, dtype=self.compute_dtype,
-                            enabled=low):
+                            enabled=low, cache_enabled=False):
             x = x.to(self.compute_dtype)
             x = F.relu(self.conv1(x))
             x = F.relu(self.conv2(x))

@@ -60,13 +60,22 @@ PARAM_FIELDS = ("y_start", "y_scale", "x_start", "x_scale", "out_scale",
 # Parameter packing.
 # ---------------------------------------------------------------------------
 
-def identity_params(batch, in_hw, out_hw, *, device=None):
-    """[B, 8] params for plain resize + normalize (eval/serving path)."""
+@functools.lru_cache(maxsize=64)
+def _identity_row(in_hw, out_hw, device):
     h_in, w_in = in_hw
     h_out, w_out = out_hw
-    row = torch.tensor(
+    return torch.tensor(
         [0.0, h_in / h_out, 0.0, w_in / w_out, 1.0, 0.0, 1.0, 0.0],
-        dtype=torch.float32, device=device)
+        dtype=torch.float32).to(device)
+
+
+def identity_params(batch, in_hw, out_hw, *, device=None):
+    """[B, 8] params for plain resize + normalize (eval/serving path).
+
+    The row is built once per (shapes, device) and repeated on the device,
+    so a call copies nothing from the host (a CUDA graph can capture it)."""
+    row = _identity_row(tuple(in_hw), tuple(out_hw),
+                        torch.device(device or "cpu"))
     return row[None, :].repeat(batch, 1)
 
 
@@ -518,8 +527,16 @@ def fused_preprocess(frames, params, *, out_hw, norm=True, depth_mode=False):
         raise ValueError(f"no fused_preprocess for device {frames.device}")
     out = _launch_band("fused_preprocess", frames, params,
                        out_hw=out_hw, norm=norm, depth_mode=depth_mode)
-    fused_preprocess.launches += 1
+    _count(fused_preprocess)
     return out
+
+
+def _count(wrapper):
+    """One launch of `wrapper`'s kernel. A launch recorded into a CUDA graph
+    runs at every replay, where no Python runs: it is not counted here, and
+    a graph's launches are counted from a profiler trace of its replays."""
+    if not torch.cuda.is_current_stream_capturing():
+        wrapper.launches += 1
 
 
 fused_preprocess.launches = 0
@@ -538,7 +555,7 @@ def fused_preprocess_v2(frames, params, *, out_hw, norm=True,
         raise ValueError(f"no fused_preprocess_v2 for device {frames.device}")
     out = _launch_band("fused_preprocess_v2", frames, params,
                        out_hw=out_hw, norm=norm, depth_mode=depth_mode)
-    fused_preprocess_v2.launches += 1
+    _count(fused_preprocess_v2)
     return out
 
 

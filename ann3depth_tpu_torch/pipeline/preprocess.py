@@ -52,24 +52,27 @@ def preprocess_depth(depth, target_hw):
     return out[..., 0]
 
 
-def preprocess_batch(img_u8, depth, input_hw, target_hw, generator=None):
+def preprocess_batch(img_u8, depth, input_hw, target_hw, generator=None,
+                     draw=None):
     """Raw uint8 frames + raw depth -> model-ready (images, depths).
 
-    generator=None -> eval path (plain resize + normalize); a
-    `torch.Generator` -> train path with flip/crop/jitter. Image and depth
-    share one draw, mapped onto each tensor's own grid, so they flip and
-    crop together.
+    generator=None and draw=None -> eval path (plain resize + normalize); a
+    `torch.Generator` -> train path with flip/crop/jitter from its next
+    `draw_augment` draw; `draw` -> the same with a draw taken before.
+    Image and depth share one draw, mapped onto each tensor's own grid, so
+    they flip and crop together.
     """
     b, h, w, _ = img_u8.shape
     _, dh, dw = depth.shape
     input_hw, target_hw = tuple(input_hw), tuple(target_hw)
-    if generator is None:
+    if generator is None and draw is None:
         img_params = fp.identity_params(b, (h, w), input_hw,
                                         device=img_u8.device)
         dep_params = fp.identity_params(b, (dh, dw), target_hw,
                                         device=depth.device)
     else:
-        draw = fp.draw_augment(generator, b, device=img_u8.device)
+        if draw is None:
+            draw = fp.draw_augment(generator, b, device=img_u8.device)
         img_params = fp.params_from_draw(draw, (h, w), input_hw)
         dep_params = fp.params_from_draw(draw, (dh, dw), target_hw).to(
             depth.device)

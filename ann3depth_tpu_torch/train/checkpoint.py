@@ -16,6 +16,8 @@ from typing import Optional
 
 import torch
 
+from ann3depth_tpu_torch.train.step import load_optimizer_state
+
 _NAME = re.compile(r"^ckpt_(\d+)\.pt$")
 
 
@@ -79,7 +81,7 @@ class CheckpointManager:
             return state, None
         saved = self._load(step, state)
         state.model.load_state_dict(saved["model"])
-        state.optimizer.load_state_dict(saved["optimizer"])
+        load_optimizer_state(state.optimizer, saved["optimizer"])
         state.step = int(saved["step"])
         if state.ema_params is not None:
             source = saved.get("ema_params") or {

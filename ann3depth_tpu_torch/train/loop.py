@@ -3,18 +3,32 @@
 Counterpart of the single-device path of `ann3depth_tpu/train/loop.py`
 (`build_dataset`, `resolved_target_hw`, `create_state`, `train`,
 `predict_batch`, `evaluate` with its report, `restore_state_for_eval`,
-`evaluate_protocols`): host batches go to the device, then `train_step`
-(with gradient accumulation) or `distill_train_step`; metrics are read and
-logged every `log_every` steps (also to TensorBoard with `tensorboard`),
-checkpoints written every `checkpoint_every`, a 4-batch eval sample scored
-(and an rgb|gt|pred grid of it written to the workdir) every `eval_every`,
-with early stopping and a best-eval checkpoint on top; `resume` continues
-the step counter from the latest checkpoint, `resume_step` rolls back to
-an earlier one; several datasets train batch-interleaved; `profile_dir`
-traces a window of steps with torch.profiler.
+`evaluate_protocols`). The feed is one of
 
-Every option of the JAX loop outside this path raises NotImplementedError
-("not ported yet") instead of being ignored.
+- a device-resident pool (`cache_device`, pipeline/device_cache.py), or a
+  rotating window pool over a larger dataset (`cache_window_mb`, with
+  `window_epochs` echo passes, `0` = calibrated, persisted in
+  <ckpt_dir>/window_epochs.json; pipeline/streaming_pool.py);
+- host batches (the dataset's own, several datasets batch-interleaved, or
+  a worker-process loader with `use_grain`/`num_workers`,
+  pipeline/grain_loader.py) through the prefetching `DeviceFeed`
+  (pipeline/feed.py);
+
+then `train_step` (with gradient accumulation) or `distill_train_step`,
+or, from a pool with `steps_per_dispatch` K > 1, K-step blocks that the
+card runs as replays of a CUDA graph of the step (train/dispatch.py).
+Metrics are read and logged every `log_every` steps (also to TensorBoard
+with `tensorboard`), checkpoints written every `checkpoint_every`, a
+4-batch eval sample scored (and an rgb|gt|pred grid of it written to the
+workdir) every `eval_every` (from a device-resident eval pool on a
+cache_device run), with early stopping and a best-eval checkpoint on top;
+`resume` continues the step counter from the latest checkpoint,
+`resume_step` rolls back to an earlier one; `profile_dir` traces a window
+of steps (of dispatches under K > 1) with torch.profiler.
+
+Every option of the JAX loop outside this path (zero1, tensor parallelism,
+int8 QAT) raises NotImplementedError ("not ported yet") instead of being
+ignored.
 """
 
 from __future__ import annotations
@@ -33,6 +47,7 @@ import torch
 from ann3depth_tpu_torch.config import Config
 from ann3depth_tpu_torch.device import resolve_device
 from ann3depth_tpu_torch.models import registry
+from ann3depth_tpu_torch.pipeline import device_cache
 from ann3depth_tpu_torch.train import losses
 from ann3depth_tpu_torch.train import step as steplib
 from ann3depth_tpu_torch.train.checkpoint import CheckpointManager
@@ -94,14 +109,9 @@ def create_state(cfg: Config, device=None):
 
 def _check_ported(cfg: Config):
     """Raise for every option of the JAX loop that the port lacks."""
-    t, d = cfg.train, cfg.data
+    t = cfg.train
     not_ported = [
         ("zero1", t.zero1), ("tensor_parallel > 1", t.tensor_parallel > 1),
-        ("cache_device", d.cache_device),
-        ("cache_window_mb", bool(d.cache_window_mb)),
-        ("window_epochs != 1", d.window_epochs != 1),
-        ("use_grain", d.use_grain or d.num_workers > 0),
-        ("steps_per_dispatch > 1", t.steps_per_dispatch > 1),
         (f"quant={cfg.model.quant!r}", cfg.model.quant == "int8-qat"),
     ]
     missing = [name for name, on in not_ported if on]
@@ -113,7 +123,7 @@ def _check_ported(cfg: Config):
 
 def _validate(cfg: Config):
     """The JAX loop's checks of the options the port trains with."""
-    t = cfg.train
+    t, d = cfg.train, cfg.data
     if cfg.model.quant not in ("none", "int8-qat"):
         raise ValueError(
             f"model.quant={cfg.model.quant!r} is a serving-only path "
@@ -130,6 +140,46 @@ def _validate(cfg: Config):
     if t.batch_size % t.grad_accum:
         raise ValueError(f"batch_size={t.batch_size} is not divisible by "
                          f"grad_accum={t.grad_accum}")
+    if d.cache_device and (d.use_grain or len(d.datasets) > 1):
+        raise ValueError(
+            "cache_device is exclusive with use_grain and multi-dataset "
+            "interleave — one resident pool, one source")
+    if d.cache_window_mb < 0:
+        raise ValueError(
+            f"cache_window_mb must be >= 0, got {d.cache_window_mb}")
+    if d.cache_window_mb and not d.cache_device:
+        raise ValueError(
+            "cache_window_mb configures the rotating-window DEVICE cache — "
+            "add --cache-device (host-fed runs have no resident pool to "
+            "window)")
+    if d.window_epochs < 0:
+        raise ValueError(
+            f"window_epochs must be >= 1 (or 0 = auto-calibrate), got "
+            f"{d.window_epochs}")
+    if d.window_epochs != 1 and not d.cache_window_mb:
+        raise ValueError(
+            "window_epochs (data echoing) repeats WINDOW passes — it needs "
+            "--cache-window-mb; a full resident pool already revisits every "
+            "example each epoch")
+    spd = t.steps_per_dispatch
+    if spd < 1:
+        raise ValueError(f"steps_per_dispatch must be >= 1, got {spd}")
+    if spd > 1:
+        if not d.cache_device:
+            raise ValueError(
+                f"steps_per_dispatch={spd} needs --cache-device: folding "
+                "K steps into one device program requires the data pool "
+                "resident in HBM (a host-fed step can't be scanned)")
+        bad = [f"{name}={v}" for name, v in
+               (("steps", t.steps), ("log_every", t.log_every),
+                ("checkpoint_every", t.checkpoint_every),
+                ("eval_every", t.eval_every))
+               if v and v % spd]
+        if bad:
+            raise ValueError(
+                f"steps_per_dispatch={spd} must divide the step cadences "
+                f"(the loop only regains control at block boundaries); "
+                f"offending: {', '.join(bad)}")
     if t.early_stop_patience < 0:
         raise ValueError("early_stop_patience must be >= 0, got "
                          f"{t.early_stop_patience}")
@@ -269,6 +319,121 @@ class _BestTracker:
         return True
 
 
+def _window_epochs(cfg: Config, dataset, dev, start_step, step_kwargs):
+    """The echo factor of a window-pool run: cfg.data.window_epochs, or
+    with 0 (`--window-epochs auto`) the factor persisted next to the
+    checkpoints by the run being resumed, else a calibrated one (persisted
+    for the resumes to come)."""
+    t, window_epochs = cfg.train, cfg.data.window_epochs
+    # The sampling stream depends on E, and calibration timing is not
+    # deterministic: a resumed `auto` run that re-calibrated would
+    # silently walk a different index stream, so the chosen factor is
+    # persisted next to the checkpoints and reused on resume.
+    epochs_path = os.path.join(t.ckpt_dir, "window_epochs.json")
+    persisted = None
+    if os.path.exists(epochs_path):
+        with open(epochs_path) as f:
+            persisted = json.load(f)
+    if window_epochs == 0:  # --window-epochs auto
+        stale = (persisted is not None
+                 and persisted.get("cache_window_mb")
+                 != cfg.data.cache_window_mb)
+        if persisted is not None and start_step > 0 and not stale:
+            window_epochs = int(persisted["window_epochs"])
+            log.info("--window-epochs auto: reusing echo factor x%d "
+                     "calibrated by the original run (persisted in %s) — "
+                     "recalibrating mid-run would change the sampling "
+                     "stream", window_epochs, epochs_path)
+            return window_epochs
+        if stale and start_step > 0:
+            log.warning(
+                "--window-epochs auto: persisted factor in %s was "
+                "calibrated for cache_window_mb=%s, this run uses %d — "
+                "recalibrating (the factor is a function of the window "
+                "size; the resumed sampling stream changes either way "
+                "when the window changes)", epochs_path,
+                persisted.get("cache_window_mb"), cfg.data.cache_window_mb)
+        # Calibrate with the plain train step (a distilled run's step costs
+        # a few percent more: E is then under-picked) on a throwaway state.
+        cal = create_state(cfg, dev)
+        kw = {k: v for k, v in step_kwargs.items() if k != "distill_alpha"}
+        generator = torch.Generator(device=dev)
+
+        def cal_pass(batches):
+            metrics = None
+            for img, dep in batches:
+                _, metrics = steplib.train_step(cal, img, dep, generator,
+                                                **kw)
+            float(metrics["loss"])  # sync
+
+        from ann3depth_tpu_torch.pipeline import streaming_pool
+        window_epochs = streaming_pool.calibrate_window_epochs(
+            dataset, t.batch_size, dev,
+            window_bytes=cfg.data.cache_window_mb << 20, run_pass=cal_pass,
+            steps_per_dispatch=t.steps_per_dispatch, seed=t.seed)
+        del cal
+        with open(epochs_path, "w") as f:
+            json.dump({"window_epochs": window_epochs,
+                       "cache_window_mb": cfg.data.cache_window_mb,
+                       "calibrated_at_step": start_step}, f)
+    elif (persisted is not None and start_step > 0
+            and int(persisted["window_epochs"]) != window_epochs):
+        log.warning(
+            "--window-epochs %d overrides the factor x%d the original "
+            "(auto) run calibrated and persisted in %s — the resumed "
+            "sampling stream will differ from the one the run would have "
+            "continued", window_epochs, int(persisted["window_epochs"]),
+            epochs_path)
+    return window_epochs
+
+
+def _make_feed(cfg: Config, dataset, extra_datasets, dev, start_step,
+               n_steps, step_kwargs):
+    """The run's feed: a device pool sampler (cache_device), else host
+    batches through a DeviceFeed."""
+    t, d = cfg.train, cfg.data
+    seed = t.seed + start_step
+    if d.cache_device:
+        # (exclusivity with use_grain/multi-dataset validated up top)
+        if d.cache_window_mb:
+            from ann3depth_tpu_torch.pipeline import streaming_pool
+            window_epochs = _window_epochs(cfg, dataset, dev, start_step,
+                                           step_kwargs)
+            return streaming_pool.StreamingPoolSampler(
+                dataset, t.batch_size, dev,
+                window_bytes=d.cache_window_mb << 20,
+                window_epochs=window_epochs, steps=n_steps, seed=seed)
+        return device_cache.DevicePoolSampler(dataset, t.batch_size, dev,
+                                              steps=n_steps, seed=seed)
+    if d.use_grain:
+        from ann3depth_tpu_torch.pipeline.grain_loader import grain_batches
+        if extra_datasets:
+            # Several datasets: round-robin whole batches from one loader
+            # per source (steps bounds each, so the rotation never skips
+            # an exhausted source).
+            from ann3depth_tpu_torch.data.batching import round_robin
+            host_iter = round_robin(
+                [grain_batches(ds, t.batch_size, steps=n_steps,
+                               seed=seed + 17 * k,
+                               num_workers=d.num_workers)
+                 for k, ds in enumerate([dataset, *extra_datasets])],
+                steps=n_steps)
+        else:
+            host_iter = grain_batches(dataset, t.batch_size, steps=n_steps,
+                                      seed=seed, num_workers=d.num_workers)
+    elif extra_datasets:
+        # Multi-dataset training: round-robin whole batches (each batch is
+        # shape-uniform).
+        from ann3depth_tpu_torch.data.batching import interleave_batches
+        host_iter = interleave_batches([dataset, *extra_datasets],
+                                       t.batch_size, steps=n_steps,
+                                       seed=seed)
+    else:
+        host_iter = dataset.batches(t.batch_size, steps=n_steps, seed=seed)
+    from ann3depth_tpu_torch.pipeline.feed import DeviceFeed
+    return DeviceFeed(host_iter, device=dev, prefetch=d.prefetch)
+
+
 def train(cfg: Config, *, workdir: Optional[str] = None, dataset=None,
           progress=True, device=None):
     """Run cfg.train.steps of training; returns (state, last_metrics).
@@ -280,6 +445,7 @@ def train(cfg: Config, *, workdir: Optional[str] = None, dataset=None,
     configured dataset trains, batch-interleaved."""
     _validate(cfg)
     t = cfg.train
+    spd = t.steps_per_dispatch
     dev = resolve_device(device)
     workdir = workdir or t.ckpt_dir
     extra_datasets = []
@@ -291,6 +457,14 @@ def train(cfg: Config, *, workdir: Optional[str] = None, dataset=None,
     teacher = restore_teacher(cfg, dev) if t.distill_from else None
     ckpt = CheckpointManager(t.ckpt_dir)
     state, start_step = _restore_for_resume(cfg, state, ckpt)
+    n_steps = t.steps - start_step
+    if spd > 1 and n_steps % spd:
+        # t.steps % spd == 0 is validated up top, so this only trips on a
+        # resume from a checkpoint step that isn't block-aligned.
+        raise ValueError(
+            f"resume step {start_step} leaves {n_steps} steps, not a "
+            f"multiple of steps_per_dispatch={spd}; resume from a block-"
+            "aligned checkpoint or drop --steps-per-dispatch")
 
     step_kwargs = dict(input_hw=tuple(cfg.data.input_hw),
                        target_hw=resolved_target_hw(cfg),
@@ -301,20 +475,28 @@ def train(cfg: Config, *, workdir: Optional[str] = None, dataset=None,
     else:
         step_kwargs["distill_alpha"] = t.distill_alpha
     generator = torch.Generator(device=dev)
-    n_steps = t.steps - start_step
-    if extra_datasets:
-        from ann3depth_tpu_torch.data.batching import interleave_batches
-        host_iter = interleave_batches([dataset, *extra_datasets],
-                                       t.batch_size, steps=n_steps,
-                                       seed=t.seed + start_step)
-    else:
-        host_iter = dataset.batches(t.batch_size, steps=n_steps,
-                                    seed=t.seed + start_step)
+    feed = _make_feed(cfg, dataset, extra_datasets, dev, start_step,
+                      n_steps, step_kwargs)
+    runner = None
+    if spd > 1:
+        from ann3depth_tpu_torch.train.dispatch import BlockRunner
+        try:
+            runner = BlockRunner(state, feed, spd, step_kwargs=step_kwargs,
+                                 draw_seed=lambda s: step_seed(t.seed, s),
+                                 teacher=teacher)
+        except BaseException:
+            feed.close()
+            raise
     # Profiler window: skip a few warm steps, then trace profile_steps.
+    # Units are DISPATCHES: with steps_per_dispatch > 1 each traced unit is
+    # one K-step block (the first block is the eager warm-up and the
+    # capture; the window starts at the first replayed block).
+    n_iters = n_steps // spd
     prof_start = prof_stop = -1
     if t.profile_dir:
-        prof_start = min(5, max(0, n_steps - 1))
-        prof_stop = min(prof_start + max(1, t.profile_steps), n_steps)
+        prof_start = min(5 if spd == 1 else 1, max(0, n_iters - 1))
+        prof_stop = min(prof_start + max(1, -(-t.profile_steps // spd)),
+                        n_iters)
     writer = MetricsWriter(workdir)
     tb = None
     if t.tensorboard:
@@ -322,33 +504,39 @@ def train(cfg: Config, *, workdir: Optional[str] = None, dataset=None,
         tb = TensorBoardWriter(os.path.join(workdir, "tb"))
     best = _BestTracker(cfg)
     profiler = None
-    eval_ds = None
+    eval_ds = eval_pool = None
     metrics = {}
     t0, imgs_since = time.perf_counter(), 0
     try:
-        for i, (img_np, dep_np) in enumerate(host_iter):
+        iterator = feed.index_blocks(spd) if runner is not None else feed
+        for i, item in enumerate(iterator):
             if i == prof_start:
                 tracing.device_sync(dev)  # drain the warm steps
                 profiler = tracing.start_trace(dev)
-            step_no = start_step + i
-            img_u8 = torch.from_numpy(img_np).to(dev)
-            depth = torch.from_numpy(dep_np).to(dev)
-            if cfg.data.augment:
-                generator.manual_seed(step_seed(t.seed, step_no))
-            if teacher is None:
-                state, metrics = steplib.train_step(
-                    state, img_u8, depth, generator, **step_kwargs)
+            if runner is not None:
+                metrics = runner.run(item, more=i + 1 < n_iters)
+                step_no = start_step + (i + 1) * spd - 1
+                imgs_since += spd * t.batch_size
             else:
-                state, metrics = steplib.distill_train_step(
-                    state, teacher, img_u8, depth, generator, **step_kwargs)
-            imgs_since += int(img_u8.shape[0])
+                img_u8, depth = item
+                step_no = start_step + i
+                if cfg.data.augment:
+                    generator.manual_seed(step_seed(t.seed, step_no))
+                if teacher is None:
+                    state, metrics = steplib.train_step(
+                        state, img_u8, depth, generator, **step_kwargs)
+                else:
+                    state, metrics = steplib.distill_train_step(
+                        state, teacher, img_u8, depth, generator,
+                        **step_kwargs)
+                imgs_since += int(img_u8.shape[0])
             if i + 1 == prof_stop and profiler is not None:
                 tracing.device_sync(dev)  # capture the window's device work
                 path = tracing.stop_trace(profiler, t.profile_dir)
                 profiler = None
-                log.info("profiler trace (%d steps) -> %s",
+                log.info("profiler trace (%d dispatches) -> %s",
                          prof_stop - prof_start, path)
-            is_last = i == n_steps - 1
+            is_last = i == n_iters - 1
 
             if (t.log_every and (step_no + 1) % t.log_every == 0) or is_last:
                 metrics = {k: float(v) for k, v in metrics.items()}  # sync
@@ -373,8 +561,22 @@ def train(cfg: Config, *, workdir: Optional[str] = None, dataset=None,
             if t.eval_every and (step_no + 1) % t.eval_every == 0:
                 if eval_ds is None:
                     eval_ds = build_dataset(cfg, "test")
+                    if cfg.data.cache_device:
+                        # The train pool is resident: the eval pool gets
+                        # the REMAINING budget.
+                        eval_pool, _ = _eval_pool(
+                            eval_ds, t.batch_size, dev,
+                            need=EVAL_SAMPLE_BATCHES, byte_budget=max(
+                                0, device_cache.DEFAULT_BYTE_BUDGET
+                                - getattr(feed, "nbytes", 0)))
+                # stage_pool=False: THIS loop owns pooling; without an eval
+                # pool the sample comes from the host feed.
                 em = evaluate(cfg, state=state, dataset=eval_ds,
-                              max_batches=EVAL_SAMPLE_BATCHES)
+                              max_batches=EVAL_SAMPLE_BATCHES,
+                              stage_pool=False,
+                              device_batches=(eval_pool.fixed_batches(
+                                  EVAL_SAMPLE_BATCHES)
+                                  if eval_pool else None))
                 writer.write(step_no + 1,
                              {**{f"eval_{k}": v for k, v in em.items()},
                               "eval_batches": EVAL_SAMPLE_BATCHES})
@@ -397,6 +599,9 @@ def train(cfg: Config, *, workdir: Optional[str] = None, dataset=None,
     finally:
         if profiler is not None:  # the loop left inside the window
             tracing.stop_trace(profiler, t.profile_dir)
+        if eval_pool is not None:
+            eval_pool.close()
+        feed.close()
         writer.close()
         if tb is not None:
             tb.close()
@@ -430,16 +635,33 @@ def _write_viz(cfg: Config, state, dataset, workdir, step, tb=None):
                                     depths.cpu().numpy(), pred, tb)
 
 
-def _check_eval_ported(cfg: Config):
-    if cfg.data.cache_device:
-        raise NotImplementedError(
-            "eval --cache-device (an on-device eval pool) is not ported "
-            "yet; eval reads the host feed")
+def _eval_pool(dataset, batch_size, dev, max_batches=None, need=1,
+               byte_budget=None):
+    """(pool, n): the split staged on the device for eval, with the number
+    of batches to score (its full batches, at most max_batches); (None,
+    None) with a log line where it cannot be staged within byte_budget
+    (default the full device-cache budget) or holds fewer than `need`
+    batches: the host feed runs instead, as in the JAX loop."""
+    try:
+        pool = device_cache.DevicePoolSampler(
+            dataset, batch_size, dev, steps=0, seed=0,
+            byte_budget=(device_cache.DEFAULT_BYTE_BUDGET
+                         if byte_budget is None else byte_budget))
+        n = pool.shard // pool.per_dev
+        if n < need:
+            pool.close()
+            raise ValueError(f"eval split too small for a {need}-batch "
+                             f"fixed sample at batch_size={batch_size}")
+    except ValueError as e:
+        log.info("eval uses the host feed (%s)", e)
+        return None, None
+    return pool, n if max_batches is None else min(n, max_batches)
 
 
 def evaluate(cfg: Config, state=None, dataset=None, max_batches=None,
              device=None, use_ema=False, report_dir=None, report_worst=8,
-             ckpt_step=None, tta="", avg_last=None, align="", crop=""):
+             ckpt_step=None, tta="", avg_last=None, align="", crop="",
+             device_batches=None, stage_pool=True):
     """Eval loop: sum the sufficient statistics of every batch of the test
     split (as device scalars, one host read at the end) and finalize once,
     so the dataset RMSE is over all valid pixels of the split.
@@ -455,8 +677,22 @@ def evaluate(cfg: Config, state=None, dataset=None, max_batches=None,
     report_dir: also write per-image error attribution: per_image.jsonl
     (one metrics row per test image, split order), worst.png (a rgb|gt|pred
     triple grid of the report_worst highest-RMSE images) and summary.json.
-    The dataset metrics then come from the same per-image statistics."""
-    _check_eval_ported(cfg)
+    The dataset metrics then come from the same per-image statistics.
+
+    device_batches: an iterable of (img_u8, depth) tensors ALREADY on the
+    device (e.g. DevicePoolSampler.fixed_batches), in place of the host
+    feed; the in-loop eval of a cache_device run scores from its eval pool
+    this way. Exclusive with report_dir (the report ranks the full split
+    in split order).
+
+    cfg.data.cache_device (`eval --cache-device`, stage_pool=True): stages
+    the test split on the device once and evaluates from the pool (the
+    same examples in the same order as the host feed). Skipped, with a log
+    line, under report_dir or for a split too small for one batch, where
+    the host feed runs instead."""
+    if device_batches is not None and report_dir is not None:
+        raise ValueError("device_batches is a fixed pool sample; the "
+                         "report path needs the full split in split order")
     dataset = dataset or build_dataset(cfg, "test")
     if state is None:
         state = restore_state_for_eval(cfg, use_ema=use_ema,
@@ -468,12 +704,26 @@ def evaluate(cfg: Config, state=None, dataset=None, max_batches=None,
                    target_hw=resolved_target_hw(cfg),
                    si_lambda=cfg.train.si_lambda, loss_kind=cfg.train.loss,
                    tta=tta, align=align, crop=crop)
+    own_pool = None
+    if device_batches is None and cfg.data.cache_device and stage_pool:
+        if report_dir is not None:
+            log.info("eval --cache-device skipped: report_dir needs the "
+                     "host feed (full split in split order)")
+        else:
+            own_pool, n_b = _eval_pool(dataset, batch_size, dev,
+                                       max_batches)
+            if own_pool is not None:
+                device_batches = own_pool.fixed_batches(n_b)
+    if device_batches is not None:
+        batch_iter = iter(device_batches)
+    else:
+        batch_iter = ((torch.from_numpy(img_np).to(dev),
+                       torch.from_numpy(dep_np).to(dev))
+                      for img_np, dep_np in dataset.batches(
+                          batch_size, steps=max_batches, shuffle=False))
     totals = {}
     rows, worst = [], []  # report mode: per-image rows + worst-K heap
-    for b, (img_np, dep_np) in enumerate(dataset.batches(
-            batch_size, steps=max_batches, shuffle=False)):
-        img_u8 = torch.from_numpy(img_np).to(dev)
-        depth = torch.from_numpy(dep_np).to(dev)
+    for b, (img_u8, depth) in enumerate(batch_iter):
         if report_dir is None:
             stats = steplib.eval_stats_step(state, img_u8, depth, **step_kw)
             for k, v in stats.items():
@@ -512,6 +762,8 @@ def evaluate(cfg: Config, state=None, dataset=None, max_batches=None,
         raise ValueError("eval split yielded no batches")
     metrics = losses.finalize_depth_metrics(
         {k: float(v) for k, v in totals.items()})
+    if own_pool is not None:
+        own_pool.close()
     if report_dir is not None:
         _write_eval_report(report_dir, rows, worst, metrics)
     return metrics
@@ -561,18 +813,29 @@ def evaluate_protocols(cfg: Config, protocols, *, state=None, use_ema=False,
                 f"{token!r}; tokens are 'plain' or '+'-joined subsets of "
                 "tta|align|crop")
         parsed[token] = parts
-    _check_eval_ported(cfg)
     dataset = dataset or build_dataset(cfg, "test")
     if state is None:
         state = restore_state_for_eval(cfg, use_ema=use_ema,
                                        ckpt_step=ckpt_step,
                                        avg_last=avg_last, device=device)
-    return {token: evaluate(cfg, state=state, dataset=dataset,
-                            max_batches=max_batches,
-                            tta=tta if "tta" in parts else "",
-                            align=align if "align" in parts else "",
-                            crop=crop if "crop" in parts else "")
-            for token, parts in parsed.items()}
+    # cache_device: ONE staged test pool shared by every variant.
+    pool = n_b = None
+    if cfg.data.cache_device:
+        pool, n_b = _eval_pool(dataset, cfg.train.batch_size,
+                               next(state.model.parameters()).device,
+                               max_batches)
+    try:
+        return {token: evaluate(
+                    cfg, state=state, dataset=dataset,
+                    max_batches=max_batches, stage_pool=False,
+                    tta=tta if "tta" in parts else "",
+                    align=align if "align" in parts else "",
+                    crop=crop if "crop" in parts else "",
+                    device_batches=pool.fixed_batches(n_b) if pool else None)
+                for token, parts in parsed.items()}
+    finally:
+        if pool is not None:
+            pool.close()
 
 
 def _write_eval_report(report_dir, rows, worst, metrics):

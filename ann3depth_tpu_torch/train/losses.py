@@ -210,9 +210,10 @@ def depth_metric_stats(pred_log, target, mask=None, si_lambda=None,
         pred_log, target, mask).items()}
     if si_lambda is not None:
         target = torch.as_tensor(target)
-        stats["n_images"] = torch.tensor(float(target.shape[0]),
-                                         dtype=torch.float32,
-                                         device=target.device)
+        # torch.full copies nothing from the host (a graph can capture it)
+        stats["n_images"] = torch.full((), float(target.shape[0]),
+                                       dtype=torch.float32,
+                                       device=target.device)
         stats["sum_si_loss"] = per_image_depth_loss(
             pred_log, target, mask, kind=loss_kind, lam=si_lambda).sum()
     return stats

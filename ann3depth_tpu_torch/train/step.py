@@ -11,15 +11,17 @@ second target.
 Where the JAX step is a pure function of its state, the port updates the
 state in place (params, optimizer moments, EMA and the step counter), as
 the JAX step's buffer donation does on the device. The step makes no host
-sync: its metrics stay device tensors, and the step counter and learning
-rate live on the host.
+sync and copies nothing from the host: its metrics stay device tensors,
+the step counter lives on the host, and so the step can be captured in a
+CUDA graph (train/dispatch.py).
 
 The update rule is the optax chain of the JAX package, written with torch
 optimizers whose learning rate is set before each update to
 `schedule(count)`, with `count` the step before the increment (optax's
 `scale_by_schedule`), after a global-norm clip that leaves gradients
 unchanged below `clip_norm` and scales them by `clip_norm / norm` above it
-(optax's `clip_by_global_norm`; torch's `clip_grad_norm_` adds 1e-6).
+(optax's `clip_by_global_norm`; torch's `clip_grad_norm_` adds 1e-6). On
+the card the rate is a device tensor (`UpdateRule`).
 """
 
 from __future__ import annotations
@@ -101,20 +103,30 @@ def make_schedule(learning_rate, warmup_steps=0, total_steps=None,
 
 @dataclasses.dataclass(frozen=True)
 class UpdateRule:
-    """The port's counterpart of an optax chain: `build(params)` makes the
-    torch optimizer; each `apply` clips the gradients by global norm (when
-    clip_norm > 0), sets the learning rate to `schedule(count)` and steps."""
+    """The port's counterpart of an optax chain: `build(params, capturable)`
+    makes the torch optimizer; each `apply` clips the gradients by global
+    norm (when clip_norm > 0), sets the learning rate to `schedule(count)`
+    (or to a given tensor's value) and steps.
+
+    On the card adamw and adam hold their learning rate in a device tensor
+    and are built with capturable=True, so that a CUDA graph of the step
+    reads the rate of each replay (train/dispatch.py); every step on the
+    card, eager or replayed, runs that arithmetic. On the CPU, and for sgd,
+    the rate is a Python float."""
 
     build: Callable
     schedule: Callable[[int], float]
     clip_norm: float = 0.0
 
     def init(self, params) -> torch.optim.Optimizer:
-        return self.build(list(params))
+        params = list(params)
+        return self.build(params, capturable=bool(params)
+                          and params[0].device.type == "cuda")
 
-    def apply(self, optimizer, count: int):
+    def apply(self, optimizer, count: int, lr=None):
         """One update from the gradients in `.grad`; returns their global
-        norm before the clip (a device scalar)."""
+        norm before the clip (a device scalar). lr: a one-element tensor
+        holding the learning rate, read in place of schedule(count)."""
         grads = [p.grad for g in optimizer.param_groups for p in g["params"]
                  if p.grad is not None]
         norm = global_norm(grads)
@@ -122,11 +134,36 @@ class UpdateRule:
             factor = torch.where(norm < self.clip_norm,
                                  torch.ones_like(norm), self.clip_norm / norm)
             torch._foreach_mul_(grads, factor)
-        lr = float(self.schedule(count))
+        value = float(self.schedule(count)) if lr is None else None
         for group in optimizer.param_groups:
-            group["lr"] = lr
+            if isinstance(group["lr"], torch.Tensor):
+                if lr is None:
+                    group["lr"].fill_(value)
+                else:
+                    group["lr"].copy_(lr.reshape(()))
+            else:
+                group["lr"] = value if lr is None else float(lr)
         optimizer.step()
         return norm
+
+
+def load_optimizer_state(optimizer, saved):
+    """`optimizer.load_state_dict(saved)`, keeping this optimizer's own
+    learning-rate holder and capturable flag: a checkpoint written on
+    another device restores the moments and step counts only (the counts
+    move to the params' device when the optimizer is capturable)."""
+    own = [(g["lr"], g.get("capturable")) for g in optimizer.param_groups]
+    optimizer.load_state_dict(saved)
+    for group, (lr, capturable) in zip(optimizer.param_groups, own):
+        group["lr"] = lr
+        if capturable is None:
+            continue
+        group["capturable"] = capturable
+        for p in group["params"]:
+            st = optimizer.state.get(p, {})
+            if "step" in st:
+                st["step"] = (st["step"].to(p.device, torch.float32)
+                              if capturable else st["step"].cpu())
 
 
 def global_norm(tensors):
@@ -140,11 +177,23 @@ def make_inner_optimizer(sched, optimizer="adamw", b1=0.9, b2=0.999,
 
     adamw: decoupled weight decay on the current params. adam: no weight
     decay (a nonzero one raises). sgd: momentum = b1, weight decay as an
-    additive L2 term before the momentum."""
+    additive L2 term before the momentum.
+
+    capturable (the card): adamw and adam take a device-tensor learning
+    rate and capturable=True. torch's SGD applies a tensor rate through
+    `.item()`, which a CUDA graph cannot capture, so sgd keeps a float
+    rate everywhere (and train/dispatch.py refuses it)."""
+    def lr0(params, capturable):
+        if not capturable:
+            return 0.0
+        return torch.zeros((), dtype=torch.float32, device=params[0].device)
+
     if optimizer == "adamw":
-        def build(params):
-            return torch.optim.AdamW(params, lr=0.0, betas=(b1, b2),
-                                     eps=1e-8, weight_decay=weight_decay)
+        def build(params, capturable=False):
+            return torch.optim.AdamW(params, lr=lr0(params, capturable),
+                                     betas=(b1, b2), eps=1e-8,
+                                     weight_decay=weight_decay,
+                                     capturable=capturable)
     elif optimizer == "adam":
         if weight_decay:
             raise ValueError(
@@ -153,10 +202,12 @@ def make_inner_optimizer(sched, optimizer="adamw", b1=0.9, b2=0.999,
                 "decoupled decay or sgd for additive L2, or pass "
                 "--weight-decay 0.")
 
-        def build(params):
-            return torch.optim.Adam(params, lr=0.0, betas=(b1, b2), eps=1e-8)
+        def build(params, capturable=False):
+            return torch.optim.Adam(params, lr=lr0(params, capturable),
+                                    betas=(b1, b2), eps=1e-8,
+                                    capturable=capturable)
     elif optimizer == "sgd":
-        def build(params):
+        def build(params, capturable=False):
             return torch.optim.SGD(params, lr=0.0,
                                    momentum=b1 if b1 > 0 else 0.0,
                                    weight_decay=weight_decay)
@@ -230,15 +281,16 @@ def ema_update(ema: dict, params: dict, ema_decay):
     return ema
 
 
-def _finish_update(state, grad_accum=1, ema_decay=0.0):
+def _finish_update(state, grad_accum=1, ema_decay=0.0, lr=None):
     """The update from the gradients in `.grad` (their mean over
     `grad_accum` microbatches), then the EMA and the step counter; returns
-    the global norm of the (mean) gradients before the clip."""
+    the global norm of the (mean) gradients before the clip. lr: a tensor
+    holding the learning rate (UpdateRule.apply)."""
     if grad_accum > 1:
         grads = [p.grad for p in state.model.parameters()
                  if p.grad is not None]
         torch._foreach_div_(grads, float(grad_accum))
-    grad_norm = state.tx.apply(state.optimizer, state.step)
+    grad_norm = state.tx.apply(state.optimizer, state.step, lr=lr)
     if state.ema_params is not None and ema_decay:
         ema_update(state.ema_params, state.params, ema_decay)
     state.step += 1
@@ -246,15 +298,15 @@ def _finish_update(state, grad_accum=1, ema_decay=0.0):
 
 
 def step_on_batch(state: TrainState, images, depths, *, si_lambda=0.5,
-                  ema_decay=0.0, loss_kind="si"):
+                  ema_decay=0.0, loss_kind="si", lr=None):
     """Forward, backward, update and EMA on a preprocessed batch; returns
     (state, metrics) with loss, grad_norm (before the clip) and rmse as
-    device scalars."""
+    device scalars. lr: as in `train_step`."""
     state.optimizer.zero_grad(set_to_none=True)
     loss, pred_log = loss_fn(state.model, images, depths, si_lambda,
                              loss_kind)
     loss.backward()
-    grad_norm = _finish_update(state, ema_decay=ema_decay)
+    grad_norm = _finish_update(state, ema_decay=ema_decay, lr=lr)
     with torch.no_grad():
         rmse = losses.depth_metrics(pred_log.detach(), depths)["rmse"]
     return state, {"loss": loss.detach(), "grad_norm": grad_norm,
@@ -270,24 +322,26 @@ def _to_microbatches(x, accum):
 def accumulate_microbatches(state: TrainState, img_u8, depth_raw,
                             generator=None, *, grad_accum, input_hw,
                             target_hw, si_lambda=0.5, augment=False,
-                            loss_kind="si"):
+                            loss_kind="si", draws=None):
     """Preprocess, forward and backward of `grad_accum` strided
     microbatches one after another; their gradients sum in `.grad`.
     Returns the summed `losses.depth_metric_stats` (with the training loss
     of `loss_kind`), whose finalize gives full-batch metrics.
 
     With augment, microbatch j takes the j-th draw of `generator` (the
-    counterpart of the JAX step's fold_in(base_key, j))."""
+    counterpart of the JAX step's fold_in(base_key, j)), or draws[j]."""
     if img_u8.shape[0] % grad_accum:
         raise ValueError(
             f"global batch {img_u8.shape[0]} is not divisible by "
             f"grad_accum={grad_accum}")
     stats = {}
-    for img, dep in zip(_to_microbatches(img_u8, grad_accum),
-                        _to_microbatches(depth_raw, grad_accum)):
+    for j, (img, dep) in enumerate(zip(
+            _to_microbatches(img_u8, grad_accum),
+            _to_microbatches(depth_raw, grad_accum))):
         images, depths = preprocess.preprocess_batch(
             img, dep, input_hw, target_hw,
-            generator=generator if augment else None)
+            generator=generator if augment else None,
+            draw=draws[j] if augment and draws is not None else None)
         loss, pred_log = loss_fn(state.model, images, depths, si_lambda,
                                  loss_kind)
         loss.backward()
@@ -302,12 +356,19 @@ def accumulate_microbatches(state: TrainState, img_u8, depth_raw,
 
 def train_step(state: TrainState, img_u8, depth_raw, generator=None, *,
                input_hw, target_hw, si_lambda=0.5, augment=False,
-               ema_decay=0.0, loss_kind="si", grad_accum=1):
+               ema_decay=0.0, loss_kind="si", grad_accum=1, draws=None,
+               lr=None):
     """One step: preprocess -> fwd -> bwd -> update.
 
     img_u8: [B, H, W, 3] raw uint8 frames; depth_raw: [B, dh, dw] raw f32
     depth; generator: the `torch.Generator` (on the frames' device) that
     draws the augmentation when augment is set.
+
+    draws, lr: what a CUDA graph of the step reads from device buffers
+    (train/dispatch.py): `draws`, a list of grad_accum `draw_augment`
+    draws taken before the step, in place of the generator's; `lr`, a
+    one-element tensor holding the learning rate, in place of
+    schedule(state.step). The step then copies nothing from the host.
 
     grad_accum > 1: one update from the mean gradients of `grad_accum`
     microbatches of B/grad_accum images (`accumulate_microbatches`), each
@@ -319,22 +380,23 @@ def train_step(state: TrainState, img_u8, depth_raw, generator=None, *,
         stats = accumulate_microbatches(
             state, img_u8, depth_raw, generator, grad_accum=grad_accum,
             input_hw=input_hw, target_hw=target_hw, si_lambda=si_lambda,
-            augment=augment, loss_kind=loss_kind)
-        grad_norm = _finish_update(state, grad_accum, ema_decay)
+            augment=augment, loss_kind=loss_kind, draws=draws)
+        grad_norm = _finish_update(state, grad_accum, ema_decay, lr=lr)
         fin = losses.finalize_depth_metrics(stats)
         return state, {"loss": fin["loss"], "grad_norm": grad_norm,
                        "rmse": fin["rmse"]}
     images, depths = preprocess.preprocess_batch(
         img_u8, depth_raw, input_hw, target_hw,
-        generator=generator if augment else None)
+        generator=generator if augment else None,
+        draw=draws[0] if augment and draws is not None else None)
     return step_on_batch(state, images, depths, si_lambda=si_lambda,
-                         ema_decay=ema_decay, loss_kind=loss_kind)
+                         ema_decay=ema_decay, loss_kind=loss_kind, lr=lr)
 
 
 def distill_train_step(state: TrainState, teacher, img_u8, depth_raw,
                        generator=None, *, input_hw, target_hw, si_lambda=0.5,
                        augment=False, distill_alpha=0.5, ema_decay=0.0,
-                       loss_kind="si"):
+                       loss_kind="si", draws=None, lr=None):
     """One step with knowledge distillation: the frozen `teacher` module's
     log-depth map is a second regression target for the student,
 
@@ -346,10 +408,12 @@ def distill_train_step(state: TrainState, teacher, img_u8, depth_raw,
     grids differ, as `jax.image.resize(..., "bilinear")` resizes it: the
     antialiased half-pixel triangle (`ops.resize.resample_2d`, the batch
     carried as channels), whose radius widens on a downsample. Metrics:
-    loss, gt_loss, distill, grad_norm and rmse, as device scalars."""
+    loss, gt_loss, distill, grad_norm and rmse, as device scalars. draws,
+    lr: as in `train_step` (one draw)."""
     images, depths = preprocess.preprocess_batch(
         img_u8, depth_raw, input_hw, target_hw,
-        generator=generator if augment else None)
+        generator=generator if augment else None,
+        draw=draws[0] if augment and draws is not None else None)
     with torch.no_grad():
         teacher_log = teacher(images).float()
     if tuple(teacher_log.shape[1:3]) != tuple(target_hw):
@@ -363,7 +427,7 @@ def distill_train_step(state: TrainState, teacher, img_u8, depth_raw,
     match = torch.mean(torch.square(pred_log.float() - teacher_log))
     loss = (1.0 - distill_alpha) * gt_loss + distill_alpha * match
     loss.backward()
-    grad_norm = _finish_update(state, ema_decay=ema_decay)
+    grad_norm = _finish_update(state, ema_decay=ema_decay, lr=lr)
     with torch.no_grad():
         rmse = losses.depth_metrics(pred_log.detach(), depths)["rmse"]
     return state, {"loss": loss.detach(), "gt_loss": gt_loss.detach(),

@@ -72,6 +72,21 @@ last line is printed:
    from the NYU records at grad_accum 2; make3d-small distills phase 4's
    encdec checkpoint; the loop's rate reading records is taken against
    phase 4's. Phase 2 holds and times v1 at this path's new shapes.
+9. The input pipeline and the K-step CUDA graph: make3d-encdec (b16, full
+   width) from a device pool of 64 Make3D-shaped scenes, 40 steps at K=1
+   (eager) and at K=10 (replays of a CUDA graph of the step), plain and at
+   grad_accum 2, and nyu-encdec-aug from phase 8's NYU records, each K=10
+   run held against its K=1 twin (params within the JAX scan test's rtol
+   2e-5 / atol 2e-6, loss within 2e-4); the v1 kernel's launches in the
+   replayed steps counted from the loop's profiler trace; dpt-384 from the
+   NYU records at K=1 four times and K=5, held to twice the largest gap
+   between its K=1 runs; a window pool (96 scenes, windows of 32) with
+   echo 2 and K=4, every example seen twice a pass, then `--window-epochs
+   auto` (its factor, staging and pass times, the sidecar); the host feed
+   (DeviceFeed) and `--use-grain --num-workers 2` through the CLI, the
+   losses falling; `eval --cache-device` on phase 4's checkpoint against
+   the host-fed eval; and each feed's step ms, images/s, busy share,
+   launches a step and peak memory.
 
 The last lines are one `{"kernels": [...]}` JSON line, the nvidia-smi line
 of the card, and `{"ok": true, "device": {...}}`.
@@ -143,7 +158,17 @@ RAW_HW, MAKE3D_DEPTH_HW, NYU_DEPTH_HW = (480, 640), (305, 55), (480, 640)
 # sit at those thresholds that rounding alone moved delta1 by 1.2e-2
 # relative (0.04% of the pixels), a third of what the control moved it,
 # where the other metrics moved 1.2e-4 against the control's 1.6e-2.
+# A DPT checkpoint is not the same from run to run (its F.interpolate
+# backward sums with atomics), and how far rounding moves its metrics
+# varies with it: the plain-fed readings of nine runs lay at 1.4e-4-6.0e-4
+# against controls of 1.5e-2-1.6e-2, and one at 2.4e-3 (sq_rel) against a
+# control of 5.8e-2. So for the models of JITTER_HELD the tolerance is the
+# larger of the preset's and twice the largest move of two jitter controls
+# (the plain-fed eval with its images moved by uniform noise of JITTER),
+# measured on the same checkpoint and batches in every run; the off-by-one
+# control must still fail it.
 EVAL_METRIC_RTOL = {"make3d-encdec": 3e-4, "dpt-384": 2e-3}
+EVAL_JITTER_SEEDS = (0, 1)
 EVAL_METRICS_NOT_HELD = {"dpt-384": ("delta1", "delta2", "delta3")}
 EVAL_BATCHES = 2
 LIVE_FRAMES = 300
@@ -167,6 +192,26 @@ SLICE6_STEPS, ROLLBACK_TO, ROLLBACK_STEPS = 40, 20, 30
 SLICE6_EVERY = 10          # log, checkpoint and eval cadence
 SLICE6_PATIENCE = 2        # early stop after 2 evals without a gain
 DPT_ACCUM_STEPS, DISTILL_STEPS, RECORDS_LOOP_STEPS = 10, 20, 20
+# Phase 9. make3d-encdec from a device pool of POOL_SCENES Make3D-shaped
+# scenes, POOL_STEPS steps at K=1 (eager) and K=POOL_K (CUDA graph
+# replays); dpt-384 from phase 8's NYU records, DPT_POOL_STEPS steps at K=1
+# (DPT_CONTROL_RUNS times) and K=DPT_K; a window pool of WINDOW_SCENES
+# scenes in windows of WINDOW_EXAMPLES, echo WINDOW_EPOCHS, K=WINDOW_K, then
+# auto; the host feed and the worker loader (FEED_WORKERS processes) from
+# phase 8's Make3D records. The loop's profiler traces PROFILE_STEPS steps
+# of each timed run.
+POOL_SCENES, POOL_STEPS, POOL_K = 64, 40, 10
+DPT_POOL_STEPS, DPT_K, DPT_CONTROL_RUNS = 10, 5, 4
+WINDOW_SCENES, WINDOW_EXAMPLES, WINDOW_K, WINDOW_EPOCHS = 96, 32, 4, 2
+WINDOW_STEPS, AUTO_STEPS = 24, 16
+FEED_STEPS, FEED_WORKERS, PROFILE_STEPS = 40, 2, 10
+# A K-step block against K eager steps from one pool stream: the JAX scan
+# test's tolerances (tests/test_scan_dispatch.py:41). dpt-384 is held to
+# twice the largest gap between its eager runs (its F.interpolate backward
+# sums with atomics), and never tighter than these.
+GRAPH_PARAM_RTOL, GRAPH_PARAM_ATOL, GRAPH_LOSS_RTOL = 2e-5, 2e-6, 2e-4
+# eval --cache-device reads the bytes the host feed reads, in its order.
+EVAL_POOL_RTOL = 1e-6
 
 
 def check(cond, msg):
@@ -1039,6 +1084,28 @@ def _shifted_window(fp):
     return shifted
 
 
+def _jittered(torch, fp, seed):
+    """plain_preprocess with its images moved by uniform noise of JITTER
+    drawn from `seed`, depth as it is: how far the model's metrics move
+    when its inputs move as far as the kernel's and the plain
+    preprocess's differ."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def jittered(frames, params, *, out_hw, norm=True, depth_mode=False):
+        out = fp.plain_preprocess(frames, params, out_hw=out_hw, norm=norm,
+                                  depth_mode=depth_mode)
+        if depth_mode:
+            return out
+        return out + JITTER * (2 * torch.rand(
+            out.shape, device=out.device, generator=gen) - 1)
+    return jittered
+
+
+def _rel_metrics(got, want):
+    return {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-3)
+            for k in want}
+
+
 def eval_phase(torch, np, fp, cfg, tmp, card, preset="make3d-encdec",
                full=True, label="eval"):
     """Phase 6 (and 7), eval: `cli eval --config preset` on the checkpoint
@@ -1086,27 +1153,38 @@ def eval_phase(torch, np, fp, cfg, tmp, card, preset="make3d-encdec",
               "eval protocols")
 
     # The plain run against the same eval fed by plain_preprocess, and
-    # against the control, a resample off by one source pixel.
+    # against the control, a resample off by one source pixel; for the
+    # models of JITTER_HELD also the plain-fed run against jitter controls.
     state = loop.restore_state_for_eval(cfg)
     kernel = runs["plain"]["metrics"]
-    rel = {}
+    fed = {}
     for name, fn in (("plain_fed", fp.plain_preprocess),
                      ("shifted_window_control", _shifted_window(fp))):
         with fed_by(fp, fn):
-            other = loop.evaluate(cfg, state=state, max_batches=EVAL_BATCHES)
-        rel[name] = {k: abs(kernel[k] - other[k]) / max(abs(other[k]), 1e-3)
-                     for k in other}
+            fed[name] = loop.evaluate(cfg, state=state,
+                                      max_batches=EVAL_BATCHES)
+    rel = {name: _rel_metrics(kernel, m) for name, m in fed.items()}
+    jitter_rel = {}
+    if cfg.model.name in JITTER_HELD:
+        for seed in EVAL_JITTER_SEEDS:
+            with fed_by(fp, _jittered(torch, fp, seed)):
+                moved = loop.evaluate(cfg, state=state,
+                                      max_batches=EVAL_BATCHES)
+            jitter_rel[f"jitter_control_{seed}"] = _rel_metrics(
+                moved, fed["plain_fed"])
     not_held = EVAL_METRICS_NOT_HELD.get(preset, ())
     worst = {name: max(v for k, v in r.items() if k not in not_held)
-             for name, r in rel.items()}
-    rtol = EVAL_METRIC_RTOL[preset]
+             for name, r in {**rel, **jitter_rel}.items()}
+    rtol = max([EVAL_METRIC_RTOL[preset]]
+               + [2 * worst[name] for name in jitter_rel])
     check(worst["plain_fed"] <= rtol < worst["shifted_window_control"],
           f"eval metrics, largest relative difference of the kernel-fed "
           f"run: {worst} (tolerance {rtol} must hold the plain-fed run and "
-          f"fail the control); by metric {rel}")
+          f"fail the control); by metric {rel}, jitter controls "
+          f"{jitter_rel}")
     if not full:
-        out = dict(runs=runs, rel_to=rel, largest_rel=worst, rtol=rtol,
-                   card=card)
+        out = dict(runs=runs, rel_to=rel, jitter_rel_to=jitter_rel,
+                   largest_rel=worst, rtol=rtol, card=card)
         print(f"{label}: " + json.dumps(out), flush=True)
         return out, None
 
@@ -1129,7 +1207,7 @@ def eval_phase(torch, np, fp, cfg, tmp, card, preset="make3d-encdec",
         "(eval)", img, fp.identity_params(16, (480, 640), (240, 320),
                                           device=img.device), library=True)
     out = dict(runs=runs, report_rows=rows, rel_to=rel,
-               largest_rel=worst, rtol=rtol,
+               jitter_rel_to=jitter_rel, largest_rel=worst, rtol=rtol,
                eval_step_device_rate=rate, card=card)
     print("eval: " + json.dumps(out), flush=True)
     return out, case
@@ -1972,6 +2050,533 @@ def slice6_phase(torch, np, fp, card, tmp, encdec_ckpt, phase4_loop_ips):
     return launches
 
 
+class _InMemory:
+    """The examples of a dataset, made once and held in host memory (every
+    run of phase 9 reads them), with the loader protocol's `batches`. With
+    `mark`, pixel (0, 0) of each image carries the example's index in its
+    first two channels (index % 256, index // 256)."""
+
+    def __init__(self, np, dataset, mark=False):
+        self.items = []
+        for i in range(len(dataset)):
+            img, dep = dataset[i]
+            img = np.array(img)
+            if mark:
+                img[0, 0, :2] = (i % 256, i // 256)
+            self.items.append((img, np.asarray(dep)))
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        return self.items[i]
+
+    def batches(self, batch_size, **kw):
+        from ann3depth_tpu_torch.data.batching import iter_batches
+        return iter_batches(self, batch_size, **kw)
+
+
+def trace_stats(path, steps):
+    """What one Chrome trace of the loop's profiler window holds, per
+    traced step: CUDA kernels (all, and the v1 kernel's resample and
+    photometric launches), the device's busy time (the union of the
+    kernels' intervals) and its share of the window (first event to last),
+    and the host's kernel-launch and graph-launch calls; and the v1
+    resample launches of each graph replay, in order. Kernels that a
+    graph replay runs appear in the trace one by one, as eager ones do."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    kernels = sorted((e for e in events if e.get("cat") == "kernel"),
+                     key=lambda e: e["ts"])
+    runtime = [e for e in events
+               if e.get("cat") in ("cuda_runtime", "cuda_driver")]
+    calls = [e["name"] for e in runtime]
+    # A replay's kernels carry the correlation id of its graph launch.
+    resample = {}
+    for e in kernels:
+        if "band_resample_kernel" in e["name"]:
+            c = e.get("args", {}).get("correlation")
+            resample[c] = resample.get(c, 0) + 1
+    per_replay = [resample.get(e.get("args", {}).get("correlation"), 0)
+                  for e in sorted(runtime, key=lambda e: e["ts"])
+                  if "GraphLaunch" in e["name"]]
+    busy, end = 0.0, float("-inf")
+    for e in kernels:
+        start, stop = e["ts"], e["ts"] + e["dur"]
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    span = (max(e["ts"] + e["dur"] for e in events)
+            - min(e["ts"] for e in events)) if events else 0.0
+    return dict(
+        traced_steps=steps, kernels_per_step=len(kernels) / steps,
+        v1_resample_per_step=sum("band_resample_kernel" in e["name"]
+                                 for e in kernels) / steps,
+        v1_photometric_per_step=sum("photometric_kernel" in e["name"]
+                                    for e in kernels) / steps,
+        v1_resample_per_replay=per_replay,
+        device_busy_ms_per_step=busy / 1e3 / steps,
+        window_ms_per_step=span / 1e3 / steps,
+        busy_share=busy / span if span else None,
+        kernel_launch_calls_per_step=sum("LaunchKernel" in n
+                                         for n in calls) / steps,
+        graph_launch_calls_per_step=sum("GraphLaunch" in n
+                                        for n in calls) / steps)
+
+
+def _traced_steps(steps, k, profile_steps):
+    """(first, end) step of the loop's profiler window (train/loop.py):
+    it traces steps first .. end - 1."""
+    n_iters = steps // k
+    start = min(5 if k == 1 else 1, max(0, n_iters - 1))
+    stop = min(start + max(1, -(-profile_steps // k)), n_iters)
+    return start * k, stop * k
+
+
+def _steady_ms(rows, batch, after):
+    """Step ms from the loop's logged images/s over the log intervals that
+    start at or after step `after` (past the warm-up and the profiler
+    window), else the last interval."""
+    ips, prev = [], 0
+    for r in rows:
+        if "images_per_sec" in r:
+            if prev >= after:
+                ips.append(r["images_per_sec"])
+            prev = r["step"]
+    if not ips:
+        ips = [[r["images_per_sec"] for r in rows
+                if "images_per_sec" in r][-1]]
+    return batch / (sum(ips) / len(ips)) * 1e3
+
+
+def pool_run(torch, fp, cfg, tmp, name, dataset=None, profile=True):
+    """One `train.loop.train` run of phase 9 in its own directory: its
+    state and last metrics, seconds, v1 calls counted in Python, peak
+    memory above what was allocated when it started, logged losses and
+    images/s, the step time of the unprofiled log intervals past the
+    warm-up and the profiler window, and (with `profile`) the stats of
+    the loop's profiler window over PROFILE_STEPS steps."""
+    import dataclasses
+    import glob
+
+    from ann3depth_tpu_torch.train import loop
+
+    work = f"{tmp}/p9_{name}"
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, ckpt_dir=f"{work}/ckpt",
+        profile_dir=f"{work}/trace" if profile else "",
+        profile_steps=PROFILE_STEPS))
+    fp.fused_preprocess.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # earlier runs' states, kept
+    t0 = time.perf_counter()
+    state, last = loop.train(cfg, workdir=work, dataset=dataset,
+                             progress=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    with open(f"{work}/metrics.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    k = cfg.train.steps_per_dispatch
+    first, end = _traced_steps(cfg.train.steps, k, PROFILE_STEPS)
+    out = dict(
+        steps=cfg.train.steps, k=k, seconds=seconds,
+        v1_calls_counted=fp.fused_preprocess.launches,
+        max_memory_allocated_bytes=torch.cuda.max_memory_allocated() - held,
+        logged=[(r["step"], r["loss"]) for r in rows if "loss" in r],
+        loop_images_per_s=[r["images_per_sec"] for r in rows
+                           if "images_per_sec" in r],
+        step_ms=_steady_ms(rows, cfg.train.batch_size,
+                           end if profile else max(k, 5)))
+    if profile:
+        traces = glob.glob(f"{work}/trace/*.json")
+        check(len(traces) == 1, f"{name}: trace files {traces}")
+        out["trace"] = trace_stats(traces[0], end - first)
+    return state, last, out
+
+
+def param_gap(torch, a, b):
+    """(largest |a - b| over the params, largest excess of |a - b| over
+    GRAPH_PARAM_ATOL + GRAPH_PARAM_RTOL |b|; <= 0 is within)."""
+    worst = excess = float("-inf")
+    with torch.no_grad():
+        for x, y in zip(a.model.parameters(), b.model.parameters()):
+            d = (x - y).abs()
+            worst = max(worst, float(d.max()))
+            excess = max(excess, float((d - GRAPH_PARAM_ATOL
+                                        - GRAPH_PARAM_RTOL * y.abs()).max()))
+    return worst, excess
+
+
+def graph_pair(torch, np, fp, cfg, tmp, name, k, card, dataset=None,
+               profile=False):
+    """cfg's run at K=1 (eager) and at K=k (graph replays) from one seed
+    and one pool: params within GRAPH_PARAM_RTOL/ATOL, the last loss
+    within GRAPH_LOSS_RTOL, and the v1 kernel called in every eager step
+    (2 a step and microbatch) and in no replayed one (replays run no
+    Python; the profiler counts them). Returns both runs' records."""
+    import dataclasses
+
+    accum = cfg.train.grad_accum
+    eager, m1, r1 = pool_run(torch, fp, cfg, tmp, f"{name}_k1", dataset,
+                             profile)
+    graph, mk, rk = pool_run(torch, fp, dataclasses.replace(
+        cfg, train=dataclasses.replace(cfg.train, steps_per_dispatch=k)),
+        tmp, f"{name}_k{k}", dataset, profile)
+    worst, excess = param_gap(torch, graph, eager)
+    loss_gap = abs(mk["loss"] - m1["loss"]) / abs(m1["loss"])
+    steps = cfg.train.steps
+    check(eager.step == graph.step == steps, f"{name}: steps {eager.step}, "
+          f"{graph.step}")
+    check(bool(np.isfinite([m1["loss"], mk["loss"]]).all()),
+          f"{name}: losses {m1['loss']}, {mk['loss']}")
+    check(r1["v1_calls_counted"] == 2 * accum * steps
+          and rk["v1_calls_counted"] == 2 * accum * k,
+          f"{name}: v1 called {r1['v1_calls_counted']} times eagerly and "
+          f"{rk['v1_calls_counted']} times at K={k} in {steps} steps")
+    out = dict(preset_model=cfg.model.name, batch=cfg.train.batch_size,
+               grad_accum=accum, augment=cfg.data.augment, k=k,
+               params_max_abs_diff=worst, params_excess_over_tol=excess,
+               loss_rel_diff=loss_gap, eager=r1, graph=rk, card=card)
+    del eager, graph
+    torch.cuda.empty_cache()
+    return out
+
+
+def _window_mb(ex_bytes, examples, batch):
+    """The smallest --cache-window-mb whose window holds `examples` rows
+    by the sampler's own arithmetic (pipeline/streaming_pool.py)."""
+    mb = -(-examples * ex_bytes // (1 << 20))
+    check(((mb << 20) // ex_bytes) // batch * batch == examples,
+          f"no window of {examples} examples at {mb} MB")
+    return mb
+
+
+@contextlib.contextmanager
+def _window_ids(torch, streaming_pool, seen):
+    """Within the block: the example index of every row each index block
+    of a window pool gathers (read from the active window's marked pixel
+    just before the block runs)."""
+    cls = streaming_pool.StreamingPoolSampler
+    real = cls.index_blocks
+
+    def spy(self, k):
+        for block in real(self, k):
+            px = self.pool_img[block.reshape(-1)][:, 0, 0, :2].long().cpu()
+            seen.extend((px[:, 0] + 256 * px[:, 1]).tolist())
+            yield block
+
+    cls.index_blocks = spy
+    try:
+        yield seen
+    finally:
+        cls.index_blocks = real
+
+
+@contextlib.contextmanager
+def _auto_record():
+    """Within the block: the (staging s, pass s, batches, factor) of each
+    `--window-epochs auto` calibration the streaming pool logs."""
+    import logging
+
+    seen = []
+
+    class Handler(logging.Handler):
+        def emit(self, record):
+            if record.getMessage().startswith("auto window-epochs:"):
+                seen.append(record.args[:4])
+
+    logger = logging.getLogger("ann3depth_tpu_torch.pipeline.streaming_pool")
+    handler, level = Handler(logging.INFO), logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    try:
+        yield seen
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+
+
+def _cli_feed_run(torch, np, fp, cli, steplib, data, tmp, name, extra):
+    """`cli train` of make3d-encdec (b16, augmented) from phase 8's Make3D
+    records, FEED_STEPS steps through the host feed (DeviceFeed), with
+    `extra` flags; the losses must fall."""
+    import glob
+
+    work = f"{tmp}/p9_{name}"
+    argv = ["train", "--config", "make3d-encdec", "--datasets", "make3d",
+            "--data-dir", data, "--steps", str(FEED_STEPS),
+            "--warmup-steps", "10", "--log-every", "10",
+            "--checkpoint-every", str(FEED_STEPS), "--eval-every", "0",
+            "--augment", "--profile", f"{work}/trace", "--profile-steps",
+            str(PROFILE_STEPS), "--ckpt-dir", f"{work}/ckpt", "--workdir",
+            work, *extra]
+    fp.fused_preprocess.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with _recording(fp, steplib) as seen:
+        last = _cli_json(cli, argv)
+    seconds = time.perf_counter() - t0
+    check(len(seen["losses"]) == FEED_STEPS
+          and fp.fused_preprocess.launches == 2 * FEED_STEPS,
+          f"{name}: {len(seen['losses'])} steps, "
+          f"{fp.fused_preprocess.launches} v1 calls")
+    first, last10 = _losses_fall(np, seen["losses"], 10, name)
+    with open(f"{work}/metrics.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    traces = glob.glob(f"{work}/trace/*.json")
+    check(len(traces) == 1, f"{name}: trace files {traces}")
+    traced, end = _traced_steps(FEED_STEPS, 1, PROFILE_STEPS)
+    return dict(flags=extra, seconds=seconds, loss=last["loss"],
+                losses_first10_mean=first, losses_last10_mean=last10,
+                loop_images_per_s=[r["images_per_sec"] for r in rows],
+                step_ms=_steady_ms(rows, 16, end),
+                max_memory_allocated_bytes=(torch.cuda.max_memory_allocated()
+                                            - held),
+                trace=trace_stats(traces[0], end - traced))
+
+
+def pipeline_phase(torch, np, fp, card, tmp, encdec_cfg):
+    """Phase 9: the input pipeline and the K-step CUDA graph at full
+    width. Returns the v1 launches of its paths: counted in Python for the
+    eager steps, and per step from the profiler's trace of replayed
+    blocks."""
+    import dataclasses
+
+    from ann3depth_tpu_torch import cli
+    from ann3depth_tpu_torch.config import get_config
+    from ann3depth_tpu_torch.data.synthetic import SyntheticDepthDataset
+    from ann3depth_tpu_torch.pipeline import streaming_pool
+    from ann3depth_tpu_torch.train import step as steplib
+
+    data = f"{tmp}/data"  # phase 8's records
+    out, launches = {}, {}
+
+    # make3d-encdec (b16, full width) from a device pool of 64 scenes at
+    # Make3D's raw shapes: K=1 against K=POOL_K, plain, at grad_accum 2.
+    t0 = time.perf_counter()
+    scenes = _InMemory(np, SyntheticDepthDataset(
+        n=POOL_SCENES, img_hw=RAW_HW, depth_hw=MAKE3D_DEPTH_HW, seed=0))
+    scenes_s = time.perf_counter() - t0
+    enc = get_config("make3d-encdec")
+    enc = dataclasses.replace(
+        enc, data=dataclasses.replace(enc.data, cache_device=True),
+        train=dataclasses.replace(enc.train, steps=POOL_STEPS,
+                                  warmup_steps=10, log_every=10,
+                                  checkpoint_every=POOL_STEPS, eval_every=0))
+    pool_bytes = sum(a.nbytes + b.nbytes for a, b in scenes.items)
+    for name, accum, profile in (("encdec", 1, True),
+                                 ("encdec_accum", ACCUM, False)):
+        cfg = dataclasses.replace(enc, train=dataclasses.replace(
+            enc.train, grad_accum=accum))
+        pair = graph_pair(torch, np, fp, cfg, tmp, name, POOL_K, card,
+                          scenes, profile)
+        pair["pool_bytes"] = pool_bytes
+        out[name] = pair
+    # Every replayed step launches v1's resample twice. The profiler may
+    # miss the first kernels of its window (seen on an H100 in eager and
+    # replayed windows alike: the window's first step lost its first
+    # kernels), so the first replay is reported, not held (where the trace
+    # carries no correlation ids: all but one step's worth, in total).
+    g = out["encdec"]["graph"]["trace"]
+    replays, n = g["v1_resample_per_replay"], g["traced_steps"]
+    check(len(replays) == n and (
+        min(replays[1:]) >= 2 if any(replays)
+        else g["v1_resample_per_step"] * n >= 2 * (n - 1)),
+        f"replayed encdec steps: the profiler saw {g}")
+
+    # nyu-encdec-aug (augmented) from phase 8's NYU records.
+    aug = get_config("nyu-encdec-aug")
+    aug = dataclasses.replace(
+        aug, data=dataclasses.replace(aug.data, data_dir=data,
+                                      cache_device=True),
+        train=dataclasses.replace(aug.train, steps=POOL_STEPS,
+                                  warmup_steps=10, log_every=10,
+                                  checkpoint_every=POOL_STEPS, eval_every=0))
+    out["nyu_aug"] = graph_pair(torch, np, fp, aug, tmp, "nyu_aug", POOL_K,
+                                card)
+    for name in ("encdec", "encdec_accum", "nyu_aug"):
+        p = out[name]
+        check(p["params_excess_over_tol"] <= 0
+              and p["loss_rel_diff"] <= GRAPH_LOSS_RTOL,
+              f"{name}: K={POOL_K} graph against K=1 eager: params apart "
+              f"by {p['params_max_abs_diff']} (excess "
+              f"{p['params_excess_over_tol']}), loss by "
+              f"{p['loss_rel_diff']}")
+        print(f"graph {name}: " + json.dumps(p), flush=True)
+
+    # dpt-384 (b16) from the NYU records: DPT_CONTROL_RUNS runs at K=1
+    # (the control: its F.interpolate backward sums with atomics, and two
+    # runs' losses part by 2e-5 to 1e-3 from one pair to the next) and one
+    # at K=DPT_K, held against the first K=1 run within twice the largest
+    # gap of the K=1 pairs.
+    dpt = get_config("dpt-384")
+    dpt = dataclasses.replace(
+        dpt, data=dataclasses.replace(dpt.data, data_dir=data,
+                                      cache_device=True, augment=True),
+        train=dataclasses.replace(dpt.train, steps=DPT_POOL_STEPS,
+                                  log_every=5, checkpoint_every=0,
+                                  eval_every=0))
+    eager = [pool_run(torch, fp, dpt, tmp, f"dpt_k1_{i}", profile=False)
+             for i in range(DPT_CONTROL_RUNS)]
+    graph = pool_run(torch, fp, dataclasses.replace(
+        dpt, train=dataclasses.replace(dpt.train, steps_per_dispatch=DPT_K)),
+        tmp, f"dpt_k{DPT_K}", profile=False)
+
+    def gap(x, y):
+        return (param_gap(torch, x[0], y[0])[0],
+                abs(x[1]["loss"] - y[1]["loss"]) / abs(y[1]["loss"]))
+
+    pairs = [gap(eager[i], eager[j]) for i in range(DPT_CONTROL_RUNS)
+             for j in range(i)]
+    control = tuple(max(p[m] for p in pairs) for m in (0, 1))
+    graph_gap = gap(graph, eager[0])
+    allowed = (max(2 * control[0], GRAPH_PARAM_ATOL),
+               max(2 * control[1], GRAPH_LOSS_RTOL))
+    check(graph_gap[0] <= allowed[0] and graph_gap[1] <= allowed[1]
+          and graph[2]["v1_calls_counted"] == 2 * DPT_K
+          and all(r[2]["v1_calls_counted"] == 2 * DPT_POOL_STEPS
+                  for r in eager),
+          f"dpt: K={DPT_K} against K=1 apart by {graph_gap} (params max "
+          f"abs, loss rel), allowed {allowed} (twice the largest K=1 pair "
+          f"gap, of {pairs}); v1 calls "
+          f"{[r[2]['v1_calls_counted'] for r in eager]}, "
+          f"{graph[2]['v1_calls_counted']}")
+    out["dpt"] = dict(steps=DPT_POOL_STEPS, k=DPT_K, control_pairs=pairs,
+                      control_gap=control, graph_gap=graph_gap,
+                      allowed=allowed, eager=eager[0][2],
+                      eager_step_ms=[r[2]["step_ms"] for r in eager],
+                      graph=graph[2], card=card)
+    print("graph dpt: " + json.dumps(out["dpt"]), flush=True)
+    del eager, graph
+    torch.cuda.empty_cache()
+
+    # A window pool over 96 Make3D-shaped scenes in windows of 32, with
+    # echoing (E=2) and K=WINDOW_K, then `--window-epochs auto`.
+    wscenes = _InMemory(np, SyntheticDepthDataset(
+        n=WINDOW_SCENES, img_hw=RAW_HW, depth_hw=MAKE3D_DEPTH_HW, seed=11),
+        mark=True)
+    img0, dep0 = wscenes[0]
+    mb_ = _window_mb(img0.nbytes + dep0.nbytes, WINDOW_EXAMPLES, 16)
+    wcfg = dataclasses.replace(
+        enc, data=dataclasses.replace(enc.data, cache_window_mb=mb_,
+                                      window_epochs=WINDOW_EPOCHS),
+        train=dataclasses.replace(enc.train, steps=WINDOW_STEPS,
+                                  steps_per_dispatch=WINDOW_K,
+                                  log_every=WINDOW_K,
+                                  checkpoint_every=WINDOW_STEPS))
+    with _window_ids(torch, streaming_pool, []) as ids:
+        state, _, window = pool_run(torch, fp, wcfg, tmp, "window", wscenes)
+    per_pass = WINDOW_SCENES // WINDOW_EXAMPLES * (
+        WINDOW_EXAMPLES // 16) * WINDOW_EPOCHS * 16
+    counts = [np.bincount(ids[p:p + per_pass], minlength=WINDOW_SCENES)
+              for p in range(0, len(ids), per_pass)]
+    check(len(ids) == WINDOW_STEPS * 16 and len(counts) == 2 and all(
+        (c == WINDOW_EPOCHS).all() for c in counts),
+        f"window pool: {len(ids)} rows, per-pass counts "
+        f"{[np.unique(c).tolist() for c in counts]}")
+    window.update(cache_window_mb=mb_, window_examples=WINDOW_EXAMPLES,
+                  scenes=WINDOW_SCENES, window_epochs=WINDOW_EPOCHS,
+                  every_example_twice_a_pass=True, card=card)
+    print("window pool: " + json.dumps(window), flush=True)
+    del state
+    acfg = dataclasses.replace(wcfg, data=dataclasses.replace(
+        wcfg.data, window_epochs=0), train=dataclasses.replace(
+        wcfg.train, steps=AUTO_STEPS, checkpoint_every=AUTO_STEPS))
+    with _auto_record() as cal:
+        state, _, auto = pool_run(torch, fp, acfg, tmp, "window_auto",
+                                  wscenes, profile=False)
+    with open(f"{tmp}/p9_window_auto/ckpt/window_epochs.json") as f:
+        sidecar = json.load(f)
+    check(len(cal) == 1 and sidecar["window_epochs"] == cal[0][3]
+          and state.step == AUTO_STEPS,
+          f"window auto: calibrations {cal}, sidecar {sidecar}")
+    t_stage, t_pass, batches, factor = cal[0]
+    auto.update(window_epochs=factor, staging_s=t_stage, pass_s=t_pass,
+                batches_per_window=batches, sidecar=sidecar, card=card)
+    print("window auto: " + json.dumps(auto), flush=True)
+    del state
+    torch.cuda.empty_cache()
+
+    # The host feed (DeviceFeed) and the worker loader, through the CLI.
+    feeds = {}
+    for name, extra in (("host_feed", []),
+                        ("worker_loader", ["--use-grain", "--num-workers",
+                                           str(FEED_WORKERS)])):
+        feeds[name] = _cli_feed_run(torch, np, fp, cli, steplib, data, tmp,
+                                    name, extra)
+        print(f"feed {name}: " + json.dumps({**feeds[name], "card": card}),
+              flush=True)
+
+    # eval --cache-device against the host-fed eval of phase 4's
+    # checkpoint: the same bytes in the same order.
+    flags = ["eval", "--config", "make3d-encdec", "--datasets", "synthetic",
+             "--synth-hw", *map(str, encdec_cfg.data.synth_img_hw),
+             "--synth-depth-hw", *map(str, encdec_cfg.data.synth_depth_hw),
+             "--ckpt-dir", encdec_cfg.train.ckpt_dir]
+    evals = {}
+    for name, extra in (("host", []), ("cache_device", ["--cache-device"])):
+        fp.fused_preprocess.launches = 0
+        t0 = time.perf_counter()
+        metrics = _cli_json(cli, flags + extra)
+        evals[name] = dict(metrics=metrics, seconds=time.perf_counter() - t0,
+                           v1_calls=fp.fused_preprocess.launches)
+    host, pooled = evals["host"]["metrics"], evals["cache_device"]["metrics"]
+    rel = max(abs(pooled[k] - host[k]) / max(abs(host[k]), 1e-12)
+              for k in host)
+    check(sorted(pooled) == sorted(host) and _all_finite(np, host)
+          and rel <= EVAL_POOL_RTOL and evals["host"]["v1_calls"]
+          == evals["cache_device"]["v1_calls"] > 0,
+          f"eval --cache-device against host eval: {rel} relative; {evals}")
+    print("eval pool: " + json.dumps(dict(runs=evals, largest_rel=rel,
+                                          rtol=EVAL_POOL_RTOL, card=card)),
+          flush=True)
+
+    def row(r):
+        t = r.get("trace", {})
+        return dict(step_ms=r["step_ms"],
+                    loop_images_per_s=r["loop_images_per_s"],
+                    busy_share=t.get("busy_share"),
+                    device_busy_ms_per_step=t.get("device_busy_ms_per_step"),
+                    kernels_per_step=t.get("kernels_per_step"),
+                    kernel_launch_calls_per_step=t.get(
+                        "kernel_launch_calls_per_step"),
+                    graph_launch_calls_per_step=t.get(
+                        "graph_launch_calls_per_step"),
+                    max_memory_allocated_bytes=r[
+                        "max_memory_allocated_bytes"])
+
+    timings = dict(host_feed=row(feeds["host_feed"]),
+                   worker_loader=row(feeds["worker_loader"]),
+                   pool_k1=row(out["encdec"]["eager"]),
+                   **{f"graph_k{POOL_K}": row(out["encdec"]["graph"])},
+                   **{f"window_k{WINDOW_K}": row(window)},
+                   dpt_pool_k1=row(out["dpt"]["eager"]),
+                   **{f"dpt_graph_k{DPT_K}": row(out["dpt"]["graph"])},
+                   scenes_made_s=scenes_s, batch=16, card=card)
+    print("pipeline timings: " + json.dumps(timings), flush=True)
+    launches.update(
+        pool_k1=out["encdec"]["eager"]["v1_calls_counted"],
+        graph_eager_block=out["encdec"]["graph"]["v1_calls_counted"],
+        graph_replayed_resample_per_step=g["v1_resample_per_step"],
+        graph_replayed_photometric_per_step=g["v1_photometric_per_step"],
+        encdec_accum_k1=out["encdec_accum"]["eager"]["v1_calls_counted"],
+        nyu_aug_k1=out["nyu_aug"]["eager"]["v1_calls_counted"],
+        dpt_k1=out["dpt"]["eager"]["v1_calls_counted"],
+        window=window["v1_calls_counted"],
+        window_replayed_resample_per_step=window["trace"][
+            "v1_resample_per_step"],
+        host_feed=2 * FEED_STEPS, worker_loader=2 * FEED_STEPS,
+        eval_pool=evals["cache_device"]["v1_calls"],
+        method=("eager calls counted by the wrapper; a replayed graph runs "
+                "no Python, so its launches are the band_resample_kernel "
+                "and photometric_kernel events per step in the torch."
+                "profiler trace of the loop's --profile window over "
+                "replayed blocks"))
+    return launches
+
+
 def main():
     import torch
 
@@ -2019,6 +2624,7 @@ def main():
         phase7 = family_phase(torch, np, fp, card, tmp)
         phase8 = slice6_phase(torch, np, fp, card, tmp, cfg.train.ckpt_dir,
                               train["loop_images_per_s"])
+        phase9 = pipeline_phase(torch, np, fp, card, tmp, cfg)
 
     def entry(case, **kw):
         """One kernel's entry of the kernels line, from its train case."""
@@ -2040,7 +2646,8 @@ def main():
         live=live_case, eval_image=eval_case, family_cases=family,
         family_launches={k: {p: n for p, n in v.items() if p != "v2_instep"}
                          for k, v in phase7.items()},
-        slice6_cases=slice6, slice6_launches=phase8)
+        slice6_cases=slice6, slice6_launches=phase8,
+        pipeline_launches=phase9)
     v2 = entry(
         cases_v2[1],  # the train shape, b16 augment rows
         name="fused_preprocess_v2",

@@ -628,3 +628,126 @@ def test_distill_step_with_kernel_matches_plain_preprocess(cuda,
         assert torch.isfinite(got[k])
         torch.testing.assert_close(got[k], want[k], rtol=STEP_LOSS_RTOL,
                                    atol=0)
+
+
+# ---------------------------------------------------------------------------
+# The input pipeline and the K-step CUDA graph (train/dispatch.py). A block
+# of K steps replayed from the graph against K eager steps from the same
+# pool stream: the JAX scan test's rtol 2e-5 / atol 2e-6 on the params
+# (tests/test_scan_dispatch.py:41), the small f32 net on 16x16 scenes.
+# ---------------------------------------------------------------------------
+
+def _pool_cfg(tmp_path, sub, data=None, **train):
+    import dataclasses
+
+    from ann3depth_tpu_torch.config import get_config
+
+    cfg = get_config("smoke")
+    data = dict(input_hw=IN_HW, synth_img_hw=(16, 16), synth_depth_hw=(8, 8),
+                synth_n=32, synth_test_n=16, cache_device=True,
+                **(data or {}))
+    train = {"steps": 8, "batch_size": 8, "seed": 7, "log_every": 4,
+             "checkpoint_every": 8, "eval_every": 0,
+             "ckpt_dir": str(tmp_path / sub), **train}
+    return dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, **data),
+        train=dataclasses.replace(cfg.train, **train))
+
+
+def _train(cfg, tmp_path, sub, **kw):
+    from ann3depth_tpu_torch.train import loop
+
+    return loop.train(cfg, workdir=str(tmp_path / sub), progress=False,
+                      **kw)
+
+
+def _assert_params_close(a, b):
+    for (k, x), y in zip(a.model.state_dict().items(),
+                         b.model.state_dict().values()):
+        torch.testing.assert_close(x, y, rtol=2e-5, atol=2e-6, msg=k)
+
+
+@pytest.mark.parametrize("data,train", [
+    ({}, {}), ({"augment": True}, {"grad_accum": 2, "ema_decay": 0.9})])
+def test_graph_blocks_match_eager_steps(cuda, tmp_path, data, train):
+    before = fp.fused_preprocess.launches
+    eager, m1 = _train(_pool_cfg(tmp_path, "k1", data, **train), tmp_path,
+                       "k1")
+    per_step = (fp.fused_preprocess.launches - before) // 8
+    assert per_step == 2 * train.get("grad_accum", 1)
+    before = fp.fused_preprocess.launches
+    graph, m4 = _train(_pool_cfg(tmp_path, "k4", data, steps_per_dispatch=4,
+                                 **train), tmp_path, "k4")
+    # Only the eager first block runs Python: the second one replays.
+    assert fp.fused_preprocess.launches - before == 4 * per_step
+    assert eager.step == graph.step == 8
+    _assert_params_close(eager, graph)
+    torch.testing.assert_close(torch.tensor(m4["loss"]),
+                               torch.tensor(m1["loss"]), rtol=2e-4, atol=0)
+
+
+def test_graph_on_the_window_pool_matches_eager_steps(cuda, tmp_path):
+    """The graph reads the one active window buffer; the staging thread
+    fills the next window on its own stream meanwhile."""
+    from ann3depth_tpu_torch.data.synthetic import SyntheticDepthDataset
+
+    ds = SyntheticDepthDataset(n=64, img_hw=(96, 128), depth_hw=(48, 64))
+    data = {"cache_window_mb": 1, "window_epochs": 2}
+    eager, _ = _train(_pool_cfg(tmp_path, "w1", data, steps=16), tmp_path,
+                      "w1", dataset=ds)
+    graph, _ = _train(_pool_cfg(tmp_path, "w2", data, steps=16,
+                                steps_per_dispatch=2), tmp_path, "w2",
+                      dataset=ds)
+    _assert_params_close(eager, graph)
+
+
+def test_device_feed_keeps_order_under_a_delayed_consumer(cuda):
+    """The consumer's stream sleeps before it reads each batch, while the
+    feed runs ahead through a ring of two pinned buffers: every batch the
+    consumer reads still holds its own host bytes."""
+    import numpy as np
+
+    from ann3depth_tpu_torch.pipeline.feed import DeviceFeed
+
+    rng = np.random.default_rng(0)
+    host = [(rng.integers(0, 256, (4, 64, 64, 3), dtype=np.uint8),
+             rng.random((4, 16, 16), dtype=np.float32)) for _ in range(12)]
+    feed = DeviceFeed(iter(host), device=cuda, prefetch=1)
+    read = []
+    for img, dep in feed:
+        assert img.device.type == "cuda"
+        torch.cuda._sleep(2_000_000)  # ~1 ms of the consumer's stream
+        read.append((img.clone(), dep.clone()))
+        del img, dep
+    torch.cuda.synchronize()
+    assert len(read) == 12
+    for (img, dep), (want_img, want_dep) in zip(read, host):
+        assert np.array_equal(img.cpu().numpy(), want_img)
+        assert np.array_equal(dep.cpu().numpy(), want_dep)
+
+
+def test_a_failed_capture_raises(cuda, tmp_path, monkeypatch):
+    """A step that syncs the host cannot be captured: the run raises at
+    the capture and trains no step eagerly in its place."""
+    from ann3depth_tpu_torch.train import dispatch
+
+    inner = steplib.train_step
+
+    def syncing_step(*args, **kw):
+        state, metrics = inner(*args, **kw)
+        float(metrics["loss"])  # a host sync: not capturable
+        return state, metrics
+
+    monkeypatch.setattr(steplib, "train_step", syncing_step)
+    captured = []
+    real = dispatch.BlockRunner._capture
+
+    def spy(self):
+        captured.append(self.state.step)
+        return real(self)
+
+    monkeypatch.setattr(dispatch.BlockRunner, "_capture", spy)
+    with pytest.raises(RuntimeError):
+        _train(_pool_cfg(tmp_path, "f", steps_per_dispatch=4), tmp_path, "f")
+    assert captured == [4]
+    torch.cuda.synchronize()
