@@ -19,9 +19,14 @@ Counterpart of `ann3depth_tpu/cli.py`, with the subcommands ported so far:
     python -m ann3depth_tpu_torch infer --ckpt-dir DIR --video clip.avi
     python -m ann3depth_tpu_torch live --config live --ckpt-dir DIR \\
         --no-display --max-frames 300
+    python -m ann3depth_tpu_torch eval --config make3d-encdec --quant int8
+    python -m ann3depth_tpu_torch train --config make3d-encdec \\
+        --quant int8-qat                          # quantization-aware
     python -m ann3depth_tpu_torch serve --config make3d-encdec --init
-    python -m ann3depth_tpu_torch serve --ckpt-dir DIR [--ema]
-    python -m ann3depth_tpu_torch serve --artifact DIR   # JAX export_serving
+    python -m ann3depth_tpu_torch serve --ckpt-dir DIR [--ema] [--quant int8]
+    python -m ann3depth_tpu_torch export --ckpt-dir DIR --out-dir ART \\
+        [--serving-batch 8] [--quant int8]        # torch.export artifact
+    python -m ann3depth_tpu_torch serve --artifact ART   # or a JAX export
 
 Every subcommand but `prepare` takes the JAX CLI's shared flags (`_COMMON_FLAGS`, the
 JAX `_common_flags`) and its own, plus --device (default cuda; it raises
@@ -280,14 +285,39 @@ def build_parser() -> argparse.ArgumentParser:
     pp.add_argument("--shard-size", type=int, default=64,
                     help="npz format only")
 
+    px = sub.add_parser(
+        "export", help="export the serving program (preprocess + forward + "
+        "exp) with torch.export into an artifact directory that `serve "
+        "--artifact` runs without the model code")
+    _common_flags(px)
+    px.add_argument("--out-dir", required=True,
+                    help="artifact directory (serving.pt2, meta.json)")
+    px.add_argument("--serving-batch", type=int,
+                    help="pin a fixed batch size; default: any batch")
+    px.add_argument("--raw-hw", type=int, nargs=2, default=[480, 640],
+                    metavar=("H", "W"),
+                    help="raw frame shape the artifact accepts (default "
+                         "640x480 camera frames)")
+    px.add_argument("--init", action="store_true",
+                    help="export random-init params instead of requiring a "
+                         "checkpoint (artifact plumbing tests)")
+    px.add_argument("--ema", action="store_true",
+                    help="bake the EMA weights into the artifact "
+                         "(checkpoint trained with --ema-decay)")
+    px.add_argument("--avg-last", type=int, metavar="K",
+                    help="bake the uniform average of the last K retained "
+                         "checkpoints into the artifact (exclusive with "
+                         "--ckpt-step)")
+
     ps = sub.add_parser(
         "serve", help="batched depth-serving HTTP server: concurrent "
         "requests coalesce into device batches padded to power-of-2 "
         "buckets; POST npy frames to /v1/depth")
     _common_flags(ps)
     ps.add_argument("--artifact",
-                    help="serve the weights of a JAX `export` artifact "
-                         "directory (meta.json + params.npz)")
+                    help="serve an artifact directory: the port's `export` "
+                         "(serving.pt2) or the weights of a JAX `export` "
+                         "(params.npz)")
     ps.add_argument("--init", action="store_true",
                     help="serve random-init params (smoke/testing)")
     ps.add_argument("--ema", action="store_true",
@@ -311,13 +341,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_not_ported(args, cfg):
-    """Stop on the flags of options the port's eval/infer/live/serve paths
+    """Stop on the flags of options the port's eval/infer/live/serve/export
     lack (--cache-device is eval's device-resident test pool; the other
     paths read no dataset and ignore it, as in the JAX CLI)."""
     given = [f for f in _NOT_PORTED_COMMON
              if getattr(args, _dest(f)) is not None]
-    if cfg.model.quant == "int8":
-        given.append("--quant int8")
     if cfg.train.tensor_parallel > 1:
         given.append("--tp")
     if given:
@@ -525,6 +553,31 @@ def prepare_main(args):
     return 0
 
 
+def export_main(args):
+    """Export the serving program of a checkpoint's params (or, with
+    --init, random ones); prints the artifact's meta."""
+    from ann3depth_tpu_torch import serving
+    from ann3depth_tpu_torch.train import loop
+
+    cfg = resolve_config(args)
+    _refuse_not_ported(args, cfg)
+    if args.avg_last and args.ckpt_step is not None:
+        raise SystemExit("--avg-last and --ckpt-step are exclusive")
+    if args.init:
+        model = serving.model_from_checkpoint(cfg, init=True,
+                                              device=args.device)
+    else:
+        model = loop.restore_state_for_eval(
+            cfg, use_ema=args.ema, ckpt_step=args.ckpt_step,
+            avg_last=args.avg_last, device=args.device).model
+    meta = serving.export_serving(
+        cfg, model, args.out_dir, batch=args.serving_batch,
+        raw_hw=tuple(args.raw_hw), config_name=args.config,
+        device=args.device)
+    print(json.dumps(meta), flush=True)
+    return 0
+
+
 def serve_main(args):
     from ann3depth_tpu_torch import server as serverlib
 
@@ -548,7 +601,8 @@ def serve_main(args):
 
 
 _MODES = {"train": train_main, "eval": eval_main, "live": live_main,
-          "infer": infer_main, "serve": serve_main, "prepare": prepare_main}
+          "infer": infer_main, "serve": serve_main, "prepare": prepare_main,
+          "export": export_main}
 
 
 def main(argv=None):

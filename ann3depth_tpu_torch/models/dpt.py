@@ -1,11 +1,15 @@
 """DPT-style ViT depth model.
 
 Counterpart of `ann3depth_tpu/models/dpt.py` on its default path
-(`attention_impl="flax"`, `upsample="resize"`, `quant="none"`): a 16x16
+(`attention_impl="flax"`, `upsample="resize"`) and its int8 one: a 16x16
 patch embedding with a learned position embedding, `depth` pre-norm ViT
 blocks, four token taps reassembled into feature maps by 1x1 convs, a
 convolutional fusion head run deepest tap first, and an f32 1-channel
-head upsampled to the input resolution.
+head upsampled to the input resolution. With quant "int8" every encoder
+block's attention is `ops.quant.QAttention` and its MLP two
+`ops.quant.QLinear`s (the JAX `QMultiHeadAttention` and `QDense`);
+patch_embed, the reassemble projections and the fusion head stay in the
+compute dtype, and the params are the same.
 
 Module and param names follow the flax tree through `convert.py`:
 `block{i}` holds `norm1`/`norm2` (LayerNorm_0/1), `attn`
@@ -81,10 +85,10 @@ class Attention(nn.Module):
 
 
 class MLP(nn.Module):
-    def __init__(self, dim, hidden):
+    def __init__(self, dim, hidden, linear=nn.Linear):
         super().__init__()
-        self.fc1 = nn.Linear(dim, hidden)
-        self.fc2 = nn.Linear(hidden, dim)
+        self.fc1 = linear(dim, hidden)
+        self.fc2 = linear(hidden, dim)
 
     def forward(self, x):
         return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
@@ -93,12 +97,19 @@ class MLP(nn.Module):
 class Block(nn.Module):
     """Pre-norm ViT block on [B, T, E] tokens in the compute dtype."""
 
-    def __init__(self, dim, heads):
+    def __init__(self, dim, heads, quant="none"):
         super().__init__()
+        attention, linear = Attention, nn.Linear
+        if quant == "int8":
+            from ann3depth_tpu_torch.ops.quant import QAttention, QLinear
+            attention, linear = QAttention, QLinear
+        elif quant != "none":
+            raise ValueError(f"DPT takes quant 'none' or 'int8', not "
+                             f"{quant!r}")
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
-        self.attn = Attention(dim, heads)
+        self.attn = attention(dim, heads)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
-        self.mlp = MLP(dim, dim * 4)
+        self.mlp = MLP(dim, dim * 4, linear)
 
     def forward(self, x):
         x = x + self.attn(_layer_norm(self.norm1, x)).to(x.dtype)
@@ -134,7 +145,7 @@ class DPTDepthNet(nn.Module):
 
     def __init__(self, dim=384, depth=12, heads=6, fusion_features=128,
                  tap_layers=(2, 5, 8, 11), compute_dtype=torch.bfloat16,
-                 remat=True, head_stride=2):
+                 remat=True, head_stride=2, quant="none"):
         super().__init__()
         if len(tap_layers) != 4:
             raise ValueError("the DPT head takes 4 reassembled taps")
@@ -149,7 +160,7 @@ class DPTDepthNet(nn.Module):
         self.patch_embed = Conv(3, dim, PATCH, PATCH, bias=True)
         self.pos_embed = nn.Parameter(torch.empty(1, 0, dim))
         for i in range(depth):
-            self.add_module(f"block{i}", Block(dim, heads))
+            self.add_module(f"block{i}", Block(dim, heads, quant))
         for i in range(4):
             self.add_module(f"reassemble{i}", Conv(dim, f, 1, bias=True))
         self.fuse3 = FusionBlock(f)

@@ -1,6 +1,6 @@
 """Encoder-decoder depth CNN.
 
-Counterpart of `ann3depth_tpu/models/encdec.py` (`quant="none"`): a 4x4
+Counterpart of `ann3depth_tpu/models/encdec.py`: a 4x4
 space-to-depth stem, three strided-conv encoder stages with one GroupNorm
 each, two decoder stages (1x1 projection, bilinear x2, 3x3 conv, projected
 additive skip) and an f32 3x3 head whose 1-channel log-depth map is
@@ -10,7 +10,9 @@ same function as its head's `jax.image.resize`): two fixed matmuls, so the
 backward is a GEMM with a fixed summation order, where F.interpolate's CUDA
 backward sums with atomics. The decoder's takes its bf16 map to f32 and
 rounds the result once; the JAX stage's bf16 einsums round after each
-matmul (see `UpStage`).
+matmul (see `UpStage`). With quant "int8" every stage conv is an int8
+`ops.quant.QConv` (the head stays f32), with "int8-qat" its fake-quant
+training twin; the params are the same under every quant.
 
 Public layout is the JAX package's: NHWC in, NHWC out. Inside, tensors are
 NCHW in channels_last memory, which is the same bytes as NHWC, so the
@@ -101,14 +103,18 @@ class Conv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
 
     def forward(self, x):
-        k = self.weight.shape[-1]
-        ph = same_padding(x.shape[2], k, self.stride)
-        pw = same_padding(x.shape[3], k, self.stride)
-        if ph[0] == ph[1] and pw[0] == pw[1]:
-            return F.conv2d(x, self.weight, self.bias, self.stride,
-                            (ph[0], pw[0]))
-        x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-        return F.conv2d(x, self.weight, self.bias, self.stride)
+        return conv2d_same(x, self.weight, self.bias, self.stride)
+
+
+def conv2d_same(x, weight, bias=None, stride=1):
+    """F.conv2d of NCHW x with an OIHW weight, padded as flax "SAME"."""
+    k = weight.shape[-1]
+    ph = same_padding(x.shape[2], k, stride)
+    pw = same_padding(x.shape[3], k, stride)
+    if ph[0] == ph[1] and pw[0] == pw[1]:
+        return F.conv2d(x, weight, bias, stride, (ph[0], pw[0]))
+    x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
+    return F.conv2d(x, weight, bias, stride)
 
 
 def space_to_depth(x, factor: int = 2):
@@ -119,14 +125,26 @@ def space_to_depth(x, factor: int = 2):
     return x.reshape(b, h // factor, w // factor, c * factor * factor)
 
 
+def make_conv(in_ch, out_ch, kernel, stride=1, quant="none"):
+    """`Conv` (no bias), or its param-compatible int8 twin
+    (`ops.quant.QConv`) for quant "int8", and its fake-quant training twin
+    for "int8-qat" (the JAX `_conv`)."""
+    if quant in ("int8", "int8-qat"):
+        from ann3depth_tpu_torch.ops.quant import QConv
+        return QConv(in_ch, out_ch, kernel, stride, qat=quant == "int8-qat")
+    if quant != "none":
+        raise ValueError(f"unknown quant {quant!r}")
+    return Conv(in_ch, out_ch, kernel, stride)
+
+
 class Stage(nn.Module):
     """Encoder stage: strided conv -> GroupNorm -> relu -> conv -> relu."""
 
-    def __init__(self, in_ch, features, stride=2):
+    def __init__(self, in_ch, features, stride=2, quant="none"):
         super().__init__()
-        self.conv_down = Conv(in_ch, features, 3, stride)
+        self.conv_down = make_conv(in_ch, features, 3, stride, quant)
         self.norm = nn.GroupNorm(8, features, eps=1e-6)
-        self.conv_refine = Conv(features, features, 3)
+        self.conv_refine = make_conv(features, features, 3, quant=quant)
 
     def forward(self, x):
         x = self.conv_down(x)
@@ -141,11 +159,11 @@ class UpStage(nn.Module):
     """Decoder stage: 1x1 projection at low res -> bilinear x2 -> 3x3 conv
     + 1x1-projected additive skip."""
 
-    def __init__(self, in_ch, skip_ch, features):
+    def __init__(self, in_ch, skip_ch, features, quant="none"):
         super().__init__()
-        self.proj_down = Conv(in_ch, features, 1)
-        self.conv_up = Conv(features, features, 3)
-        self.proj_skip = Conv(skip_ch, features, 1)
+        self.proj_down = make_conv(in_ch, features, 1, quant=quant)
+        self.conv_up = make_conv(features, features, 3, quant=quant)
+        self.proj_skip = make_conv(skip_ch, features, 1, quant=quant)
 
     def forward(self, x, skip):
         x = self.proj_down(x)
@@ -172,7 +190,7 @@ class EncDecDepthNet(nn.Module):
     OUTPUT_STRIDE = 2  # input HW -> output HW ratio
 
     def __init__(self, width_mult=1.0, compute_dtype=torch.bfloat16,
-                 enc_widths=(64, 128, 256), remat=False):
+                 enc_widths=(64, 128, 256), remat=False, quant="none"):
         super().__init__()
         self.compute_dtype = compute_dtype
         self.remat = remat
@@ -180,12 +198,12 @@ class EncDecDepthNet(nn.Module):
                        for c in enc_widths]
         w0, w1, w2 = self.widths
         stem = 3 * self.S2D_INPUT_FACTOR ** 2
-        self.enc0 = Stage(stem, w0, stride=1)
-        self.enc1 = Stage(w0, w1)
-        self.enc2 = Stage(w1, w2)
-        self.dec0 = UpStage(w2, w1, w1)
-        self.dec1 = UpStage(w1, w0, w0)
-        self.head = Conv(w0, 1, 3, bias=True)
+        self.enc0 = Stage(stem, w0, stride=1, quant=quant)
+        self.enc1 = Stage(w0, w1, quant=quant)
+        self.enc2 = Stage(w1, w2, quant=quant)
+        self.dec0 = UpStage(w2, w1, w1, quant=quant)
+        self.dec1 = UpStage(w1, w0, w0, quant=quant)
+        self.head = Conv(w0, 1, 3, bias=True)  # f32 under every quant
 
     def init_weights(self, generator=None, input_hw=None):
         """flax init: lecun_normal conv kernels, zero head bias, GroupNorm

@@ -5,8 +5,9 @@ models and the same contract:
 
     model(x: NHWC [B,H,W,3] normalized f32) -> NHWC [B,h,w,1] log-depth f32
 
-with `h, w = output_hw(name, (H, W))`. The port builds `quant="none"`
-models only.
+with `h, w = output_hw(name, (H, W))`. Quantized twins exist for encdec
+("int8", "int8-qat") and the dpt family ("int8"); the registry refuses the
+rest as the JAX registry does.
 """
 
 from __future__ import annotations
@@ -42,14 +43,22 @@ def model_class(name: str):
 
 def build(cfg: ModelConfig):
     """Instantiate the (uninitialized) torch module for a ModelConfig, with
-    the JAX registry's arguments: remat for every family but small."""
+    the JAX registry's arguments (remat for every family but small, quant
+    for encdec and the dpt family) and its refusals."""
     cls = model_class(cfg.name)
-    if cfg.quant != "none":
-        raise ValueError(f"quant={cfg.quant!r} is not ported yet; the port "
-                         "serves quant='none' only")
+    dpt = cfg.name.startswith("dpt")
+    if cfg.quant != "none" and not (cfg.name == "encdec" or dpt):
+        raise ValueError(
+            f"quant={cfg.quant!r} is only supported by 'encdec' and the "
+            f"dpt family, not {cfg.name!r}")
+    if cfg.quant == "int8-qat" and cfg.name != "encdec":
+        raise ValueError("quant='int8-qat' is encdec-only (the JAX package "
+                         "trains no DPT for int8 serving)")
     kw = dict(compute_dtype=_DTYPES[cfg.compute_dtype])
     if cfg.name != "small":
         kw["remat"] = cfg.remat
+    if cfg.name == "encdec" or dpt:
+        kw["quant"] = cfg.quant
     if cfg.name in ("small", "encdec", "multiscale"):
         kw["width_mult"] = cfg.width_mult
     if cfg.name == "dpt-small":

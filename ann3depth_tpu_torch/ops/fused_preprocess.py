@@ -17,10 +17,11 @@ does a separable antialiased triangle resample with half-pixel centers
   `z/max(zv, 1e-6) * out_scale` where `zv >= 0.5`, else 0.
 
 `fused_preprocess` is the wrapper around the hand-written CUDA kernel
-(csrc/fused_preprocess.cu). It dispatches on the tensor's device: a CPU
-tensor goes to `plain_preprocess`, the plain PyTorch version in exact f32
-(the port of `oracle_preprocess`); a CUDA tensor goes to the kernel, or the
-wrapper raises.
+(csrc/fused_preprocess.cu), registered as the torch op
+`torch.ops.ann3depth.fused_preprocess`. It dispatches on the tensor's
+device: a CPU tensor goes to `plain_preprocess`, the plain PyTorch version
+in exact f32 (the port of `oracle_preprocess`); a CUDA tensor goes to the
+kernel, or the wrapper raises; any other device raises.
 
 `fused_preprocess_v2` (csrc/fused_preprocess_v2.cu, the port of the TPU
 package's v2 kernel) computes the same function with v2's precision: the
@@ -513,24 +514,6 @@ def _launch_band(name, frames, params, *, out_hw, norm=True,
     return out
 
 
-def fused_preprocess(frames, params, *, out_hw, norm=True, depth_mode=False):
-    """frames: u8/f32 [B, H, W, C] -> f32 [B, h, w, C].
-
-    params: [B, 8] rows from identity_params/augment_params. depth_mode
-    takes C=1 f32 depth and applies out_scale instead of normalization.
-    A CPU tensor runs `plain_preprocess`; a CUDA tensor runs the kernel.
-    """
-    if frames.device.type == "cpu":
-        return plain_preprocess(frames, params, out_hw=out_hw, norm=norm,
-                                depth_mode=depth_mode)
-    if frames.device.type != "cuda":
-        raise ValueError(f"no fused_preprocess for device {frames.device}")
-    out = _launch_band("fused_preprocess", frames, params,
-                       out_hw=out_hw, norm=norm, depth_mode=depth_mode)
-    _count(fused_preprocess)
-    return out
-
-
 def _count(wrapper):
     """One launch of `wrapper`'s kernel. A launch recorded into a CUDA graph
     runs at every replay, where no Python runs: it is not counted here, and
@@ -539,7 +522,58 @@ def _count(wrapper):
         wrapper.launches += 1
 
 
-fused_preprocess.launches = 0
+# Both wrappers are registered torch ops (`torch.ops.ann3depth.<name>`), so
+# that an exported program (`torch.export`) holds each as one node: the
+# CPU implementation is the plain version, the CUDA one the kernel, and the
+# fake one gives the output's shape to a tracer. The low-level
+# `torch.library.Library` API costs the host less per call than the
+# `torch.library.custom_op` decorator (PERF.md §6).
+_LIB = torch.library.Library("ann3depth", "DEF")
+_SCHEMA = ("(Tensor frames, Tensor params, int[] out_hw, bool norm, "
+           "bool depth_mode) -> Tensor")
+
+
+def _check_device(frames, name):
+    """The ops' fake implementation would answer a meta tensor with an
+    empty one: only the CPU and a card run them."""
+    if frames.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no {name} for device {frames.device}")
+
+
+def _register(name, plain, wrapper):
+    _LIB.define(name + _SCHEMA)
+
+    def cpu(frames, params, out_hw, norm, depth_mode):
+        return plain(frames, params, out_hw=tuple(out_hw), norm=norm,
+                     depth_mode=depth_mode)
+
+    def cuda(frames, params, out_hw, norm, depth_mode):
+        out = _launch_band(name, frames, params, out_hw=out_hw, norm=norm,
+                           depth_mode=depth_mode)
+        _count(wrapper)
+        return out
+
+    def fake(frames, params, out_hw, norm, depth_mode):
+        b, _, _, c = frames.shape
+        return frames.new_empty((b, *out_hw, c), dtype=torch.float32)
+
+    _LIB.impl(name, cpu, "CPU")
+    _LIB.impl(name, cuda, "CUDA")
+    torch.library.register_fake(f"ann3depth::{name}", fake, lib=_LIB)
+    wrapper.launches = 0
+    return getattr(torch.ops.ann3depth, name).default
+
+
+def fused_preprocess(frames, params, *, out_hw, norm=True, depth_mode=False):
+    """frames: u8/f32 [B, H, W, C] -> f32 [B, h, w, C].
+
+    params: [B, 8] rows from identity_params/augment_params. depth_mode
+    takes C=1 f32 depth and applies out_scale instead of normalization.
+    A CPU tensor runs `plain_preprocess`; a CUDA tensor runs the kernel.
+    """
+    _check_device(frames, "fused_preprocess")
+    return _V1(frames, params, [int(s) for s in out_hw], bool(norm),
+               bool(depth_mode))
 
 
 def fused_preprocess_v2(frames, params, *, out_hw, norm=True,
@@ -548,15 +582,11 @@ def fused_preprocess_v2(frames, params, *, out_hw, norm=True,
 
     A CPU tensor runs `plain_preprocess_v2`; a CUDA tensor runs the v2
     kernel, from frames and params alone (no Ay or T is built)."""
-    if frames.device.type == "cpu":
-        return plain_preprocess_v2(frames, params, out_hw=out_hw, norm=norm,
-                                   depth_mode=depth_mode)
-    if frames.device.type != "cuda":
-        raise ValueError(f"no fused_preprocess_v2 for device {frames.device}")
-    out = _launch_band("fused_preprocess_v2", frames, params,
-                       out_hw=out_hw, norm=norm, depth_mode=depth_mode)
-    _count(fused_preprocess_v2)
-    return out
+    _check_device(frames, "fused_preprocess_v2")
+    return _V2(frames, params, [int(s) for s in out_hw], bool(norm),
+               bool(depth_mode))
 
 
-fused_preprocess_v2.launches = 0
+_V1 = _register("fused_preprocess", plain_preprocess, fused_preprocess)
+_V2 = _register("fused_preprocess_v2", plain_preprocess_v2,
+                fused_preprocess_v2)

@@ -12,8 +12,8 @@ One dispatch thread coalesces concurrent requests into batches of at most
 traffic (on the card that builds the kernel and lets cuDNN pick its
 algorithms for that thread). The wiring below builds the
 torch serving fn: `service_from_config` (random-init weights or a
-checkpoint's) and `service_from_artifact` (weights from a JAX artifact's
-params.npz). Data-parallel serving (dp > 1) waits for a later slice of
+checkpoint's) and `service_from_artifact` (the port's exported program,
+or the weights of a JAX artifact's params.npz). Data-parallel serving (dp > 1) waits for a later slice of
 the port, and asking for it raises.
 """
 
@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import io
 import json
+import logging
 import queue
 import threading
 import time
@@ -29,6 +30,8 @@ from concurrent.futures import Future, TimeoutError as FuturesTimeoutError
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
+
+log = logging.getLogger(__name__)
 
 
 def _buckets(max_batch: int, multiple: int = 1):
@@ -218,13 +221,22 @@ def warmup(service: BatchingService):
 
 def service_from_artifact(artifact_dir, *, device=None,
                           **kw) -> BatchingService:
-    """Serve the weights of a JAX `export_serving` artifact directory.
+    """Serve an artifact directory: the port's exported program, or the
+    weights of a JAX `export_serving` artifact in the port's model code.
 
-    The port runs its own model code eagerly, so any batch size works and
-    the normal bucket ladder is used even for a fixed-batch artifact."""
+    A port artifact exported at a fixed batch runs that one input shape, so
+    the service pins every dispatch to it; a batch-polymorphic one uses the
+    normal bucket ladder. A JAX artifact runs eagerly in the port's model
+    code, so any batch works and it keeps the ladder whatever its batch."""
     from ann3depth_tpu_torch import serving
 
     model = serving.load_serving(artifact_dir, device=device)
+    fixed = model.meta.get("batch")
+    if model.meta.get("format") == serving.FORMAT and fixed is not None:
+        if kw.get("max_batch") not in (None, fixed):
+            log.warning("artifact was exported with fixed batch %d; "
+                        "overriding max_batch=%s", fixed, kw["max_batch"])
+        kw = {**kw, "max_batch": fixed, "fixed_batch": fixed}
     return BatchingService(model.predict, model.meta["raw_hw"], **kw)
 
 

@@ -1,21 +1,35 @@
-"""The serving function and JAX serving artifacts, in torch.
+"""The serving program, its exported artifact, and JAX serving artifacts.
 
-Counterpart of `ann3depth_tpu/serving.py`. `make_serving_fn` is the served
-program: raw uint8 frames -> preprocess (the fused CUDA kernel on the card)
--> model -> exp to linear depth. `load_serving` serves the weights of an
-artifact directory written by the JAX package's `export_serving`: it reads
-`meta.json` and `params.npz`; the StableHLO program beside them cannot run
-here and is not read. `model_from_checkpoint` serves the port's own
-checkpoints.
+Counterpart of `ann3depth_tpu/serving.py`. `ServingProgram` is the served
+program: raw uint8 frames -> preprocess (the registered op
+`torch.ops.ann3depth.fused_preprocess`: the fused CUDA kernel on the card)
+-> model -> exp to linear depth; `make_serving_fn` runs it eagerly.
+
+`export_serving` writes it as a `torch.export` artifact directory:
+
+    serving.pt2   the exported program (`torch.export.save`), weights inside
+    meta.json     config/model names, quant, shapes, batch (null: any),
+                  platforms, param count, torch version, format
+
+`load_serving` serves such a directory through `torch.export.load` on the
+device type it was exported on, with no model code: the op it calls is
+registered by importing `ops.fused_preprocess` (which this module does).
+It also serves the weights of a directory written by the JAX package's
+`export_serving` (`meta.json` and `params.npz`; its StableHLO program cannot
+run here and is not read) in the port's model code.
+`model_from_checkpoint` serves the port's own checkpoints.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
+import os
 
 import numpy as np
 import torch
+from torch import nn
 
 from ann3depth_tpu_torch import convert
 from ann3depth_tpu_torch.config import PRESETS, ModelConfig
@@ -26,17 +40,28 @@ from ann3depth_tpu_torch.pipeline import preprocess
 log = logging.getLogger(__name__)
 
 
+ARTIFACT_FILE = "serving.pt2"
+FORMAT = "torch.export"
+
+
+class ServingProgram(nn.Module):
+    """img_u8 [B,H,W,3] tensor -> linear depth [B,h,w] f32 tensor, on the
+    device of the input (which must be the model's)."""
+
+    def __init__(self, model, input_hw):
+        super().__init__()
+        self.model = model
+        self.input_hw = tuple(input_hw)
+
+    def forward(self, img_u8):
+        images = preprocess.preprocess_image(img_u8, self.input_hw)
+        return torch.exp(self.model(images)[..., 0])
+
+
 def make_serving_fn(model, input_hw):
-    """fn(img_u8 [B,H,W,3] tensor) -> linear depth [B,h,w] f32 tensor, on
-    the device of the input (which must be the model's)."""
-    input_hw = tuple(input_hw)
-
-    @torch.inference_mode()
-    def serve(img_u8):
-        images = preprocess.preprocess_image(img_u8, input_hw)
-        return torch.exp(model(images)[..., 0])
-
-    return serve
+    """fn(img_u8 [B,H,W,3] tensor) -> linear depth [B,h,w] f32 tensor:
+    `ServingProgram` run eagerly, in inference mode."""
+    return torch.inference_mode()(ServingProgram(model, input_hw))
 
 
 def prepare_model(model, device):
@@ -54,13 +79,13 @@ def numpy_predictor(fn, device):
 
 class ServingModel:
     """A loaded artifact: `predict` maps numpy uint8 frames [B,H,W,3] to
-    linear depth [B,h,w]."""
+    linear depth [B,h,w] through `fn`. `model` is the depth model that
+    serves a JAX artifact's weights, or the port's exported program."""
 
-    def __init__(self, model, meta, device):
+    def __init__(self, model, meta, device, fn):
         self.model = model
         self.meta = meta
-        self.predict = numpy_predictor(
-            make_serving_fn(model, meta["input_hw"]), device)
+        self.predict = numpy_predictor(fn, device)
 
 
 def model_from_artifact(meta, state_dict):
@@ -115,9 +140,70 @@ def model_from_checkpoint(cfg, *, ckpt_dir=None, use_ema=False,
     return prepare_model(model, device)
 
 
-def load_serving(artifact_dir, *, device=None):
-    """Artifact directory -> ServingModel on `device` (default CUDA)."""
+def export_serving(cfg, model, out_dir, *, batch=None, raw_hw=(480, 640),
+                   config_name=None, device=None):
+    """Export the serving program of `model` (its params as they are) on
+    `device` (default CUDA) into `out_dir`; returns meta.
+
+    batch: None -> one program for any batch >= 1 (traced at batch 2: torch
+    specializes sizes 0 and 1); int -> that batch only. raw_hw: the raw
+    frame shape the program takes (resized by its preprocess). The program
+    runs on the device type it was exported on only: tensors that the
+    forward builds, such as the decoder's upsample matrices, are baked in
+    as constants there.
+    """
     device = resolve_device(device)
+    program = ServingProgram(prepare_model(model, device), cfg.data.input_hw)
+    example = torch.zeros((2 if batch is None else int(batch), *raw_hw, 3),
+                          dtype=torch.uint8, device=device)
+    dynamic = ({0: torch.export.Dim("batch", min=1)},) if batch is None \
+        else None
+    with torch.no_grad():
+        # An eager call first fills the caches of the tensors the forward
+        # builds (upsample matrices, preprocess param rows) with real
+        # tensors, which the trace bakes in; a cold trace would leave its
+        # fake tensors in those caches.
+        out = program(example)
+        exported = torch.export.export(program, (example,),
+                                       dynamic_shapes=dynamic)
+    os.makedirs(out_dir, exist_ok=True)
+    torch.export.save(exported, os.path.join(out_dir, ARTIFACT_FILE))
+    meta = {
+        "config": config_name,
+        "model": cfg.model.name,
+        "quant": cfg.model.quant,
+        "input_hw": list(cfg.data.input_hw),
+        "raw_hw": list(raw_hw),
+        "batch": batch,  # null -> any batch
+        "platforms": [device.type],
+        "out_shape": ["batch" if batch is None else str(batch),
+                      *(str(d) for d in out.shape[1:])],
+        "param_count": sum(p.numel() for p in model.parameters()),
+        "torch_version": torch.__version__,
+        "format": FORMAT,
+    }
+    with open(os.path.join(out_dir, convert.META_FILE), "w") as f:
+        json.dump(meta, f, indent=1)
+    return meta
+
+
+def load_serving(artifact_dir, *, device=None):
+    """Artifact directory -> ServingModel on `device` (default CUDA): the
+    port's exported program, on the device type it was exported on (other
+    devices raise), or a JAX artifact's weights in the port's model."""
+    device = resolve_device(device)
+    with open(os.path.join(artifact_dir, convert.META_FILE)) as f:
+        meta = json.load(f)
+    if meta.get("format") == FORMAT:
+        if device.type not in meta["platforms"]:
+            raise ValueError(
+                f"{artifact_dir} was exported for {meta['platforms']}; it "
+                f"cannot run on {device}: export it again there")
+        program = torch.export.load(
+            os.path.join(artifact_dir, ARTIFACT_FILE)).module()
+        return ServingModel(program, meta, device,
+                            torch.inference_mode()(program))
     meta, state_dict = convert.read_artifact(artifact_dir)
-    model = model_from_artifact(meta, state_dict)
-    return ServingModel(prepare_model(model, device), meta, device)
+    model = prepare_model(model_from_artifact(meta, state_dict), device)
+    return ServingModel(model, meta, device,
+                        make_serving_fn(model, meta["input_hw"]))

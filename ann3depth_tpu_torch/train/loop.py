@@ -112,7 +112,6 @@ def _check_ported(cfg: Config):
     t = cfg.train
     not_ported = [
         ("zero1", t.zero1), ("tensor_parallel > 1", t.tensor_parallel > 1),
-        (f"quant={cfg.model.quant!r}", cfg.model.quant == "int8-qat"),
     ]
     missing = [name for name, on in not_ported if on]
     if missing:
@@ -127,7 +126,9 @@ def _validate(cfg: Config):
     if cfg.model.quant not in ("none", "int8-qat"):
         raise ValueError(
             f"model.quant={cfg.model.quant!r} is a serving-only path "
-            "(round() has zero gradient); train with quant='none'")
+            "(round() has zero gradient); train with quant='none', or "
+            "quant='int8-qat' for quantization-aware training, and pass "
+            "--quant int8 to eval/live/infer")
     if t.batch_size <= 0:
         raise ValueError(f"batch_size must be positive, got {t.batch_size}")
     if t.grad_accum < 1:

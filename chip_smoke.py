@@ -88,6 +88,25 @@ last line is printed:
    the host-fed eval; and each feed's step ms, images/s, busy share,
    launches a step and peak memory.
 
+10. int8 and the exported serving program: qconv at make3d-encdec's 12
+   int8 convs at the b32 serving shapes and qmatmul at dpt-384's
+   projection and MLP shapes at b16, each equal to its CPU result and
+   timed against the bf16 cuDNN conv or cuBLAS matmul of the shapes;
+   phase 4's checkpoint and phase 7's dpt-384 served at `--quant int8`
+   (one round, each batch against the plain-fed int8 model), their int8
+   against bf16 log-depth divergence and the serving fn's device ms, int8
+   against bf16; `cli eval` (against its plain-fed twin and the control),
+   the `infer --image` helper and 30 frames of `cli live`, all at int8;
+   `cli train --quant int8-qat` (20 steps, host feed) and the same from a
+   device pool at K=1 and K=10 (phase 9's tolerances), the losses falling,
+   the QAT checkpoint served at int8 against its int8-qat forward; `cli
+   export` of phase 4's checkpoint for any batch, at batch 8 and at int8,
+   each through `serve --artifact` (one round, one kernel launch a batch),
+   its answers against the eager serving fn within 1e-6, and the exported
+   against the eager program's device ms at b32. Phase 2 also times the v1
+   wrapper's host dispatch through the registered op, straight to the
+   launch, and through a `torch.library.custom_op` twin.
+
 The last lines are one `{"kernels": [...]}` JSON line, the nvidia-smi line
 of the card, and `{"ok": true, "device": {...}}`.
 """
@@ -124,8 +143,19 @@ SERVE_LOG_TOL = 2e-2
 # against plain-fed answers did (0.102, 0.018). So the models of
 # JITTER_HELD are held, in max and in mean, to twice that control,
 # measured on the same frames in every run; the others to SERVE_LOG_TOL.
+# So are int8 models (phase 10): a per-tensor activation scale puts a value
+# that moves by a bf16 rounding on the neighbouring int8 step, 1/127 of the
+# tensor's range, where bf16 moves it by 2^-8 of itself (make3d-encdec at
+# int8, kernel- against plain-fed: 0.036 at most, 8.7e-4 in mean).
 JITTER = 1e-6
 JITTER_HELD = ("dpt", "dpt-small")
+
+
+def jitter_held(model_cfg):
+    """Whether a model's same-batch checks are held to its jitter control:
+    the DPT family and every int8 model."""
+    return model_cfg.name in JITTER_HELD or model_cfg.quant != "none"
+
 # v2 against plain_preprocess_v2: both round the f32 row pass to bf16, and
 # the kernel builds its own weights (f32 ulps from triangle_matrix's), so
 # they may differ by one bf16 ulp of a row value carried through the column
@@ -166,10 +196,17 @@ RAW_HW, MAKE3D_DEPTH_HW, NYU_DEPTH_HW = (480, 640), (305, 55), (480, 640)
 # larger of the preset's and twice the largest move of two jitter controls
 # (the plain-fed eval with its images moved by uniform noise of JITTER),
 # measured on the same checkpoint and batches in every run; the off-by-one
-# control must still fail it.
+# control must still fail it. An int8 model (phase 10) is held to its
+# preset's tolerance without jitter controls: jittering every pixel moves
+# an int8 eval far more than the kernel does (make3d-encdec at int8:
+# 5.2e-3 and 7.1e-3 (sq_rel) against the plain-fed 2.0e-4, control
+# 1.0e-2); its delta metrics are reported, not held, as DPT's (an int8
+# flip moves a pixel by a step of its tensor's range: delta3 moved 2.0e-4
+# where the continuous metrics moved 3.1e-5 at most).
 EVAL_METRIC_RTOL = {"make3d-encdec": 3e-4, "dpt-384": 2e-3}
+EVAL_DELTAS = ("delta1", "delta2", "delta3")
 EVAL_JITTER_SEEDS = (0, 1)
-EVAL_METRICS_NOT_HELD = {"dpt-384": ("delta1", "delta2", "delta3")}
+EVAL_METRICS_NOT_HELD = {"dpt-384": EVAL_DELTAS}
 EVAL_BATCHES = 2
 LIVE_FRAMES = 300
 # Phase 7: (preset, raw depth grid, steps, resumed to, log/checkpoint/eval
@@ -212,6 +249,21 @@ FEED_STEPS, FEED_WORKERS, PROFILE_STEPS = 40, 2, 10
 GRAPH_PARAM_RTOL, GRAPH_PARAM_ATOL, GRAPH_LOSS_RTOL = 2e-5, 2e-6, 2e-4
 # eval --cache-device reads the bytes the host feed reads, in its order.
 EVAL_POOL_RTOL = 1e-6
+# Phase 10. int8 serving at each preset's serving batch; int8-qat trains
+# QAT_STEPS steps through the CLI from the host feed, then QAT_POOL_STEPS
+# from a device pool of QAT_POOL_SCENES scenes at K=1 and K=QAT_K (phase
+# 9's tolerances) with torch.backends.cudnn.deterministic set. By default
+# cuDNN picks f32 conv kernels whose sums may fall in another order from
+# run to run (bf16 ones did not, phase 9), and a fake-quant flip carries
+# such a rounding on: on an NVIDIA H100 80GB HBM3 at 700 W three K=1 QAT
+# runs parted by 1.3e-4-4.3e-3 in loss after 30 steps, as far as a K=10
+# run from them. Three artifacts of phase 4's checkpoint: any batch,
+# EXPORT_BATCH, int8. An exported program runs the eager program's ops on
+# the same weights (cuDNN may still pick another algorithm for a traced
+# conv): EXPORT_RTOL relative in linear depth.
+QUANT_BATCH = {"make3d-encdec": 32, "dpt-384": 16}
+QAT_STEPS, QAT_POOL_STEPS, QAT_K, QAT_POOL_SCENES = 20, 30, 10, 32
+EXPORT_BATCH, EXPORT_RTOL = 8, 1e-6
 
 
 def check(cond, msg):
@@ -1108,8 +1160,9 @@ def _rel_metrics(got, want):
 
 def eval_phase(torch, np, fp, cfg, tmp, card, preset="make3d-encdec",
                full=True, label="eval"):
-    """Phase 6 (and 7), eval: `cli eval --config preset` on the checkpoint
-    of `cfg` (plain; with `full` also with a report and tta, and with two
+    """Phase 6 (and 7, 10), eval: `cli eval --config preset` on the
+    checkpoint of `cfg` at its quant (plain; with `full` also with a
+    report and tta, and with two
     protocols); the plain run against the same eval fed by the plain
     preprocess and against the `_shifted_window` control; with `full` the
     device rate of the eval step and the kernel at the eval image
@@ -1121,7 +1174,7 @@ def eval_phase(torch, np, fp, cfg, tmp, card, preset="make3d-encdec",
     flags = ["--config", preset, "--datasets", "synthetic",
              "--synth-hw", *map(str, cfg.data.synth_img_hw),
              "--synth-depth-hw", *map(str, cfg.data.synth_depth_hw),
-             "--ckpt-dir", cfg.train.ckpt_dir,
+             "--ckpt-dir", cfg.train.ckpt_dir, "--quant", cfg.model.quant,
              "--max-batches", str(EVAL_BATCHES)]
     report = f"{tmp}/report"
     runs = {}
@@ -1173,6 +1226,8 @@ def eval_phase(torch, np, fp, cfg, tmp, card, preset="make3d-encdec",
             jitter_rel[f"jitter_control_{seed}"] = _rel_metrics(
                 moved, fed["plain_fed"])
     not_held = EVAL_METRICS_NOT_HELD.get(preset, ())
+    if cfg.model.quant != "none":
+        not_held = EVAL_DELTAS
     worst = {name: max(v for k, v in r.items() if k not in not_held)
              for name, r in {**rel, **jitter_rel}.items()}
     rtol = max([EVAL_METRIC_RTOL[preset]]
@@ -1231,17 +1286,21 @@ def _plain_log_depth(torch, fp, model, input_hw, frames, jitter=0.0):
         return model(images)[..., 0].cpu().numpy()
 
 
-def log_depth_tol(torch, np, fp, model, name, input_hw, frames, want):
+def log_depth_tol(torch, np, fp, model, model_cfg, input_hw, frames, want):
     """The tolerance, in max and in mean, of a same-batch comparison with
     `want` (the plain-fed log-depth of u8 numpy `frames` by `model`, the
-    registry model `name`): SERVE_LOG_TOL, or for JITTER_HELD models
-    twice the jitter control on these frames (returned too, else None)."""
-    if name not in JITTER_HELD:
+    model of ModelConfig `model_cfg`): SERVE_LOG_TOL, or for jitter_held models
+    twice the jitter control on these frames (returned too, else None),
+    for an int8 model no less than SERVE_LOG_TOL."""
+    if not jitter_held(model_cfg):
         return dict(max=SERVE_LOG_TOL, mean=SERVE_LOG_TOL), None
     moved = np.abs(_plain_log_depth(torch, fp, model, input_hw, frames,
                                     JITTER) - want)
     control = dict(max=float(moved.max()), mean=float(moved.mean()))
-    return {k: 2 * v for k, v in control.items()}, control
+    tol = {k: 2 * v for k, v in control.items()}
+    if model_cfg.quant != "none":  # never tighter than a bf16 model's
+        tol = {k: max(v, SERVE_LOG_TOL) for k, v in tol.items()}
+    return tol, control
 
 
 def check_log_close(np, got, want, tol, name):
@@ -1304,7 +1363,7 @@ def serve_checkpoint(torch, np, fp, cfg, card, label="serve_ckpt"):
     batches = []
     for i, (batch, out) in enumerate(dispatched):
         want = _plain_log_depth(torch, fp, model, cfg.data.input_hw, batch)
-        tol, control = log_depth_tol(torch, np, fp, model, cfg.model.name,
+        tol, control = log_depth_tol(torch, np, fp, model, cfg.model,
                                      cfg.data.input_hw, batch, want)
         err = check_log_close(np, np.log(out), want, tol,
                               f"served checkpoint, batch {i}")
@@ -1466,9 +1525,8 @@ def infer_phase(torch, np, fp, model_cfg, card, transcode=True,
     image_errs = []
     for i in range(4):  # one frame at a time, as infer_image
         want = _plain_log_depth(torch, fp, model, input_hw, frames[i:i + 1])
-        tol, control = log_depth_tol(torch, np, fp, model,
-                                     model_cfg.model.name, input_hw,
-                                     frames[i:i + 1], want)
+        tol, control = log_depth_tol(torch, np, fp, model, model_cfg.model,
+                                     input_hw, frames[i:i + 1], want)
         err = check_log_close(np, np.log(got[i:i + 1]), want, tol,
                               f"infer frame {i} vs plain-fed")
         image_errs.append(dict(err=err, tol=tol, jitter_control=control))
@@ -1509,10 +1567,10 @@ def infer_phase(torch, np, fp, model_cfg, card, transcode=True,
 
 
 def live_cli(torch, np, fp, cfg, preset, tmp, card, label="live"):
-    """Phase 7, live: `cli live --config preset` headless for
-    FAMILY_LIVE_FRAMES frames on the checkpoint of `cfg` (the synthetic
-    source: the machine has no camera), then the engine on one
-    uniform-noise frame against plain-fed live_step."""
+    """Phase 7 (and 10), live: `cli live --config preset` at the quant of
+    `cfg` headless for FAMILY_LIVE_FRAMES frames on the checkpoint of `cfg`
+    (the synthetic source: the machine has no camera), then the engine on
+    one uniform-noise frame against plain-fed live_step."""
     import dataclasses
 
     from ann3depth_tpu_torch import cli, serving
@@ -1520,14 +1578,15 @@ def live_cli(torch, np, fp, cfg, preset, tmp, card, label="live"):
     from ann3depth_tpu_torch.live import infer as live
 
     base = get_config(preset)
-    live_cfg = dataclasses.replace(base, train=dataclasses.replace(
-        base.train, ckpt_dir=cfg.train.ckpt_dir))
+    live_cfg = dataclasses.replace(
+        base, model=dataclasses.replace(base.model, quant=cfg.model.quant),
+        train=dataclasses.replace(base.train, ckpt_dir=cfg.train.ckpt_dir))
     n_frames = FAMILY_LIVE_FRAMES
     fp.fused_preprocess.launches = 0
     stats = _cli_json(cli, [
         "live", "--config", preset, "--ckpt-dir", cfg.train.ckpt_dir,
-        "--no-display", "--max-frames", str(n_frames),
-        "--video", f"{tmp}/no-camera.avi"])
+        "--quant", cfg.model.quant, "--no-display", "--max-frames",
+        str(n_frames), "--video", f"{tmp}/no-camera.avi"])
     launches = fp.fused_preprocess.launches
     check(stats["frames"] == n_frames and stats["ring_native"],
           f"{label}: {stats}")
@@ -1545,7 +1604,7 @@ def live_cli(torch, np, fp, cfg, preset, tmp, card, label="live"):
     with fed_by(fp, fp.plain_preprocess):
         wd, wr = live.live_step(model, noise, input_hw=input_hw,
                                 display_hw=frame_hw)
-    tol, control = log_depth_tol(torch, np, fp, model, cfg.model.name,
+    tol, control = log_depth_tol(torch, np, fp, model, cfg.model,
                                  input_hw, noise.cpu().numpy(),
                                  np.log(wd.cpu().numpy()))
     parity = _live_close(np, live, (d, r),
@@ -1749,14 +1808,10 @@ def _recording(fp, steplib):
     handler = Handler(logging.WARNING)
     logging.getLogger("ann3depth_tpu_torch").addHandler(handler)
     steplib.train_step, steplib.distill_train_step = map(wrap, inner)
-    # The wrapper counts its launches by the module's name, which is
-    # `recorded` within the block; they go back to the kernel's count.
-    recorded.launches = 0
     try:
         with fed_by(fp, recorded):
             yield seen
     finally:
-        kernel.launches += recorded.launches
         steplib.train_step, steplib.distill_train_step = inner
         logging.getLogger("ann3depth_tpu_torch").removeHandler(handler)
 
@@ -2577,6 +2632,407 @@ def pipeline_phase(torch, np, fp, card, tmp, encdec_cfg):
     return launches
 
 
+def v1_host_dispatch(torch, fp, card):
+    """Phase 2: the v1 wrapper's host time a call at the train shape, in
+    turns: through the registered op (`fp.fused_preprocess`, the path),
+    straight to the launch as before the registration (`fp._launch_band`),
+    and through a `torch.library.custom_op` twin of the op."""
+    @torch.library.custom_op("chip_smoke::v1_twin", mutates_args=(),
+                             schema=fp._SCHEMA)
+    def twin(frames, params, out_hw, norm, depth_mode):
+        return fp._launch_band("fused_preprocess", frames, params,
+                               out_hw=out_hw, norm=norm,
+                               depth_mode=depth_mode)
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    frames = torch.randint(0, 256, (16, *RAW_HW, 3), dtype=torch.uint8,
+                           device="cuda", generator=gen)
+    params = fp.augment_params(gen, 16, RAW_HW, (240, 320), device="cuda")
+    fns = dict(
+        op=lambda: fp.fused_preprocess(frames, params, out_hw=(240, 320)),
+        direct=lambda: fp._launch_band("fused_preprocess", frames, params,
+                                       out_hw=(240, 320)),
+        custom_op=lambda: twin(frames, params, [240, 320], True, False))
+    runs = {k: [] for k in fns}
+    for name in ("op", "direct", "custom_op", "custom_op", "direct", "op"):
+        fns[name]()
+        runs[name].append(host_ms(torch, fns[name], iters=200))
+    out = dict({f"{k}_host_ms": min(v) for k, v in runs.items()},
+               runs=runs, card=card)
+    print("v1 host dispatch: " + json.dumps(out), flush=True)
+    return out
+
+
+def graph_ms(torch, fn, iters=20):
+    """Device time a call of `fn`: `iters` calls captured in one CUDA
+    graph, its replays timed with CUDA events (no host gaps between the
+    kernels)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    ms = time_ms(graph.replay, iters=5, warmup=1) / iters
+    del graph
+    return ms
+
+
+def _op_times(torch, fns):
+    """Each fn's time a call with CUDA events around eager calls (host
+    gaps included) and as replays of a CUDA graph (the device's time)."""
+    out = {}
+    for name, fn in fns.items():
+        out[f"{name}_ms"] = time_ms(fn)
+        out[f"{name}_device_ms"] = graph_ms(torch, fn)
+    return out
+
+
+def quant_op_cases(torch, np, card):
+    """Phase 10.1: qconv at every int8 conv of make3d-encdec at the b32
+    serving shapes and qmatmul at dpt-384's q/k/v/out and MLP shapes at
+    b16, each against its CPU result (equal: exact int32 sums, the same f32
+    quantize and dequantize) and timed with CUDA events beside the bf16
+    product cuDNN or cuBLAS computes for the same shapes, and beside the
+    torch._int_mm inside it alone."""
+    import dataclasses
+
+    from ann3depth_tpu_torch.config import get_config
+    from ann3depth_tpu_torch.models import encdec, registry
+    from ann3depth_tpu_torch.ops import quant
+    from ann3depth_tpu_torch.train import step as steplib
+
+    enc = get_config("make3d-encdec")
+    model = steplib.init_params(registry.build(dataclasses.replace(
+        enc.model, quant="int8")), enc.data.input_hw, 0)
+    layers = []
+    hooks = [m.register_forward_pre_hook(
+        lambda m, args, n=n: layers.append(
+            (n, args[0].shape[1:], tuple(m.weight.shape), m.stride)))
+        for n, m in model.named_modules() if isinstance(m, quant.QConv)]
+    with torch.no_grad():
+        model(torch.zeros((1, *enc.data.input_hw, 3)))
+    for h in hooks:
+        h.remove()
+    check(len(layers) == 12, f"encdec has {len(layers)} int8 convs")
+
+    gen = torch.Generator().manual_seed(0)
+    b = QUANT_BATCH["make3d-encdec"]
+    convs, mms = [], []
+    for name, chw, wshape, stride in layers:
+        x = torch.randn((b, *chw), generator=gen).to(
+            dtype=torch.bfloat16, memory_format=torch.channels_last)
+        w = 0.05 * torch.randn(wshape, generator=gen)
+        want = quant.qconv(x, w, stride)
+        xc, wc = x.cuda(), w.cuda()
+        got = quant.qconv(xc, wc, stride)
+        check(torch.equal(got.cpu(), want),
+              f"qconv {name} on the card differs from the CPU by "
+              f"{float((got.cpu() - want).abs().max())}")
+        m = b * want.shape[2] * want.shape[3]
+        k = wshape[1] * wshape[2] * wshape[3]
+        a8 = torch.randint(-127, 128, (m, k), dtype=torch.int8,
+                           device="cuda")
+        w8 = torch.randint(-127, 128, (wshape[0], k), dtype=torch.int8,
+                           device="cuda")
+        wb = wc.to(torch.bfloat16)
+        fns = dict(int8=lambda: quant.qconv(xc, wc, stride),
+                   bf16_cudnn=lambda: encdec.conv2d_same(xc, wb, None,
+                                                         stride),
+                   int_mm=lambda: torch._int_mm(a8, w8.t()))
+        convs.append(dict(layer=name, x=[b, *chw], weight=list(wshape),
+                          stride=stride, **_op_times(torch, fns)))
+    tokens = QUANT_BATCH["dpt-384"] * 576
+    for k, n, what in ((384, 384, "q/k/v/out"), (384, 1536, "fc1"),
+                       (1536, 384, "fc2")):
+        x = torch.randn((QUANT_BATCH["dpt-384"], 576, k),
+                        generator=gen).to(torch.bfloat16)
+        w = 0.05 * torch.randn((n, k), generator=gen)
+        want = quant.qmatmul(x, w)
+        xc, wc = x.cuda(), w.cuda()
+        got = quant.qmatmul(xc, wc)
+        check(torch.equal(got.cpu(), want),
+              f"qmatmul {what} on the card differs from the CPU by "
+              f"{float((got.cpu() - want).abs().max())}")
+        wb = wc.to(torch.bfloat16)
+        a8 = torch.randint(-127, 128, (tokens, k), dtype=torch.int8,
+                           device="cuda")
+        w8 = torch.randint(-127, 128, (n, k), dtype=torch.int8,
+                           device="cuda")
+        fns = dict(int8=lambda: quant.qmatmul(xc, wc),
+                   bf16_matmul=lambda: torch.matmul(xc, wb.t()),
+                   int_mm=lambda: torch._int_mm(a8, w8.t()))
+        mms.append(dict(proj=what, m=tokens, k=k, n=n,
+                        **_op_times(torch, fns)))
+    total = {k: sum(c[k] for c in convs) for k in convs[0]
+             if k.endswith("_ms")}
+    out = dict(qconv_b32=convs, qmatmul_b16=mms, qconv_total=total,
+               card=card)
+    print("int8 ops: " + json.dumps(out), flush=True)
+    return out
+
+
+def _with_quant(cfg, quant):
+    import dataclasses
+
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, quant=quant))
+
+
+def quant_serving(torch, np, fp, cfg, preset, card, label):
+    """Phase 10.2: the checkpoint of `cfg` served at int8 (one HTTP round,
+    each batch against the int8 model fed by the plain preprocess, as
+    `serve_checkpoint` holds bf16), then on QUANT_BATCH training scenes the
+    int8 against bf16 log-depth divergence of that checkpoint and the
+    device and event ms of the serving fn, int8 and bf16 in turns."""
+    from ann3depth_tpu_torch import serving
+    from ann3depth_tpu_torch.train import loop
+
+    served = serve_checkpoint(torch, np, fp, _with_quant(cfg, "int8"), card,
+                              label=f"{label} serve_ckpt")
+    b = QUANT_BATCH[preset]
+    img, _ = next(loop.build_dataset(cfg, "train").batches(
+        b, steps=1, shuffle=False))
+    x = torch.from_numpy(img).cuda()
+    fns = {q: serving.make_serving_fn(serving.model_from_checkpoint(
+        _with_quant(cfg, q), device="cuda"), cfg.data.input_hw)
+        for q in ("none", "int8")}
+    logs = {q: torch.log(fn(x)).cpu().numpy() for q, fn in fns.items()}
+    diff = np.abs(logs["int8"] - logs["none"])
+    runs = {q: [] for q in fns}
+    for q in ("none", "int8", "int8", "none"):
+        # Few calls a trace: the profiler's own host cost grows with the
+        # ops it records, thousands a call here.
+        ms, by_kind = device_ms(torch, lambda: fns[q](x), iters=5)
+        runs[q].append(dict(device_ms=ms, event_ms=time_ms(lambda: fns[q](x)),
+                            kernels=len(by_kind)))
+    out = dict(preset=preset, batch=b, served_launches=served["launches"],
+               served_log_err=served["log_depth_vs_plain_same_batch"],
+               int8_vs_bf16_log_depth=dict(max=float(diff.max()),
+                                           mean=float(diff.mean())),
+               serving_fn=runs, card=card)
+    print(f"{label}: " + json.dumps(out), flush=True)
+    return out
+
+
+def qat_phase(torch, np, fp, card, tmp):
+    """Phase 10.4: `cli train --quant int8-qat` of make3d-encdec (full
+    width, b16, augmented, Make3D's raw shapes) for QAT_STEPS steps from
+    the host feed, the losses falling and v1 called twice a step; then
+    from a device pool at K=1 and K=QAT_K with cuDNN's deterministic
+    algorithms (`graph_pair`: phase 9's tolerances), the losses falling;
+    the CLI run's checkpoint served at int8 against its own int8-qat
+    forward (and against bf16)."""
+    import dataclasses
+
+    from ann3depth_tpu_torch import cli, serving
+    from ann3depth_tpu_torch.config import get_config
+    from ann3depth_tpu_torch.data.synthetic import SyntheticDepthDataset
+
+    d = f"{tmp}/qat"
+    fp.fused_preprocess.launches = 0
+    t0 = time.perf_counter()
+    _cli_json(cli, [
+        "train", "--config", "make3d-encdec", "--quant", "int8-qat",
+        "--datasets", "synthetic", "--synth-hw", *map(str, RAW_HW),
+        "--synth-depth-hw", *map(str, MAKE3D_DEPTH_HW), "--synth-n", "64",
+        "--augment", "--steps", str(QAT_STEPS), "--warmup-steps", "10", "--log-every",
+        "1", "--checkpoint-every", str(QAT_STEPS), "--eval-every", "0",
+        "--ckpt-dir", f"{d}/ckpt", "--workdir", f"{d}/work"])
+    seconds = time.perf_counter() - t0
+    launches = fp.fused_preprocess.launches
+    check(launches == 2 * QAT_STEPS,
+          f"qat: v1 called {launches} times in {QAT_STEPS} steps")
+    with open(f"{d}/work/metrics.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    cli_losses = [r["loss"] for r in rows if "loss" in r]
+    check(len(cli_losses) == QAT_STEPS, f"qat: {len(cli_losses)} losses")
+    cli_fall = _losses_fall(np, cli_losses, 5, "qat cli")
+
+    scenes = _InMemory(np, SyntheticDepthDataset(
+        n=QAT_POOL_SCENES, img_hw=RAW_HW, depth_hw=MAKE3D_DEPTH_HW, seed=3))
+    enc = _with_quant(get_config("make3d-encdec"), "int8-qat")
+    pool_cfg = dataclasses.replace(
+        enc, data=dataclasses.replace(enc.data, cache_device=True),
+        train=dataclasses.replace(enc.train, steps=QAT_POOL_STEPS,
+                                  warmup_steps=10, log_every=QAT_K,
+                                  checkpoint_every=QAT_POOL_STEPS,
+                                  eval_every=0))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        pair = graph_pair(torch, np, fp, pool_cfg, tmp, "qat", QAT_K, card,
+                          scenes)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    check(pair["params_excess_over_tol"] <= 0
+          and pair["loss_rel_diff"] <= GRAPH_LOSS_RTOL,
+          f"qat: K={QAT_K} against K=1: params {pair['params_max_abs_diff']}"
+          f" (excess {pair['params_excess_over_tol']}), loss "
+          f"{pair['loss_rel_diff']}")
+    pool_fall = {k: _losses_fall(np, [l for _, l in pair[k]["logged"]], 1,
+                                 f"qat pool {k}")
+                 for k in ("eager", "graph")}
+
+    cfg = dataclasses.replace(enc, train=dataclasses.replace(
+        enc.train, ckpt_dir=f"{d}/ckpt"))
+    x = torch.from_numpy(np.stack([scenes[i][0] for i in range(
+        QUANT_BATCH["make3d-encdec"])])).cuda()
+    logs = {}
+    for q in ("int8-qat", "int8", "none"):
+        fn = serving.make_serving_fn(serving.model_from_checkpoint(
+            _with_quant(cfg, q), device="cuda"), cfg.data.input_hw)
+        logs[q] = torch.log(fn(x)).cpu().numpy()
+
+    def gap(a, b):
+        diff = np.abs(logs[a] - logs[b])
+        return dict(max=float(diff.max()), mean=float(diff.mean()))
+
+    out = dict(cli=dict(steps=QAT_STEPS, seconds=seconds, v1_calls=launches,
+                        loss_first_last=cli_fall),
+               pool=dict(steps=QAT_POOL_STEPS, k=QAT_K,
+                         cudnn_deterministic=True,
+                         eager_step_ms=pair["eager"]["step_ms"],
+                         graph_step_ms=pair["graph"]["step_ms"],
+                         graph_images_per_s=pair["graph"][
+                             "loop_images_per_s"],
+                         eager_peak_bytes=pair["eager"][
+                             "max_memory_allocated_bytes"],
+                         graph_peak_bytes=pair["graph"][
+                             "max_memory_allocated_bytes"],
+                         params_max_abs_diff=pair["params_max_abs_diff"],
+                         loss_rel_diff=pair["loss_rel_diff"],
+                         loss_first_last=pool_fall,
+                         v1_calls=[pair["eager"]["v1_calls_counted"],
+                                   pair["graph"]["v1_calls_counted"]]),
+               int8_vs_qat_log_depth=gap("int8", "int8-qat"),
+               int8_vs_bf16_log_depth=gap("int8", "none"), card=card)
+    print("qat: " + json.dumps(out), flush=True)
+    return out
+
+
+def export_phase(torch, np, fp, cfg, tmp, card):
+    """Phase 10.5: `cli export` of phase 4's checkpoint for any batch, at
+    EXPORT_BATCH and at int8; each artifact through `serve --artifact`
+    (one HTTP round, the kernel launched once a dispatched batch), its
+    answers against the eager serving fn of the same weights (within
+    EXPORT_RTOL) at batches 1, 8 and 32 (its own batch if fixed), and for
+    the any-batch artifacts the device ms of the exported against the
+    eager program at b32, in turns."""
+    from ann3depth_tpu_torch import cli, server, serving
+    from ann3depth_tpu_torch.probe_serving import http_round, request_bodies
+
+    frames = np.random.default_rng(4).integers(
+        0, 256, (32, *RAW_HW, 3), dtype=np.uint8)
+    x32 = torch.from_numpy(frames).cuda()
+    out, launches = {}, {}
+    for name, extra in (("any", []),
+                        (f"b{EXPORT_BATCH}",
+                         ["--serving-batch", str(EXPORT_BATCH)]),
+                        ("int8", ["--quant", "int8"])):
+        art = f"{tmp}/artifact_{name}"
+        t0 = time.perf_counter()
+        meta = _cli_json(cli, ["export", "--config", "make3d-encdec",
+                               "--ckpt-dir", cfg.train.ckpt_dir,
+                               "--out-dir", art] + extra)
+        export_s = time.perf_counter() - t0
+        svc = cli.make_service(cli.build_parser().parse_args(
+            ["serve", "--artifact", art, "--max-batch", "32"]))
+        srv = None
+        try:
+            server.warmup(svc)
+            srv = server.DepthServer(svc, host="127.0.0.1", port=0)
+            srv.serve_background()
+            fp.fused_preprocess.launches = 0
+            before = svc.stats()["batches"]
+            results, elapsed = http_round(
+                f"http://127.0.0.1:{srv.port}/v1/depth",
+                request_bodies(frames))
+            n = fp.fused_preprocess.launches
+            batches = svc.stats()["batches"] - before
+            buckets = list(svc._buckets)
+        finally:
+            if srv is not None:
+                srv.close()
+            else:
+                svc.close()
+        check(n == batches > 0, f"artifact {name}: {n} launches in "
+              f"{batches} batches")
+        answers = [np.load(io.BytesIO(r[0])) for r in results]
+        check(all(np.isfinite(a).all() and (a > 0).all() for a in answers),
+              f"artifact {name}: answers not finite and positive")
+        loaded = serving.load_serving(art)
+        eager = serving.make_serving_fn(serving.model_from_checkpoint(
+            _with_quant(cfg, meta["quant"]), device="cuda"),
+            cfg.data.input_hw)
+        rel = {}
+        for b in ((EXPORT_BATCH,) if meta["batch"] else (1, 8, 32)):
+            got = loaded.predict(frames[:b])
+            want = eager(x32[:b]).cpu().numpy()
+            rel[b] = float(np.abs(got / want - 1).max())
+        check(max(rel.values()) <= EXPORT_RTOL,
+              f"artifact {name} against the eager fn: {rel}")
+        res = dict(meta=meta, export_s=export_s, buckets=buckets,
+                   round_s=elapsed, round_batches=batches, launches=n,
+                   rel_err_vs_eager=rel)
+        if meta["batch"] is None:
+            timed = {"exported": [], "eager": []}
+            with torch.inference_mode():
+                for k in ("exported", "eager", "eager", "exported"):
+                    fn = loaded.model if k == "exported" else eager
+                    timed[k].append(dict(
+                        device_ms=device_ms(torch, lambda: fn(x32),
+                                            iters=5)[0],
+                        event_ms=time_ms(lambda: fn(x32))))
+            res["b32"] = timed
+        out[name], launches[name] = res, n
+    print("export: " + json.dumps(dict(out, card=card)), flush=True)
+    return out, launches
+
+
+def quant_export_phase(torch, np, fp, card, tmp, encdec_cfg):
+    """Phase 10: int8 ops, int8 serving, int8 eval/infer/live, int8-qat
+    training and the exported serving program, each part's seconds
+    printed. Returns the v1 launches of its paths."""
+    seconds = {}
+
+    def timed(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    ops = timed("ops", quant_op_cases, torch, np, card)
+    dpt = _train_config(f"{tmp}/dpt-384", "dpt-384", NYU_DEPTH_HW)
+    served = {preset: timed(f"serve {preset}", quant_serving, torch, np,
+                            fp, cfg, preset, card, f"int8 {preset}")
+              for preset, cfg in (("make3d-encdec", encdec_cfg),
+                                  ("dpt-384", dpt))}
+    cfg8 = _with_quant(encdec_cfg, "int8")
+    evals, _ = timed("eval", eval_phase, torch, np, fp, cfg8, tmp, card,
+                     full=False, label="eval int8")
+    infer = timed("infer", infer_phase, torch, np, fp, cfg8, card,
+                  transcode=False, label="infer int8")
+    live = timed("live", live_cli, torch, np, fp, cfg8, "make3d-encdec",
+                 tmp, card, label="live int8")
+    qat = timed("qat", qat_phase, torch, np, fp, card, tmp)
+    exported, export_launches = timed("export", export_phase, torch, np,
+                                      fp, encdec_cfg, tmp, card)
+    print("phase 10 seconds: " + json.dumps(seconds), flush=True)
+    quant_launches = dict(
+        serve_encdec=served["make3d-encdec"]["served_launches"],
+        serve_dpt=served["dpt-384"]["served_launches"],
+        eval=evals["runs"]["plain"]["launches"],
+        infer=infer["image_launches"], live=live["launches"],
+        qat_cli=qat["cli"]["v1_calls"], qat_pool=qat["pool"]["v1_calls"])
+    return dict(ops=ops, quant_launches=quant_launches,
+                export_launches=export_launches)
+
+
 def main():
     import torch
 
@@ -2603,6 +3059,7 @@ def main():
     print(f"card: {card}", flush=True)
 
     cases = kernel_cases(torch, fp, resize, ref)
+    dispatch = v1_host_dispatch(torch, fp, card)
     cases_v2 = v2_cases(torch, fp, ref)
     specs = family_specs(torch, fp)
     family = family_cases(torch, fp, resize, ref, specs)
@@ -2625,6 +3082,9 @@ def main():
         phase8 = slice6_phase(torch, np, fp, card, tmp, cfg.train.ckpt_dir,
                               train["loop_images_per_s"])
         phase9 = pipeline_phase(torch, np, fp, card, tmp, cfg)
+        t10 = time.perf_counter()
+        phase10 = quant_export_phase(torch, np, fp, card, tmp, cfg)
+        print(f"phase 10: {time.perf_counter() - t10:.1f} s", flush=True)
 
     def entry(case, **kw):
         """One kernel's entry of the kernels line, from its train case."""
@@ -2647,7 +3107,9 @@ def main():
         family_launches={k: {p: n for p, n in v.items() if p != "v2_instep"}
                          for k, v in phase7.items()},
         slice6_cases=slice6, slice6_launches=phase8,
-        pipeline_launches=phase9)
+        pipeline_launches=phase9, host_dispatch=dispatch,
+        quant_launches=phase10["quant_launches"],
+        export_launches=phase10["export_launches"])
     v2 = entry(
         cases_v2[1],  # the train shape, b16 augment rows
         name="fused_preprocess_v2",

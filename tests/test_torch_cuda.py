@@ -18,12 +18,15 @@ preprocess agree to 1e-2 relative in loss: the model computes in bf16
 (2^-8 relative), and its inputs differ by f32 summation order only; so do
 a distillation step fed both ways and an accumulated step against a
 full-batch one. Repeated train steps in torch's deterministic mode agree
-bit for bit.
+bit for bit. The int8 ops (ops/quant.py) give the CPU's answer bit for bit
+(exact int32 sums, the same f32 quantize and dequantize); an exported
+serving program gives the eager program's within EXPORT_RTOL.
 """
 
 import copy
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -38,6 +41,9 @@ pytestmark = pytest.mark.cuda
 V2_IMAGE_MEAN_TOL = 1e-4
 V2_DEPTH_MEAN_TOL = 1e-3
 STEP_LOSS_RTOL = 1e-2
+# An exported serving program runs the eager program's ops on the same
+# weights; cuDNN may still pick another algorithm for a traced conv.
+EXPORT_RTOL = 1e-6
 IN_HW = (32, 48)  # the small models' input size
 
 
@@ -751,3 +757,71 @@ def test_a_failed_capture_raises(cuda, tmp_path, monkeypatch):
         _train(_pool_cfg(tmp_path, "f", steps_per_dispatch=4), tmp_path, "f")
     assert captured == [4]
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# int8 (ops/quant.py) and the exported serving program on the card.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("hw,cin,cout,k,stride", [
+    ((60, 80), 48, 64, 3, 1), ((30, 40), 64, 128, 3, 2),
+    ((30, 40), 128, 64, 1, 1)])
+def test_qconv_on_the_card_equals_the_cpu(cuda, hw, cin, cout, k, stride):
+    """The int8 products are exact int32 sums and the quantize and
+    dequantize are the same f32 ops: the card's answer is the CPU's, bit
+    for bit."""
+    from ann3depth_tpu_torch.ops import quant
+
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((2, cin, *hw), generator=gen).to(
+        memory_format=torch.channels_last)
+    w = 0.1 * torch.randn((cout, cin, k, k), generator=gen)
+    want = quant.qconv(x, w, stride)
+    got = quant.qconv(x.to(cuda), w.to(cuda), stride)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+
+
+def test_qmatmul_on_the_card_equals_the_cpu_and_refuses_small_shapes(cuda):
+    from ann3depth_tpu_torch.ops import quant
+
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn((2, 576, 384), generator=gen).to(torch.bfloat16)
+    w = 0.05 * torch.randn((1536, 384), generator=gen)
+    want = quant.qmatmul(x, w)
+    got = quant.qmatmul(x.to(cuda), w.to(cuda))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="M > 16"):
+        quant.qmatmul(x[:1, :16].to(cuda), w.to(cuda))
+
+
+def test_exported_program_on_the_card_matches_eager(cuda, tmp_path):
+    """A polymorphic and an int8 export of a small encdec, served on the
+    card: equal to the eager serving fn, with one kernel launch a call."""
+    import dataclasses
+
+    from ann3depth_tpu_torch import serving
+    from ann3depth_tpu_torch.config import get_config
+
+    for quant in ("none", "int8"):
+        cfg = get_config("make3d-encdec")
+        cfg = dataclasses.replace(
+            cfg, data=dataclasses.replace(cfg.data, input_hw=(64, 96)),
+            model=dataclasses.replace(cfg.model, width_mult=0.25,
+                                      quant=quant))
+        model = steplib.init_params(registry.build(cfg.model), (64, 96), 0)
+        out = tmp_path / quant
+        serving.export_serving(cfg, model, out, raw_hw=(120, 160),
+                               device="cuda")
+        loaded = serving.load_serving(out)
+        eager = serving.make_serving_fn(serving.prepare_model(model, cuda),
+                                        (64, 96))
+        x = torch.randint(0, 256, (3, 120, 160, 3), dtype=torch.uint8)
+        before = fp.fused_preprocess.launches
+        got = loaded.predict(x.numpy())
+        assert fp.fused_preprocess.launches == before + 1
+        want = eager(x.to(cuda)).cpu().numpy()
+        assert got.shape == want.shape == (3, 32, 48)
+        np.testing.assert_allclose(got, want, rtol=EXPORT_RTOL, atol=0,
+                                   err_msg=quant)

@@ -180,8 +180,10 @@ def test_registry():
                                     "multiscale", "small"]
     with pytest.raises(KeyError, match="encdec"):
         registry.build(ModelConfig(name="nosuch"))
+    q = registry.build(ModelConfig(name="encdec", quant="int8"))
+    assert type(q.enc0.conv_down).__name__ == "QConv"
     with pytest.raises(ValueError, match="quant"):
-        registry.build(ModelConfig(name="encdec", quant="int8"))
+        registry.build(ModelConfig(name="small", quant="int8"))
 
 
 @pytest.mark.parametrize("tta", ["", "flip"])

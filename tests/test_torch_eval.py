@@ -221,7 +221,7 @@ def test_cli_eval(ckpts, tmp_path, capsys):
 @pytest.mark.parametrize("flags,match", [
     (["--protocols", "plain", "--report-dir", "x"], "exclusive"),
     (["--cache-device", "--tp", "2"], "not ported yet"),
-    (["--quant", "int8"], "not ported yet"),
+    (["--quant", "int8", "--tp", "2"], "not ported yet"),
     (["--preprocess-impl", "pallas"], "not ported yet"),
     (["--tp", "2"], "not ported yet"),
 ])

@@ -171,8 +171,10 @@ def test_registry_passes_remat_as_the_jax_registry_does():
     assert not hasattr(registry.build(ModelConfig(name="small", remat=True)),
                        "remat")
     assert registry.available() == sorted(jreg.available())
+    assert type(registry.build(ModelConfig(
+        name="dpt", quant="int8")).block0.attn).__name__ == "QAttention"
     with pytest.raises(ValueError, match="quant"):
-        registry.build(ModelConfig(name="dpt", quant="int8"))
+        registry.build(ModelConfig(name="dpt", quant="int8-qat"))
 
 
 @pytest.mark.parametrize("name", ["small", "multiscale"])

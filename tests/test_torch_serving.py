@@ -367,8 +367,8 @@ def test_cli_serve_flags():
 
 def test_cli_without_init_or_artifact_exits(tmp_path):
     """Without --init or --artifact, `serve` serves the checkpoint in
-    --ckpt-dir (raising when there is none); --dp 2 and --ema with an
-    artifact stop."""
+    --ckpt-dir (raising when there is none), at --quant int8 too; --dp 2
+    and --ema with an artifact stop."""
     cfg, models = _saved_checkpoints(tmp_path / "c")
     base = ["serve", "--device", "cpu", "--width-mult", "0.25",
             "--raw-hw", *map(str, RAW_HW), "--max-batch", "2"]
@@ -388,12 +388,26 @@ def test_cli_without_init_or_artifact_exits(tmp_path):
     finally:
         svc.close()
     for flags, match in ((["--dp", "2"], "not ported yet"),
-                         (["--artifact", "x", "--ema"], "--artifact"),
-                         (["--quant", "int8"], "not ported yet")):
+                         (["--artifact", "x", "--ema"], "--artifact")):
         args = cli.build_parser().parse_args(
             base + ["--ckpt-dir", str(tmp_path / "c")] + flags)
         with pytest.raises(SystemExit, match=match):
             cli.make_service(args)
+    # --quant int8 serves the int8 twin of the same checkpoint (the JAX
+    # registry's refusals stand: the small model has none).
+    args = cli.build_parser().parse_args(
+        base + ["--ckpt-dir", str(tmp_path / "c"), "--quant", "int8"])
+    svc = cli.make_service(args)
+    try:
+        out = svc.predict(_frames(1, seed=7)[0])
+        assert out.shape == (120, 160) and np.isfinite(out).all()
+    finally:
+        svc.close()
+    args = cli.build_parser().parse_args(
+        base + ["--ckpt-dir", str(tmp_path / "c"), "--quant", "int8",
+                "--model", "small"])
+    with pytest.raises(ValueError, match="quant"):
+        cli.make_service(args)
 
 
 def test_cli_serves_an_artifact(artifact):

@@ -341,10 +341,11 @@ def test_evaluate_from_checkpoint_and_empty_dir(tmp_path):
 
 
 # The input pipeline's options (cache_device, use_grain,
-# steps_per_dispatch) are ported now: they train, or meet the JAX loop's
-# validation (tests/test_torch_dispatch.py holds them to it).
+# steps_per_dispatch) and int8-qat training are ported now: they train, or
+# meet the JAX loop's validation (tests/test_torch_dispatch.py and
+# tests/test_torch_quant.py hold them to it).
 NOW_PORTED = {"cache_device": None, "use_grain": None,
-              "steps_per_dispatch": "needs --cache-device"}
+              "steps_per_dispatch": "needs --cache-device", "quant": None}
 
 
 @pytest.mark.parametrize("section,field,value", [
@@ -415,7 +416,7 @@ def test_cli_resolves_the_jax_flags():
 @pytest.mark.parametrize("flags", [["--zero1"], ["--multihost"],
                                    ["--tp", "2"],
                                    ["--preprocess-impl", "pallas"],
-                                   ["--cache-device", "--quant", "int8-qat"],
+                                   ["--coordinator", "localhost:1234"],
                                    ["--distill-model", "encdec"]])
 def test_cli_flags_outside_the_slice_exit(tmp_path, flags):
     with pytest.raises(SystemExit, match="not ported yet|distill-from"):
