@@ -27,11 +27,22 @@ Counterpart of `ann3depth_tpu/cli.py`, with the subcommands ported so far:
     python -m ann3depth_tpu_torch export --ckpt-dir DIR --out-dir ART \\
         [--serving-batch 8] [--quant int8]        # torch.export artifact
     python -m ann3depth_tpu_torch serve --artifact ART   # or a JAX export
+    python -m ann3depth_tpu_torch train --config make3d-encdec --zero1 \
+        --coordinator 127.0.0.1:29500 --num-processes 2 --process-id 0
+    python -m ann3depth_tpu_torch train --config dpt-384 --tp 2 \
+        --multihost                                # under torchrun
+    python -m ann3depth_tpu_torch eval --config make3d-encdec --device cpu \
+        --coordinator 127.0.0.1:29500 --num-processes 2 --process-id 1
+    python -m ann3depth_tpu_torch serve --config make3d-encdec --dp 0
 
 Every subcommand but `prepare` takes the JAX CLI's shared flags (`_COMMON_FLAGS`, the
 JAX `_common_flags`) and its own, plus --device (default cuda; it raises
-when no card is present, unless --device cpu is given). Flags of options
-the port lacks stop with "not ported yet".
+when no card is present, unless --device cpu is given). `train` and `eval`
+join a process group with --multihost (torchrun's environment) or
+--coordinator/--num-processes/--process-id, one process per device (NCCL
+on the card, gloo with --device cpu; --dist-backend gloo also runs CUDA
+tensors, so several ranks can share a card). Flags of options the port
+lacks stop with "not ported yet".
 """
 
 from __future__ import annotations
@@ -118,8 +129,6 @@ _CHOICES = {"--loss": ["si", "si+grad", "l2", "berhu"],
             "--colormap": COLORMAPS}
 # JAX CLI flags of paths the port lacks and that map onto no config field.
 _NOT_PORTED_COMMON = ("--preprocess-impl",)
-_NOT_PORTED_TRAIN = ("--multihost", "--coordinator", "--num-processes",
-                     "--process-id")
 
 
 def _dest(flag):
@@ -166,6 +175,41 @@ def _common_flags(p):
                         "preprocess and the model on the CPU)")
 
 
+def _multihost_flags(p):
+    """The JAX CLI's `train` flags that join a process group, plus the
+    port's --dist-backend."""
+    p.add_argument("--multihost", action="store_true",
+                   help="join a process group from torchrun's environment "
+                        "(RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT); one "
+                        "process per device")
+    p.add_argument("--coordinator", metavar="HOST:PORT",
+                   help="explicit rendezvous address (use with "
+                        "--num-processes/--process-id; implies --multihost)")
+    p.add_argument("--num-processes", type=int)
+    p.add_argument("--process-id", type=int)
+    p.add_argument("--dist-backend", choices=["nccl", "gloo"],
+                   help="collective backend (default: nccl on the card, "
+                        "gloo with --device cpu); gloo also runs on the "
+                        "card, where several ranks may share one")
+
+
+def _join_group(args):
+    """Join the process group the flags ask for (train, eval)."""
+    if args.multihost or args.coordinator:
+        from ann3depth_tpu_torch.parallel import multihost
+        multihost.initialize(coordinator=args.coordinator,
+                             num_processes=args.num_processes,
+                             process_id=args.process_id, device=args.device,
+                             backend=args.dist_backend)
+
+
+def _print_result(obj):
+    """Print a run's JSON line, from rank 0 only in a process group."""
+    from ann3depth_tpu_torch.parallel import multihost
+    if multihost.process_index() == 0:
+        print(json.dumps(obj), flush=True)
+
+
 def resolve_config(args) -> cfglib.Config:
     """The preset of --config with the given flags applied."""
     cfg = cfglib.get_config(args.config)
@@ -192,12 +236,13 @@ def build_parser() -> argparse.ArgumentParser:
     pt = sub.add_parser("train", help="train a depth model")
     _common_flags(pt)
     _add_flags(pt, _TRAIN_FLAGS)
-    _not_ported(pt, _NOT_PORTED_TRAIN)
+    _multihost_flags(pt)
     pt.add_argument("--workdir",
                     help="metrics/log directory (default: ckpt dir)")
 
     pe = sub.add_parser("eval", help="evaluate RMSE etc. on the test split")
     _common_flags(pe)
+    _multihost_flags(pe)
     pe.add_argument("--max-batches", type=int)
     pe.add_argument("--ema", action="store_true",
                     help="score the EMA weights of a checkpoint trained with "
@@ -323,8 +368,11 @@ def build_parser() -> argparse.ArgumentParser:
     ps.add_argument("--ema", action="store_true",
                     help="serve the EMA weights from the checkpoint")
     ps.add_argument("--dp", type=int, default=1,
-                    help="data-parallel serving over local devices (not "
-                         "ported yet: 1 only)")
+                    help="split each coalesced batch over this many local "
+                         "CUDA devices (the model replicated on each, one "
+                         "stream each); 0 = all local devices (checkpoint "
+                         "mode only: an artifact is a single-device "
+                         "program)")
     ps.add_argument("--host", default="127.0.0.1")
     ps.add_argument("--port", type=int, default=8000)
     ps.add_argument("--max-batch", type=int, default=32,
@@ -340,14 +388,12 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _refuse_not_ported(args, cfg):
-    """Stop on the flags of options the port's eval/infer/live/serve/export
-    lack (--cache-device is eval's device-resident test pool; the other
-    paths read no dataset and ignore it, as in the JAX CLI)."""
+def _refuse_not_ported(args):
+    """Stop on the flags of options the port lacks (--cache-device is
+    eval's device-resident test pool and --tp a training option; the
+    other paths ignore them, as in the JAX CLI)."""
     given = [f for f in _NOT_PORTED_COMMON
              if getattr(args, _dest(f)) is not None]
-    if cfg.train.tensor_parallel > 1:
-        given.append("--tp")
     if given:
         raise SystemExit(f"{', '.join(given)}: not ported yet")
 
@@ -364,27 +410,23 @@ def make_service(args):
                 "--ema/--ckpt-step have no effect with --artifact: the "
                 "artifact's weights were baked at export time")
         if getattr(args, "dp", 1) != 1:
-            raise SystemExit("--dp requires checkpoint mode")
+            raise SystemExit(
+                "--dp requires checkpoint mode: an exported artifact "
+                "is a single-device program (its shardings were fixed "
+                "at export time)")
         return serverlib.service_from_artifact(args.artifact, **svc_kw)
     cfg = resolve_config(args)
-    _refuse_not_ported(args, cfg)
-    try:
-        return serverlib.service_from_config(
-            cfg, init=args.init, raw_hw=tuple(args.raw_hw),
-            use_ema=args.ema, ckpt_step=args.ckpt_step, dp=args.dp,
-            **svc_kw)
-    except NotImplementedError as e:
-        raise SystemExit(str(e)) from None
+    _refuse_not_ported(args)
+    return serverlib.service_from_config(
+        cfg, init=args.init, raw_hw=tuple(args.raw_hw), use_ema=args.ema,
+        ckpt_step=args.ckpt_step, dp=args.dp, **svc_kw)
 
 
 def train_main(args):
     if args.ckpt_step is not None:
         raise SystemExit("train reads checkpoints via --resume or "
                          "--resume-step, not --ckpt-step")
-    given = [f for f in _NOT_PORTED_COMMON + _NOT_PORTED_TRAIN
-             if getattr(args, _dest(f)) is not None]
-    if given:
-        raise SystemExit(f"{', '.join(given)}: not ported yet")
+    _refuse_not_ported(args)
     if not args.distill_from and any(
             getattr(args, k) is not None
             for k in ("distill_model", "distill_width_mult",
@@ -395,11 +437,9 @@ def train_main(args):
     from ann3depth_tpu_torch.train import loop
 
     cfg = resolve_config(args)
-    try:
-        _, metrics = loop.train(cfg, workdir=args.workdir, device=args.device)
-    except NotImplementedError as e:
-        raise SystemExit(str(e)) from None
-    print(json.dumps({k: float(v) for k, v in metrics.items()}), flush=True)
+    _join_group(args)
+    _, metrics = loop.train(cfg, workdir=args.workdir, device=args.device)
+    _print_result({k: float(v) for k, v in metrics.items()})
     return 0
 
 
@@ -407,7 +447,8 @@ def eval_main(args):
     from ann3depth_tpu_torch.train import loop
 
     cfg = resolve_config(args)
-    _refuse_not_ported(args, cfg)
+    _refuse_not_ported(args)
+    _join_group(args)
     common = dict(max_batches=args.max_batches,
                   report_worst=args.report_worst, tta=args.tta,
                   align=args.align, crop=args.crop)
@@ -451,7 +492,7 @@ def eval_main(args):
                                     device=args.device, **common)
     except NotImplementedError as e:
         raise SystemExit(str(e)) from None
-    print(json.dumps(metrics), flush=True)
+    _print_result(metrics)
     return 0
 
 
@@ -459,7 +500,7 @@ def live_main(args):
     from ann3depth_tpu_torch.live import viewer
 
     cfg = resolve_config(args)
-    _refuse_not_ported(args, cfg)
+    _refuse_not_ported(args)
     stats = viewer.run(cfg, camera=args.camera, video=args.video,
                        display=not args.no_display,
                        max_frames=args.max_frames, record=args.record,
@@ -474,7 +515,7 @@ def infer_main(args):
     if bool(args.image) == bool(args.video):
         raise SystemExit("infer needs exactly one of --image or --video")
     cfg = resolve_config(args)
-    _refuse_not_ported(args, cfg)
+    _refuse_not_ported(args)
     if args.video:
         from ann3depth_tpu_torch.live import transcode
 
@@ -560,7 +601,7 @@ def export_main(args):
     from ann3depth_tpu_torch.train import loop
 
     cfg = resolve_config(args)
-    _refuse_not_ported(args, cfg)
+    _refuse_not_ported(args)
     if args.avg_last and args.ckpt_step is not None:
         raise SystemExit("--avg-last and --ckpt-step are exclusive")
     if args.init:
@@ -608,7 +649,11 @@ _MODES = {"train": train_main, "eval": eval_main, "live": live_main,
 def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     args = build_parser().parse_args(argv)
-    return _MODES[args.mode](args)
+    from ann3depth_tpu_torch.parallel import multihost
+    try:
+        return _MODES[args.mode](args)
+    finally:
+        multihost.shutdown()
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 """Device-resident dataset cache: stage the raw dataset into device memory
 once, gather batches on the device, with no per-step host feed.
 
-Counterpart of `ann3depth_tpu/pipeline/device_cache.py`, on one device. The
+Counterpart of `ann3depth_tpu/pipeline/device_cache.py`. The
 raw uint8 frames and f32 depth maps of a dataset go into two preallocated
 device tensors, `pool_img [N, ...]` and `pool_dep [N, ...]`; a step's batch
 is `pool[idx]` with a device index (plain tensor indexing, as the JAX
@@ -15,10 +15,11 @@ into the device tensors on a side CUDA stream, two staging buffers in
 turn, so at most two chunks are in flight and a chunk's decode overlaps
 the previous chunk's transfer.
 
-The sampling order is the JAX sampler's on one device (its single data
-shard): per epoch one permutation from `np.random.default_rng(seed +
-1000003 * pid)` with pid 0, cut into batches. Sharding the pool over the
-data axis of several devices comes with the port's data-parallel mode.
+The sampling order is the JAX sampler's: per epoch one permutation of the
+rank's shard from `np.random.default_rng(seed + 1000003 * pid)`, cut into
+batches. Under data parallelism (one process per device) rank r of n holds
+shard r of the dataset, as the JAX sampler gives process r its devices'
+shards; on one device the shard is the whole (pid 0).
 
 Selected with DataConfig.cache_device / --cache-device. Raises when the
 dataset exceeds the byte budget.
@@ -63,6 +64,21 @@ def stack_dataset(dataset):
             raise ValueError(_UNIFORM)
         imgs[i], deps[i] = im, de
     return imgs, deps
+
+
+class RowView:
+    """Read-only dataset view through a sequence of row indices (a rank's
+    shard, a window's permutation slice) without materializing rows."""
+
+    def __init__(self, dataset, rows):
+        self._dataset = dataset
+        self._rows = rows
+
+    def __len__(self):
+        return len(self._rows)
+
+    def __getitem__(self, i):
+        return self._dataset[int(self._rows[i])]
 
 
 def torch_dtype(np_dtype):
@@ -162,18 +178,28 @@ class DevicePoolSampler:
 
     def __init__(self, dataset, batch_size, device=None, *, steps=None,
                  seed=0, byte_budget=DEFAULT_BYTE_BUDGET,
-                 stage_chunk_bytes=STAGE_CHUNK_BYTES):
-        # One device: the JAX sampler with a data axis of size 1 (one
-        # shard, the whole pool) and process index 0.
+                 stage_chunk_bytes=STAGE_CHUNK_BYTES, rank=0, nproc=1):
+        # The JAX sampler on a data axis of `nproc` ranks, one device each:
+        # rank r stages and samples shard r (rows [r*shard, (r+1)*shard) of
+        # the shard-trimmed dataset), with process index r.
         if batch_size <= 0:
             raise ValueError(f"batch_size must be positive, got {batch_size}")
-        n = len(dataset)
+        if batch_size % nproc:
+            raise ValueError(
+                f"batch_size={batch_size} not divisible by data axis "
+                f"{nproc}")
+        # Trim to a shard-divisible example count (mirrors drop_remainder).
+        n = (len(dataset) // nproc) * nproc
+        if n < len(dataset):
+            log.info("device cache: trimming %d example(s) for %d-way "
+                     "sharding", len(dataset) - n, nproc)
         if n == 0:
             raise ValueError(
-                f"dataset n={len(dataset)} is too small for 1-way sharding")
+                f"dataset n={len(dataset)} is too small for {nproc}-way "
+                "sharding")
         img0, dep0 = dataset[0]
         img0, dep0 = np.asarray(img0), np.asarray(dep0)
-        nbytes = n * (img0.nbytes + dep0.nbytes)
+        nbytes = (n // nproc) * (img0.nbytes + dep0.nbytes)
         if nbytes > byte_budget:
             raise ValueError(
                 f"dataset is {nbytes / 1e9:.1f} GB raw per process — over "
@@ -181,31 +207,34 @@ class DevicePoolSampler:
                 "the rotating-window pool (--cache-window-mb, optionally "
                 "--window-epochs) or drop --cache-device")
         self.n = n
-        self.nbytes = nbytes  # raw pool bytes (budget math)
-        self.shard = n
-        self.per_dev = batch_size
+        self.nbytes = nbytes  # raw pool bytes of this rank (budget math)
+        self.shard = n // nproc
+        self.per_dev = batch_size // nproc
         # The hazard iter_batches guards with the same error: a batch that
         # can't be filled would otherwise make __iter__ spin forever
         # computing empty epochs without yielding.
         if self.per_dev > self.shard:
             raise ValueError(
                 f"batch_size={batch_size} needs {self.per_dev} examples "
-                f"per device but each of the 1 shard(s) has "
+                f"per device but each of the {nproc} shard(s) has "
                 f"only {self.shard} (dataset n={len(dataset)})")
         self.batch_size = batch_size
         self.steps = steps
         self.seed = seed
         self.device = torch.device(device or "cpu")
-        self._rng = np.random.default_rng(seed + 1000003 * 0)  # pid 0
+        # decorrelate the shard-local shuffles across ranks
+        self._rng = np.random.default_rng(seed + 1000003 * rank)
 
-        self.pool_img, self.pool_dep = pool_buffers(n, img0, dep0,
+        self.pool_img, self.pool_dep = pool_buffers(self.shard, img0, dep0,
                                                     self.device)
-        event = stage_rows(dataset, n, self.pool_img, self.pool_dep,
+        start = rank * self.shard
+        event = stage_rows(RowView(dataset, range(start, start + self.shard)),
+                           self.shard, self.pool_img, self.pool_dep,
                            stage_chunk_bytes)
         if event is not None:
             torch.cuda.current_stream(self.device).wait_event(event)
-        log.info("device cache: staged %d examples (%.0f MB) on %s", n,
-                 nbytes / 1e6, self.device)
+        log.info("device cache: staged %d examples (%.0f MB) on %s, rank "
+                 "%d/%d", self.shard, nbytes / 1e6, self.device, rank, nproc)
 
     def gather(self, idx):
         """(pool_img[idx], pool_dep[idx]) for a device index row."""

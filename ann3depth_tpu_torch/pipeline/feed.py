@@ -1,7 +1,9 @@
 """Prefetching host->device feed.
 
-Counterpart of `ann3depth_tpu/pipeline/feed.py` (`DeviceFeed`), single
-process. A background thread pulls host batches (tuples of numpy arrays,
+Counterpart of `ann3depth_tpu/pipeline/feed.py` (`DeviceFeed`). Under
+data parallelism each rank's feed hands out its own rows (its shard's
+batches, parallel/multihost.py): one process per device has no global
+batch to assemble from the processes' rows. A background thread pulls host batches (tuples of numpy arrays,
 as the loaders' `batches` yield them) from an iterator and issues their
 transfers ahead of the step that consumes them:
 

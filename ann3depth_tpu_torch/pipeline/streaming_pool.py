@@ -2,7 +2,7 @@
 than the device budget (`--cache-window-mb`), with optional data echoing
 (`--window-epochs`).
 
-Counterpart of `ann3depth_tpu/pipeline/streaming_pool.py`, on one device.
+Counterpart of `ann3depth_tpu/pipeline/streaming_pool.py`.
 The train step consumes raw input bytes at `img/s x bytes/img`, more than a
 host link sustains once the step is fast; the full device pool
 (`pipeline/device_cache.py`) sidesteps the link but needs `dataset <= byte
@@ -27,9 +27,11 @@ budget`. This module covers the gap:
 
 Sampling: each pass draws ONE permutation of the dataset and partitions it
 into windows; within a window, every echo epoch is a fresh permutation of
-the window. The permutations are the JAX sampler's on one device, bit for
-bit (`np.random.default_rng(seed)` for the windows and `seed + 1000003 *
-pid`, pid 0, for the echo epochs). The per-pass tail (`n mod window`) is
+the window. The permutations are the JAX sampler's, bit for bit
+(`np.random.default_rng(seed)` for the windows and `seed + 1000003 * pid`
+for the echo epochs). Under data parallelism rank r of n stages block r of
+each window (win/n rows) and samples it with pid r, as the JAX sampler
+stages process r's shards. The per-pass tail (`n mod window`) is
 dropped, but a fresh permutation re-draws it every pass.
 """
 
@@ -45,8 +47,8 @@ import numpy as np
 import torch
 
 from ann3depth_tpu_torch.pipeline.device_cache import (
-    DEFAULT_BYTE_BUDGET, STAGE_CHUNK_BYTES, bind_thread, pool_buffers,
-    stage_rows, to_index)
+    DEFAULT_BYTE_BUDGET, STAGE_CHUNK_BYTES, RowView, bind_thread,
+    pool_buffers, stage_rows, to_index)
 
 log = logging.getLogger(__name__)
 
@@ -145,21 +147,6 @@ def calibrate_window_epochs(dataset, batch_size, device=None, *,
     return e
 
 
-class _PermView:
-    """Read-only dataset view through a permutation slice (the staging
-    worker walks windows in permuted order without materializing rows)."""
-
-    def __init__(self, dataset, perm):
-        self._dataset = dataset
-        self._perm = perm
-
-    def __len__(self):
-        return len(self._perm)
-
-    def __getitem__(self, i):
-        return self._dataset[int(self._perm[i])]
-
-
 class StreamingPoolSampler:
     """Iterable of (img_u8, depth) device batches gathered from a rotating
     device window pool, with DevicePoolSampler's loop contract
@@ -171,15 +158,20 @@ class StreamingPoolSampler:
     def __init__(self, dataset, batch_size, device=None, *, window_bytes,
                  window_epochs=1, steps=None, seed=0,
                  byte_budget=DEFAULT_BYTE_BUDGET,
-                 stage_chunk_bytes=STAGE_CHUNK_BYTES):
-        # One device: the JAX sampler with a data axis of size 1 and
-        # process index 0.
+                 stage_chunk_bytes=STAGE_CHUNK_BYTES, rank=0, nproc=1):
+        # The JAX sampler on a data axis of `nproc` ranks, one device each:
+        # every rank walks the same window permutations and stages its
+        # block of each window; rank r is process index r.
         if batch_size <= 0:
             raise ValueError(f"batch_size must be positive, got {batch_size}")
+        if batch_size % nproc:
+            raise ValueError(
+                f"batch_size={batch_size} not divisible by data axis "
+                f"{nproc}")
         if window_epochs < 1:
             raise ValueError(
                 f"window_epochs must be >= 1, got {window_epochs}")
-        self.per_dev = batch_size
+        self.per_dev = batch_size // nproc
         self.batch_size = batch_size
         self.window_epochs = window_epochs
 
@@ -203,8 +195,8 @@ class StreamingPoolSampler:
                 "windowing would re-stage the whole set every pass — drop "
                 "--cache-window-mb and use plain --cache-device")
         # Two windows resident (active + staging) is the design's device
-        # footprint.
-        win_proc_bytes = win * ex_bytes
+        # footprint; each rank holds win/nproc rows of each.
+        win_proc_bytes = (win // nproc) * ex_bytes
         if 2 * win_proc_bytes > byte_budget:
             raise ValueError(
                 f"double-buffered window needs 2 x {win_proc_bytes / 1e9:.1f}"
@@ -212,7 +204,8 @@ class StreamingPoolSampler:
                 "device-cache budget; lower --cache-window-mb")
         self.n = n
         self.win = win
-        self.win_shard = win
+        self.win_shard = win // nproc
+        self._rank = rank
         self.nbytes = 2 * win_proc_bytes  # budget accounting (eval pool)
         self.steps = steps
         self.steps_per_window = (self.win_shard // self.per_dev
@@ -221,13 +214,14 @@ class StreamingPoolSampler:
         self.device = torch.device(device or "cpu")
         self._chunk_bytes = stage_chunk_bytes
         self._dataset = dataset
-        # The window permutations and the echo epochs' permutations.
+        # The window permutations (shared by the ranks) and the echo
+        # epochs' permutations (shard-local, decorrelated across ranks).
         self._window_rng = np.random.default_rng(seed)
-        self._rng = np.random.default_rng(seed + 1000003 * 0)  # pid 0
+        self._rng = np.random.default_rng(seed + 1000003 * rank)
 
-        self.pool_img, self.pool_dep = pool_buffers(win, img0, dep0,
-                                                    self.device)
-        self._staged = pool_buffers(win, img0, dep0, self.device)
+        self.pool_img, self.pool_dep = pool_buffers(self.win_shard, img0,
+                                                    dep0, self.device)
+        self._staged = pool_buffers(self.win_shard, img0, dep0, self.device)
         self._cuda = self.device.type == "cuda"
         # The event after which the staging buffer may be overwritten: its
         # window was copied into the active buffer (nothing yet).
@@ -267,9 +261,11 @@ class StreamingPoolSampler:
                     stream = torch.cuda.Stream(self.device)
                 if free is not None:
                     stream.wait_event(free)
+                lo = self._rank * self.win_shard
                 self._res.put(stage_rows(
-                    _PermView(self._dataset, perm), self.win, *self._staged,
-                    self._chunk_bytes, stream=stream))
+                    RowView(self._dataset, perm[lo:lo + self.win_shard]),
+                    self.win_shard, *self._staged, self._chunk_bytes,
+                    stream=stream))
             except BaseException as e:  # surface in the train loop
                 self._res.put(e)
                 return

@@ -12,13 +12,15 @@ One dispatch thread coalesces concurrent requests into batches of at most
 traffic (on the card that builds the kernel and lets cuDNN pick its
 algorithms for that thread). The wiring below builds the
 torch serving fn: `service_from_config` (random-init weights or a
-checkpoint's) and `service_from_artifact` (the port's exported program,
-or the weights of a JAX artifact's params.npz). Data-parallel serving (dp > 1) waits for a later slice of
-the port, and asking for it raises.
+checkpoint's, on one device or, with dp > 1, replicated on several with
+each batch split across them) and `service_from_artifact` (the port's
+exported program, or the weights of a JAX artifact's params.npz).
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import io
 import json
 import logging
@@ -240,26 +242,92 @@ def service_from_artifact(artifact_dir, *, device=None,
     return BatchingService(model.predict, model.meta["raw_hw"], **kw)
 
 
+def _local_devices(device, dp, devices):
+    """The devices data-parallel serving may use: `devices` as given (the
+    counterpart of the JAX `create_mesh(devices)`), else the one device of
+    a dp=1 service, else every local CUDA device (the CPU is one)."""
+    import torch
+
+    from ann3depth_tpu_torch.device import resolve_device
+
+    if devices is not None:
+        devices = [torch.device(d) for d in devices]
+        for d in devices:
+            resolve_device(d.type)
+        return devices
+    dev = resolve_device(device)
+    if dp == 1 or dev.type != "cuda":
+        return [dev]
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def split_predictor(fns, devices):
+    """numpy u8 [B,H,W,3] -> numpy f32 [B,h,w] over several replicas: the
+    batch is cut into len(fns) equal parts, part i runs fns[i] on
+    devices[i] (on a stream of its own on the card; every part is launched
+    before any is read back), and the answers are concatenated in order."""
+    import torch
+
+    streams = [torch.cuda.Stream(d) if d.type == "cuda" else None
+               for d in devices]
+
+    def on(d, stream):
+        if stream is None:
+            return contextlib.nullcontext()
+        ctx = contextlib.ExitStack()
+        ctx.enter_context(torch.cuda.device(d))
+        ctx.enter_context(torch.cuda.stream(stream))
+        return ctx
+
+    def predict(img_u8):
+        parts = np.split(np.ascontiguousarray(img_u8, dtype=np.uint8),
+                         len(fns))
+        outs = []
+        for fn, d, stream, x in zip(fns, devices, streams, parts):
+            with on(d, stream):
+                outs.append(fn(torch.from_numpy(x).to(d)))
+        answers = []
+        for out, d, stream in zip(outs, devices, streams):
+            with on(d, stream):
+                answers.append(out.cpu().numpy())
+        return np.concatenate(answers)
+
+    return predict
+
+
 def service_from_config(cfg, *, ckpt_dir=None, init=False, raw_hw=(480, 640),
                         use_ema=False, ckpt_step=None, dp=1, device=None,
-                        **kw) -> BatchingService:
+                        devices=None, **kw) -> BatchingService:
     """Serve the registry model of `cfg` on `device` (default CUDA).
 
     init=True serves random-init weights from cfg.train.seed; otherwise the
     params of the checkpoint in ckpt_dir (default cfg.train.ckpt_dir): the
     latest save, or the one at ckpt_step; use_ema serves its EMA params.
-    dp > 1 (data-parallel serving) is not ported yet and raises."""
+
+    dp > 1 replicates the model on the first `dp` local devices (every
+    local CUDA device with dp=0, or the given `devices`) and splits every
+    coalesced batch across them, one stream each (`split_predictor`), the
+    serving twin of data-parallel training; bucket sizes become multiples
+    of dp so every part has the same size."""
     from ann3depth_tpu_torch import serving
 
-    if dp != 1:
-        raise NotImplementedError(f"dp={dp}: data-parallel serving is not "
-                                  "ported yet")
+    devices = _local_devices(device, dp, devices)
+    n_dp = len(devices) if dp == 0 else int(dp)
+    if n_dp < 1 or n_dp > len(devices):
+        raise ValueError(
+            f"dp={dp} needs {n_dp} devices, have {len(devices)}")
     model = serving.model_from_checkpoint(
         cfg, ckpt_dir=ckpt_dir, use_ema=use_ema, ckpt_step=ckpt_step,
-        device=device, init=init)
-    device = next(model.parameters()).device
-    fn = serving.make_serving_fn(model, cfg.data.input_hw)
-    return BatchingService(serving.numpy_predictor(fn, device), raw_hw, **kw)
+        device=devices[0], init=init)
+    if n_dp == 1:
+        fn = serving.make_serving_fn(model, cfg.data.input_hw)
+        return BatchingService(serving.numpy_predictor(fn, devices[0]),
+                               raw_hw, **kw)
+    replicas = [model] + [serving.prepare_model(copy.deepcopy(model), d)
+                          for d in devices[1:n_dp]]
+    fns = [serving.make_serving_fn(m, cfg.data.input_hw) for m in replicas]
+    return BatchingService(split_predictor(fns, devices[:n_dp]), raw_hw,
+                           **{**kw, "batch_multiple": n_dp})
 
 
 # -- HTTP front end --------------------------------------------------------

@@ -6,6 +6,11 @@ checkpoints; the port does not read those). Each checkpoint is one file,
 optimizer's state_dict and, when the trainer keeps one, the EMA params. A
 save writes a temporary file and renames it into place, so a checkpoint
 that exists is complete. The newest `max_to_keep` are kept.
+
+A run over several processes saves from every rank (a tensor-parallel or
+ZeRO-1 state gathers its shards into the single-device layout, a
+collective) and rank 0 writes; every rank restores, keeping its shards.
+So a checkpoint reads the same whatever mode wrote it.
 """
 
 from __future__ import annotations
@@ -16,7 +21,7 @@ from typing import Optional
 
 import torch
 
-from ann3depth_tpu_torch.train.step import load_optimizer_state
+from ann3depth_tpu_torch.parallel import multihost
 
 _NAME = re.compile(r"^ckpt_(\d+)\.pt$")
 
@@ -32,12 +37,15 @@ class CheckpointManager:
 
     def save(self, step: int, state) -> None:
         """Save step, params, optimizer state and (if kept) the EMA, then
-        delete the oldest checkpoints beyond max_to_keep."""
-        payload = {"step": int(state.step),
-                   "model": state.model.state_dict(),
-                   "optimizer": state.optimizer.state_dict()}
-        if state.ema_params is not None:
-            payload["ema_params"] = state.ema_params
+        delete the oldest checkpoints beyond max_to_keep. Every rank of a
+        process group calls it; rank 0 writes."""
+        model, optimizer, ema = state.full_state()
+        if multihost.process_index() != 0:
+            return
+        payload = {"step": int(state.step), "model": model,
+                   "optimizer": optimizer}
+        if ema is not None:
+            payload["ema_params"] = ema
         path = self._path(step)
         tmp = f"{path}.{os.getpid()}.tmp"
         torch.save(payload, tmp)
@@ -80,13 +88,13 @@ class CheckpointManager:
         if step is None:
             return state, None
         saved = self._load(step, state)
-        state.model.load_state_dict(saved["model"])
-        load_optimizer_state(state.optimizer, saved["optimizer"])
+        ema = (saved.get("ema_params") if state.ema_params is not None
+               else None)
+        state.load_full_state(saved["model"], saved["optimizer"], ema)
         state.step = int(saved["step"])
-        if state.ema_params is not None:
-            source = saved.get("ema_params") or {
-                k: v.detach() for k, v in state.model.named_parameters()}
-            state.ema_params = {k: v.clone() for k, v in source.items()}
+        if state.ema_params is not None and ema is None:
+            state.ema_params = {k: v.detach().clone()
+                                for k, v in state.model.named_parameters()}
         return state, step
 
     def restore_params(self, state, use_ema: bool = False, step=None):

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from ann3depth_tpu_torch.ops import fused_preprocess as fp
+from ann3depth_tpu_torch.parallel import multihost
 from ann3depth_tpu_torch.train import step as steplib
 
 
@@ -61,12 +62,21 @@ class BlockRunner:
 
     def __init__(self, state, sampler, k: int, *, step_kwargs: dict,
                  draw_seed: Callable[[int], int], teacher=None):
-        if isinstance(state.optimizer, torch.optim.SGD):
+        optimizer = getattr(state.optimizer, "inner", state.optimizer)
+        if isinstance(optimizer, torch.optim.SGD):
             raise NotImplementedError(
                 f"steps_per_dispatch={k} with optimizer 'sgd': torch's SGD "
                 "applies a tensor learning rate through .item(), which a "
                 "CUDA graph cannot capture; use adamw or adam, or "
                 "steps_per_dispatch 1")
+        mesh = state.mesh
+        if (mesh is not None and mesh.distributed and sampler.device.type
+                == "cuda" and multihost.backend() == "gloo"):
+            raise ValueError(
+                f"steps_per_dispatch={k} captures the step in a CUDA graph, "
+                "and the gloo backend's collectives cannot be captured; "
+                "run nccl (one process per card) or steps_per_dispatch 1")
+        self.mesh = mesh if mesh is not None and mesh.active() else None
         self.state, self.sampler, self.k = state, sampler, k
         self.teacher = teacher
         self.kw = dict(step_kwargs)
@@ -98,8 +108,14 @@ class BlockRunner:
             gen = self._generator
             for j in range(self.k):
                 gen.manual_seed(self.draw_seed(first + j))
-                for a in range(self.accum):
-                    draw = fp.draw_augment(gen, micro, device=self.device)
+                if self.mesh is not None:
+                    block = steplib.shard_draws(
+                        gen, self.sampler.batch_size, self.accum, self.mesh,
+                        device=self.device)
+                else:
+                    block = [fp.draw_augment(gen, micro, device=self.device)
+                             for _ in range(self.accum)]
+                for a, draw in enumerate(block):
                     if self.draws is None:
                         self.draws = {
                             n: torch.zeros((self.k, self.accum, micro),

@@ -1,9 +1,9 @@
-"""Training driver and eval loop of the port, single device.
+"""The training and eval loops of the port.
 
-Counterpart of the single-device path of `ann3depth_tpu/train/loop.py`
-(`build_dataset`, `resolved_target_hw`, `create_state`, `train`,
-`predict_batch`, `evaluate` with its report, `restore_state_for_eval`,
-`evaluate_protocols`). The feed is one of
+Counterpart of `ann3depth_tpu/train/loop.py` (`build_dataset`,
+`resolved_target_hw`, `create_state`, `train`, `predict_batch`, `evaluate`
+with its report, `restore_state_for_eval`, `evaluate_protocols`). The feed
+is one of
 
 - a device-resident pool (`cache_device`, pipeline/device_cache.py), or a
   rotating window pool over a larger dataset (`cache_window_mb`, with
@@ -26,9 +26,16 @@ cache_device run), with early stopping and a best-eval checkpoint on top;
 `resume_step` rolls back to an earlier one; `profile_dir` traces a window
 of steps (of dispatches under K > 1) with torch.profiler.
 
-Every option of the JAX loop outside this path (zero1, tensor parallelism,
-int8 QAT) raises NotImplementedError ("not ported yet") instead of being
-ignored.
+Over several processes (parallel/multihost.py: one per device) the run
+is data parallel on the mesh of `parallel.mesh.auto_data_mesh`: each rank
+reads its strided shard of the dataset (or holds its shard of the device
+pool) at batch_size / n_data rows, draws the global batch's augmentation
+and keeps its rows (`train.step.shard_draws`), and averages its gradients
+over the data axis in the step; `zero1` shards the optimizer state
+(parallel/zero1.py), `tensor_parallel` shards the DPT blocks over a model
+axis (parallel/sharding_rules.py). Rank 0 writes checkpoints, metrics,
+TensorBoard and viz; every rank restores. Eval shards the split the same
+way and sums its statistics over the ranks.
 """
 
 from __future__ import annotations
@@ -47,6 +54,8 @@ import torch
 from ann3depth_tpu_torch.config import Config
 from ann3depth_tpu_torch.device import resolve_device
 from ann3depth_tpu_torch.models import registry
+from ann3depth_tpu_torch.parallel import mesh as meshlib
+from ann3depth_tpu_torch.parallel import multihost
 from ann3depth_tpu_torch.pipeline import device_cache
 from ann3depth_tpu_torch.train import losses
 from ann3depth_tpu_torch.train import step as steplib
@@ -107,17 +116,26 @@ def create_state(cfg: Config, device=None):
     return steplib.TrainState.create(model, tx, ema=cfg.train.ema_decay > 0)
 
 
-def _check_ported(cfg: Config):
-    """Raise for every option of the JAX loop that the port lacks."""
+def parallel_state(cfg: Config, state, mesh):
+    """`state` (fresh from create_state) on the run's mesh: the params
+    replicated from data-rank 0, then the DPT blocks sharded over the
+    model axis (cfg.train.tensor_parallel > 1) or the optimizer made
+    ZeRO-1's (cfg.train.zero1); its step averages over the data axis.
+    Unchanged on one process without either option."""
     t = cfg.train
-    not_ported = [
-        ("zero1", t.zero1), ("tensor_parallel > 1", t.tensor_parallel > 1),
-    ]
-    missing = [name for name, on in not_ported if on]
-    if missing:
-        raise NotImplementedError(
-            f"{', '.join(missing)}: not ported yet (the port trains the "
-            "single-device path)")
+    if not (mesh.active() or t.zero1 or t.tensor_parallel > 1):
+        return state
+    model, ema = state.model, state.ema_params is not None
+    meshlib.replicate(model, mesh)
+    if t.zero1:
+        from ann3depth_tpu_torch.parallel import zero1
+        return zero1.create_state(model, state.tx, mesh, ema=ema)
+    plan = None
+    if t.tensor_parallel > 1:
+        from ann3depth_tpu_torch.parallel import sharding_rules
+        plan = sharding_rules.shard_params(model, mesh)
+    return steplib.TrainState.create(model, state.tx, ema=ema, mesh=mesh,
+                                     tp_plan=plan)
 
 
 def _validate(cfg: Config):
@@ -202,7 +220,21 @@ def _validate(cfg: Config):
                 f"distill_alpha must be in (0, 1], got {t.distill_alpha} "
                 "(0 would silently ignore the teacher — drop --distill-from "
                 "instead)")
-    _check_ported(cfg)
+    tp = t.tensor_parallel
+    if tp < 1:
+        raise ValueError(f"tensor_parallel must be >= 1, got {tp} "
+                         "(1 = no tensor parallelism)")
+    if tp > 1:
+        if not cfg.model.name.startswith("dpt"):
+            raise ValueError(
+                f"tensor_parallel={tp} requires a dpt-family model (the "
+                f"TP sharding rules only match the ViT transformer; "
+                f"{cfg.model.name!r} would replicate params and waste the "
+                "model axis)")
+        if t.zero1:
+            raise ValueError(
+                "tensor_parallel with zero1 is not wired (the ZeRO-1 "
+                "shard_map collectives are data-axis only)")
 
 
 def step_seed(seed: int, step: int) -> int:
@@ -249,9 +281,10 @@ def _restore_for_resume(cfg: Config, state, ckpt):
     if restored is None:
         return state, 0
     log.info("resumed from checkpoint at step %d", state.step)
-    if t.resume_step is not None:
+    if t.resume_step is not None and multihost.process_index() == 0:
         # Explicit rollback: drop the abandoned newer timeline so this
-        # run's saves don't collide with existing steps.
+        # run's saves don't collide with existing steps (rank 0 owns the
+        # files).
         for s in [s for s in ckpt.all_steps() if s > restored]:
             log.warning("rollback resume: deleting newer checkpoint at "
                         "step %d", s)
@@ -266,10 +299,16 @@ class _BestTracker:
     after `patience` evals that fail to beat it by `min_delta`, puts them
     back (Keras restore_best_weights) and asks the loop to stop. save_best
     keeps a one-slot CheckpointManager under <ckpt_dir>/best and pins its
-    RMSE in <ckpt_dir>/best_metric.json, which a resumed run must beat."""
+    RMSE in <ckpt_dir>/best_metric.json, which a resumed run must beat.
 
-    def __init__(self, cfg: Config):
+    Every rank keeps one (the eval RMSE is the same on each); a sharded
+    run (tensor parallel or several processes) keeps no host copy and
+    stops with the stop-step weights, as the JAX loop does."""
+
+    def __init__(self, cfg: Config, capture=True):
         t = cfg.train
+        self.capture = capture
+        self.proc0 = multihost.process_index() == 0
         self.patience, self.min_delta = t.early_stop_patience, \
             t.early_stop_min_delta
         self.best_rmse, self.stale, self.snapshot = float("inf"), 0, None
@@ -294,13 +333,14 @@ class _BestTracker:
         are then back in `state`)."""
         if rmse < self.best_rmse - self.min_delta:
             self.best_rmse, self.stale = rmse, 0
-            if self.patience:
+            if self.patience and self.capture:
                 self.snapshot = (step, {k: v.detach().to("cpu", copy=True)
                                         for k, v in state.params.items()})
             if self.ckpt is not None:
                 self.ckpt.save(step, state)
-                with open(self.metric_path, "w") as f:
-                    json.dump({"rmse": float(rmse), "step": step}, f)
+                if self.proc0:
+                    with open(self.metric_path, "w") as f:
+                        json.dump({"rmse": float(rmse), "step": step}, f)
             return False
         self.stale += 1
         if not self.patience or self.stale < self.patience:
@@ -315,7 +355,8 @@ class _BestTracker:
                      self.best_rmse, best_step, self.stale)
         else:
             log.info("early stop at step %d: eval rmse stuck at %.4f "
-                     "(best from a prior run %.4f) for %d evals", step, rmse,
+                     "(best %.4f) for %d evals (a prior run's best, or a "
+                     "sharded run: stop-step weights kept)", step, rmse,
                      self.best_rmse, self.stale)
         return True
 
@@ -336,6 +377,11 @@ def _window_epochs(cfg: Config, dataset, dev, start_step, step_kwargs):
         with open(epochs_path) as f:
             persisted = json.load(f)
     if window_epochs == 0:  # --window-epochs auto
+        if multihost.process_count() > 1:
+            raise ValueError(
+                "--window-epochs auto calibrates from process-local timings "
+                "and would diverge across controllers; pass an explicit "
+                "factor under --multihost")
         stale = (persisted is not None
                  and persisted.get("cache_window_mb")
                  != cfg.data.cache_window_mb)
@@ -389,11 +435,13 @@ def _window_epochs(cfg: Config, dataset, dev, start_step, step_kwargs):
 
 
 def _make_feed(cfg: Config, dataset, extra_datasets, dev, start_step,
-               n_steps, step_kwargs):
-    """The run's feed: a device pool sampler (cache_device), else host
-    batches through a DeviceFeed."""
+               n_steps, step_kwargs, mesh):
+    """The run's feed: a device pool sampler (cache_device) holding this
+    rank's shard, else host batches through a DeviceFeed (this rank's
+    rows: the datasets are its shards already)."""
     t, d = cfg.train, cfg.data
     seed = t.seed + start_step
+    shard = dict(rank=mesh.data_rank, nproc=mesh.n_data)
     if d.cache_device:
         # (exclusivity with use_grain/multi-dataset validated up top)
         if d.cache_window_mb:
@@ -403,9 +451,12 @@ def _make_feed(cfg: Config, dataset, extra_datasets, dev, start_step,
             return streaming_pool.StreamingPoolSampler(
                 dataset, t.batch_size, dev,
                 window_bytes=d.cache_window_mb << 20,
-                window_epochs=window_epochs, steps=n_steps, seed=seed)
+                window_epochs=window_epochs, steps=n_steps, seed=seed,
+                **shard)
         return device_cache.DevicePoolSampler(dataset, t.batch_size, dev,
-                                              steps=n_steps, seed=seed)
+                                              steps=n_steps, seed=seed,
+                                              **shard)
+    feed_batch = t.batch_size // mesh.n_data
     if d.use_grain:
         from ann3depth_tpu_torch.pipeline.grain_loader import grain_batches
         if extra_datasets:
@@ -414,23 +465,23 @@ def _make_feed(cfg: Config, dataset, extra_datasets, dev, start_step,
             # an exhausted source).
             from ann3depth_tpu_torch.data.batching import round_robin
             host_iter = round_robin(
-                [grain_batches(ds, t.batch_size, steps=n_steps,
+                [grain_batches(ds, feed_batch, steps=n_steps,
                                seed=seed + 17 * k,
                                num_workers=d.num_workers)
                  for k, ds in enumerate([dataset, *extra_datasets])],
                 steps=n_steps)
         else:
-            host_iter = grain_batches(dataset, t.batch_size, steps=n_steps,
+            host_iter = grain_batches(dataset, feed_batch, steps=n_steps,
                                       seed=seed, num_workers=d.num_workers)
     elif extra_datasets:
         # Multi-dataset training: round-robin whole batches (each batch is
         # shape-uniform).
         from ann3depth_tpu_torch.data.batching import interleave_batches
         host_iter = interleave_batches([dataset, *extra_datasets],
-                                       t.batch_size, steps=n_steps,
+                                       feed_batch, steps=n_steps,
                                        seed=seed)
     else:
-        host_iter = dataset.batches(t.batch_size, steps=n_steps, seed=seed)
+        host_iter = dataset.batches(feed_batch, steps=n_steps, seed=seed)
     from ann3depth_tpu_torch.pipeline.feed import DeviceFeed
     return DeviceFeed(host_iter, device=dev, prefetch=d.prefetch)
 
@@ -443,18 +494,37 @@ def train(cfg: Config, *, workdir: Optional[str] = None, dataset=None,
     the model on the CPU. With cfg.train.resume, restores the latest
     checkpoint from cfg.train.ckpt_dir and continues the step counter. An
     explicit `dataset` overrides the config's dataset list; otherwise every
-    configured dataset trains, batch-interleaved."""
-    _validate(cfg)
+    configured dataset trains, batch-interleaved.
+
+    In a process group (parallel/multihost.py) every rank calls it: the run
+    is data parallel over the ranks (module docstring), on the rank's
+    device; rank 0 returns the metrics the others return too."""
     t = cfg.train
+    nproc = multihost.process_count()
+    proc0 = multihost.process_index() == 0
+    if nproc > 1 and t.batch_size % nproc:
+        raise ValueError(
+            f"global batch_size={t.batch_size} is not divisible by "
+            f"{nproc} processes")
+    _validate(cfg)
     spd = t.steps_per_dispatch
-    dev = resolve_device(device)
+    dev = multihost.local_device(resolve_device(device))
+    mesh = meshlib.auto_data_mesh(t.batch_size // t.grad_accum,
+                                  tp=t.tensor_parallel)
     workdir = workdir or t.ckpt_dir
     extra_datasets = []
     if dataset is None:
         dataset = build_dataset(cfg, "train")
         extra_datasets = [build_dataset(cfg, "train", name=n)
                           for n in cfg.data.datasets[1:]]
-    state = create_state(cfg, dev)
+    if mesh.n_data > 1 and not cfg.data.cache_device:
+        # Each rank reads its strided shard of every dataset (the device
+        # pool stages its own shard of the whole dataset instead).
+        from ann3depth_tpu_torch.data.batching import ProcessShardView
+        dataset = ProcessShardView(dataset, mesh.data_rank, mesh.n_data)
+        extra_datasets = [ProcessShardView(d, mesh.data_rank, mesh.n_data)
+                          for d in extra_datasets]
+    state = parallel_state(cfg, create_state(cfg, dev), mesh)
     teacher = restore_teacher(cfg, dev) if t.distill_from else None
     ckpt = CheckpointManager(t.ckpt_dir)
     state, start_step = _restore_for_resume(cfg, state, ckpt)
@@ -475,9 +545,9 @@ def train(cfg: Config, *, workdir: Optional[str] = None, dataset=None,
         step_kwargs["grad_accum"] = t.grad_accum
     else:
         step_kwargs["distill_alpha"] = t.distill_alpha
-    generator = torch.Generator(device=dev)
+    generator = multihost.replicated_key(t.seed, dev)
     feed = _make_feed(cfg, dataset, extra_datasets, dev, start_step,
-                      n_steps, step_kwargs)
+                      n_steps, step_kwargs, mesh)
     runner = None
     if spd > 1:
         from ann3depth_tpu_torch.train.dispatch import BlockRunner
@@ -494,16 +564,19 @@ def train(cfg: Config, *, workdir: Optional[str] = None, dataset=None,
     # capture; the window starts at the first replayed block).
     n_iters = n_steps // spd
     prof_start = prof_stop = -1
-    if t.profile_dir:
+    if t.profile_dir and proc0:
         prof_start = min(5 if spd == 1 else 1, max(0, n_iters - 1))
         prof_stop = min(prof_start + max(1, -(-t.profile_steps // spd)),
                         n_iters)
-    writer = MetricsWriter(workdir)
+    # Metrics, TensorBoard and viz are rank 0's (every rank computes the
+    # same metrics over the global batch; one writes).
+    writer = MetricsWriter(workdir) if proc0 else None
+    progress = progress and proc0
     tb = None
-    if t.tensorboard:
+    if t.tensorboard and proc0:
         from ann3depth_tpu_torch.utils.tb_writer import TensorBoardWriter
         tb = TensorBoardWriter(os.path.join(workdir, "tb"))
-    best = _BestTracker(cfg)
+    best = _BestTracker(cfg, capture=t.tensor_parallel == 1 and nproc == 1)
     profiler = None
     eval_ds = eval_pool = None
     metrics = {}
@@ -521,16 +594,23 @@ def train(cfg: Config, *, workdir: Optional[str] = None, dataset=None,
             else:
                 img_u8, depth = item
                 step_no = start_step + i
+                draws = None
                 if cfg.data.augment:
                     generator.manual_seed(step_seed(t.seed, step_no))
+                    if mesh.active():
+                        draws = steplib.shard_draws(
+                            generator, t.batch_size,
+                            step_kwargs.get("grad_accum", 1), mesh,
+                            device=dev)
                 if teacher is None:
                     state, metrics = steplib.train_step(
-                        state, img_u8, depth, generator, **step_kwargs)
+                        state, img_u8, depth, generator, draws=draws,
+                        **step_kwargs)
                 else:
                     state, metrics = steplib.distill_train_step(
                         state, teacher, img_u8, depth, generator,
-                        **step_kwargs)
-                imgs_since += int(img_u8.shape[0])
+                        draws=draws, **step_kwargs)
+                imgs_since += int(img_u8.shape[0]) * mesh.n_data
             if i + 1 == prof_stop and profiler is not None:
                 tracing.device_sync(dev)  # capture the window's device work
                 path = tracing.stop_trace(profiler, t.profile_dir)
@@ -549,7 +629,8 @@ def train(cfg: Config, *, workdir: Optional[str] = None, dataset=None,
                         "lower the learning rate or inspect the data batch")
                 dt = time.perf_counter() - t0
                 ips = imgs_since / dt if dt > 0 else 0.0
-                writer.write(step_no + 1, metrics, images_per_sec=ips)
+                if writer is not None:
+                    writer.write(step_no + 1, metrics, images_per_sec=ips)
                 if tb is not None:
                     tb.write_scalars(step_no + 1,
                                      {**metrics, "images_per_sec": ips})
@@ -569,22 +650,27 @@ def train(cfg: Config, *, workdir: Optional[str] = None, dataset=None,
                             eval_ds, t.batch_size, dev,
                             need=EVAL_SAMPLE_BATCHES, byte_budget=max(
                                 0, device_cache.DEFAULT_BYTE_BUDGET
-                                - getattr(feed, "nbytes", 0)))
+                                - getattr(feed, "nbytes", 0)), mesh=mesh)
                 # stage_pool=False: THIS loop owns pooling; without an eval
                 # pool the sample comes from the host feed.
                 em = evaluate(cfg, state=state, dataset=eval_ds,
                               max_batches=EVAL_SAMPLE_BATCHES,
-                              stage_pool=False,
+                              stage_pool=False, mesh=mesh,
                               device_batches=(eval_pool.fixed_batches(
                                   EVAL_SAMPLE_BATCHES)
                                   if eval_pool else None))
-                writer.write(step_no + 1,
-                             {**{f"eval_{k}": v for k, v in em.items()},
-                              "eval_batches": EVAL_SAMPLE_BATCHES})
+                if writer is not None:
+                    writer.write(step_no + 1,
+                                 {**{f"eval_{k}": v for k, v in em.items()},
+                                  "eval_batches": EVAL_SAMPLE_BATCHES})
                 if tb is not None:
                     tb.write_scalars(step_no + 1,
                                      {f"eval/{k}": v for k, v in em.items()})
-                _write_viz(cfg, state, eval_ds, workdir, step_no + 1, tb)
+                if nproc == 1 and t.tensor_parallel == 1:
+                    # viz runs a forward of its own: over several ranks it
+                    # would need them all in lockstep for a debug image.
+                    _write_viz(cfg, state, eval_ds, workdir, step_no + 1,
+                               tb)
                 if progress:
                     log.info("eval @%d rmse=%.3f abs_rel=%.3f", step_no + 1,
                              em["rmse"], em["abs_rel"])
@@ -603,7 +689,8 @@ def train(cfg: Config, *, workdir: Optional[str] = None, dataset=None,
         if eval_pool is not None:
             eval_pool.close()
         feed.close()
-        writer.close()
+        if writer is not None:
+            writer.close()
         if tb is not None:
             tb.close()
     return state, metrics
@@ -637,17 +724,20 @@ def _write_viz(cfg: Config, state, dataset, workdir, step, tb=None):
 
 
 def _eval_pool(dataset, batch_size, dev, max_batches=None, need=1,
-               byte_budget=None):
+               byte_budget=None, mesh=None):
     """(pool, n): the split staged on the device for eval, with the number
     of batches to score (its full batches, at most max_batches); (None,
     None) with a log line where it cannot be staged within byte_budget
     (default the full device-cache budget) or holds fewer than `need`
-    batches: the host feed runs instead, as in the JAX loop."""
+    batches: the host feed runs instead, as in the JAX loop. On a mesh
+    each rank stages its shard of the split (every rank decides alike)."""
+    shard = ({} if mesh is None
+             else dict(rank=mesh.data_rank, nproc=mesh.n_data))
     try:
         pool = device_cache.DevicePoolSampler(
             dataset, batch_size, dev, steps=0, seed=0,
             byte_budget=(device_cache.DEFAULT_BYTE_BUDGET
-                         if byte_budget is None else byte_budget))
+                         if byte_budget is None else byte_budget), **shard)
         n = pool.shard // pool.per_dev
         if n < need:
             pool.close()
@@ -662,7 +752,7 @@ def _eval_pool(dataset, batch_size, dev, max_batches=None, need=1,
 def evaluate(cfg: Config, state=None, dataset=None, max_batches=None,
              device=None, use_ema=False, report_dir=None, report_worst=8,
              ckpt_step=None, tta="", avg_last=None, align="", crop="",
-             device_batches=None, stage_pool=True):
+             device_batches=None, stage_pool=True, mesh=None):
     """Eval loop: sum the sufficient statistics of every batch of the test
     split (as device scalars, one host read at the end) and finalize once,
     so the dataset RMSE is over all valid pixels of the split.
@@ -690,26 +780,53 @@ def evaluate(cfg: Config, state=None, dataset=None, max_batches=None,
     the test split on the device once and evaluates from the pool (the
     same examples in the same order as the host feed). Skipped, with a log
     line, under report_dir or for a split too small for one batch, where
-    the host feed runs instead."""
+    the host feed runs instead.
+
+    Data parallel like training, on `mesh` (default: every rank of the
+    process group): each rank scores its strided shard of the split at
+    batch_size / n_data rows, over the batches every shard can fill, and
+    the statistics are summed over the ranks and finalized once. No report
+    and no staged test pool then (the in-loop eval passes its own pool's
+    shard as device_batches)."""
+    dataset = dataset or build_dataset(cfg, "test")
+    if report_dir is not None and multihost.process_count() > 1:
+        raise ValueError("eval report is single-process only (the full "
+                         "split must rank in one place); run eval without "
+                         "--multihost")
     if device_batches is not None and report_dir is not None:
         raise ValueError("device_batches is a fixed pool sample; the "
                          "report path needs the full split in split order")
-    dataset = dataset or build_dataset(cfg, "test")
+    batch_size = cfg.train.batch_size
+    if mesh is None:
+        mesh = meshlib.auto_data_mesh(batch_size)
+    n_data = mesh.n_data
+    if n_data > 1:
+        # Every rank must run the SAME number of batches: bound by the
+        # smallest shard (len // n_data examples).
+        from ann3depth_tpu_torch.data.batching import ProcessShardView
+        if batch_size % n_data:
+            raise ValueError(f"batch_size={batch_size} not divisible by "
+                             f"{n_data} processes")
+        batch_size //= n_data
+        common = (len(dataset) // n_data) // batch_size
+        max_batches = (common if max_batches is None
+                       else min(max_batches, common))
+        dataset = ProcessShardView(dataset, mesh.data_rank, n_data)
     if state is None:
         state = restore_state_for_eval(cfg, use_ema=use_ema,
                                        ckpt_step=ckpt_step,
                                        avg_last=avg_last, device=device)
     dev = next(state.model.parameters()).device
-    batch_size = cfg.train.batch_size
     step_kw = dict(input_hw=tuple(cfg.data.input_hw),
                    target_hw=resolved_target_hw(cfg),
                    si_lambda=cfg.train.si_lambda, loss_kind=cfg.train.loss,
                    tta=tta, align=align, crop=crop)
     own_pool = None
     if device_batches is None and cfg.data.cache_device and stage_pool:
-        if report_dir is not None:
-            log.info("eval --cache-device skipped: report_dir needs the "
-                     "host feed (full split in split order)")
+        if report_dir is not None or n_data > 1:
+            log.info("eval --cache-device skipped: %s needs the host feed "
+                     "(full split in split order / per-process shards)",
+                     "report_dir" if report_dir is not None else "multihost")
         else:
             own_pool, n_b = _eval_pool(dataset, batch_size, dev,
                                        max_batches)
@@ -761,6 +878,12 @@ def evaluate(cfg: Config, state=None, dataset=None, max_batches=None,
             break
     if not totals:
         raise ValueError("eval split yielded no batches")
+    if mesh.active():
+        keys = sorted(totals)
+        summed = mesh.all_reduce(torch.stack(
+            [torch.as_tensor(totals[k], dtype=torch.float32, device=dev)
+             for k in keys]))
+        totals = dict(zip(keys, summed))
     metrics = losses.finalize_depth_metrics(
         {k: float(v) for k, v in totals.items()})
     if own_pool is not None:
@@ -774,8 +897,9 @@ def restore_state_for_eval(cfg: Config, use_ema=False, ckpt_step=None,
                            avg_last=None, device=None):
     """A state on `device` (default the card) with params restored once
     from cfg.train.ckpt_dir, for the eval-family consumers (shared by
-    multi-dataset and multi-protocol eval)."""
-    state = create_state(cfg, resolve_device(device))
+    multi-dataset and multi-protocol eval). In a process group, `device`
+    "cuda" is the rank's card."""
+    state = create_state(cfg, multihost.local_device(resolve_device(device)))
     ckpt = CheckpointManager(cfg.train.ckpt_dir)
     if avg_last:
         if ckpt_step is not None:
@@ -821,7 +945,7 @@ def evaluate_protocols(cfg: Config, protocols, *, state=None, use_ema=False,
                                        avg_last=avg_last, device=device)
     # cache_device: ONE staged test pool shared by every variant.
     pool = n_b = None
-    if cfg.data.cache_device:
+    if cfg.data.cache_device and multihost.process_count() == 1:
         pool, n_b = _eval_pool(dataset, cfg.train.batch_size,
                                next(state.model.parameters()).device,
                                max_batches)

@@ -28,12 +28,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
 from ann3depth_tpu_torch.compat import reference_spec as ref
+from ann3depth_tpu_torch.ops import fused_preprocess as fp
 from ann3depth_tpu_torch.ops import resize
 from ann3depth_tpu_torch.pipeline import preprocess
 from ann3depth_tpu_torch.train import losses
@@ -123,13 +124,16 @@ class UpdateRule:
         return self.build(params, capturable=bool(params)
                           and params[0].device.type == "cuda")
 
-    def apply(self, optimizer, count: int, lr=None):
+    def apply(self, optimizer, count: int, lr=None, norm=None):
         """One update from the gradients in `.grad`; returns their global
         norm before the clip (a device scalar). lr: a one-element tensor
-        holding the learning rate, read in place of schedule(count)."""
+        holding the learning rate, read in place of schedule(count).
+        norm: that global norm, when the caller has it (the gradients are
+        shards whose norm needs a collective: tensor parallelism, ZeRO-1)."""
         grads = [p.grad for g in optimizer.param_groups for p in g["params"]
                  if p.grad is not None]
-        norm = global_norm(grads)
+        if norm is None:
+            norm = global_norm(grads)
         if self.clip_norm > 0:
             factor = torch.where(norm < self.clip_norm,
                                  torch.ones_like(norm), self.clip_norm / norm)
@@ -239,22 +243,59 @@ class TrainState:
 
     ema_params: {name: tensor} exponential moving average of the params,
     updated after each step when the trainer enables it (ema_decay > 0);
-    None otherwise."""
+    None otherwise.
+
+    mesh: the data-parallel mesh (parallel/mesh.py) of a run over several
+    processes: the step averages its gradients over the data axis. tp_plan:
+    {param name: sharded dim} of a tensor-parallel model
+    (parallel/sharding_rules.py); its params, moments and EMA are this
+    rank's shards. Under ZeRO-1 the optimizer is a
+    `parallel.zero1.Zero1Optimizer`."""
 
     step: int
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     tx: UpdateRule
     ema_params: Optional[dict] = None
+    mesh: Any = None
+    tp_plan: Optional[dict] = None
 
     @classmethod
-    def create(cls, model, tx: UpdateRule, ema: bool = False):
+    def create(cls, model, tx: UpdateRule, ema: bool = False, mesh=None,
+               tp_plan=None):
         return cls(step=0, model=model, optimizer=tx.init(model.parameters()),
-                   tx=tx, ema_params=_param_copy(model) if ema else None)
+                   tx=tx, ema_params=_param_copy(model) if ema else None,
+                   mesh=mesh, tp_plan=tp_plan)
 
     @property
     def params(self) -> dict:
         return dict(self.model.named_parameters())
+
+    def full_state(self):
+        """(model state_dict, optimizer state_dict, EMA params) in the
+        single-device layout: tensor-parallel shards and ZeRO-1 chunks are
+        gathered (a collective: every rank calls it)."""
+        model, ema = self.model.state_dict(), self.ema_params
+        optimizer = self.optimizer.state_dict()
+        if self.tp_plan:
+            from ann3depth_tpu_torch.parallel import sharding_rules
+            model, optimizer, ema = sharding_rules.gather_state(
+                self, model, optimizer, ema)
+        return model, optimizer, ema
+
+    def load_full_state(self, model=None, optimizer=None, ema=None):
+        """Load what `full_state` gives (any of the three) into this
+        state, keeping this rank's shards."""
+        if self.tp_plan:
+            from ann3depth_tpu_torch.parallel import sharding_rules
+            model, optimizer, ema = sharding_rules.shard_state(
+                self, model, optimizer, ema)
+        if model is not None:
+            self.model.load_state_dict(model)
+        if optimizer is not None:
+            load_optimizer_state(self.optimizer, optimizer)
+        if ema is not None:
+            self.ema_params = {k: v.clone() for k, v in ema.items()}
 
 
 def _param_copy(model):
@@ -281,20 +322,56 @@ def ema_update(ema: dict, params: dict, ema_decay):
     return ema
 
 
-def _finish_update(state, grad_accum=1, ema_decay=0.0, lr=None):
+def allreduce_gradients(mesh, grads, means=None, sums=None):
+    """Average `grads` (in place) over the mesh's data axis in one flat
+    all-reduce, which also carries the step's metrics: `means` (scalars
+    that are means over equal shards, e.g. the loss) come back averaged,
+    `sums` (sufficient statistics) summed. Returns (means, sums) as dicts
+    of device scalars. A data axis of one rank moves no value: every
+    number comes back bit for bit."""
+    means, sums = dict(means or {}), dict(sums or {})
+    scalars = [*means.values(), *sums.values()]
+    flat = torch.cat([g.reshape(-1).float() for g in grads]
+                     + ([torch.stack(scalars).float()] if scalars else []))
+    mesh.all_reduce(flat)
+    n_grad = flat.numel() - len(scalars)
+    n = float(mesh.n_data)
+    flat[:n_grad + len(means)].div_(n)
+    views = flat[:n_grad].split([g.numel() for g in grads])
+    torch._foreach_copy_(grads, [v.view_as(g) for v, g in zip(views, grads)])
+    tail = dict(zip([*means, *sums], flat[n_grad:]))
+    return {k: tail[k] for k in means}, {k: tail[k] for k in sums}
+
+
+def _finish_update(state, grad_accum=1, ema_decay=0.0, lr=None, means=None,
+                   sums=None):
     """The update from the gradients in `.grad` (their mean over
-    `grad_accum` microbatches), then the EMA and the step counter; returns
-    the global norm of the (mean) gradients before the clip. lr: a tensor
-    holding the learning rate (UpdateRule.apply)."""
+    `grad_accum` microbatches, and over the mesh's data axis when the
+    state has one), then the EMA and the step counter. lr: a tensor
+    holding the learning rate (UpdateRule.apply). means, sums: the step's
+    metrics (`allreduce_gradients`). Returns (the global norm of the mean
+    gradients before the clip, means, sums), the metrics over every rank's
+    batch."""
+    grads = [p.grad for p in state.model.parameters() if p.grad is not None]
     if grad_accum > 1:
-        grads = [p.grad for p in state.model.parameters()
-                 if p.grad is not None]
         torch._foreach_div_(grads, float(grad_accum))
-    grad_norm = state.tx.apply(state.optimizer, state.step, lr=lr)
+    sharded_update = getattr(state.optimizer, "sharded_update", None)
+    if sharded_update is not None:  # ZeRO-1
+        grad_norm, means, sums = sharded_update(state.model, state.step,
+                                                lr, means, sums)
+    else:
+        if state.mesh is not None and state.mesh.active():
+            means, sums = allreduce_gradients(state.mesh, grads, means, sums)
+        norm = None
+        if state.tp_plan:
+            from ann3depth_tpu_torch.parallel import sharding_rules
+            norm = sharding_rules.sync_grads(state)
+        grad_norm = state.tx.apply(state.optimizer, state.step, lr=lr,
+                                   norm=norm)
     if state.ema_params is not None and ema_decay:
         ema_update(state.ema_params, state.params, ema_decay)
     state.step += 1
-    return grad_norm
+    return grad_norm, dict(means or {}), dict(sums or {})
 
 
 def step_on_batch(state: TrainState, images, depths, *, si_lambda=0.5,
@@ -306,10 +383,13 @@ def step_on_batch(state: TrainState, images, depths, *, si_lambda=0.5,
     loss, pred_log = loss_fn(state.model, images, depths, si_lambda,
                              loss_kind)
     loss.backward()
-    grad_norm = _finish_update(state, ema_decay=ema_decay, lr=lr)
     with torch.no_grad():
-        rmse = losses.depth_metrics(pred_log.detach(), depths)["rmse"]
-    return state, {"loss": loss.detach(), "grad_norm": grad_norm,
+        stats = losses.depth_metric_stats(pred_log.detach(), depths)
+    grad_norm, means, stats = _finish_update(
+        state, ema_decay=ema_decay, lr=lr, means={"loss": loss.detach()},
+        sums=stats)
+    rmse = losses.finalize_depth_metrics(stats)["rmse"]
+    return state, {"loss": means["loss"], "grad_norm": grad_norm,
                    "rmse": rmse}
 
 
@@ -317,6 +397,25 @@ def _to_microbatches(x, accum):
     """Microbatch j of a [accum*m, ...] batch is x[j::accum]: the JAX
     step's strided split (contiguous copies, which the kernel reads)."""
     return [x[j::accum].contiguous() for j in range(accum)]
+
+
+def shard_draws(generator, batch, grad_accum, mesh, device=None):
+    """The grad_accum augmentation draws of this data-rank's rows of a
+    global batch of `batch` (the `draws` of `train_step`).
+
+    One process draws microbatch j's rows (B / grad_accum of them) as the
+    j-th `draw_augment` of its generator. Every rank draws those same
+    global rows from a generator seeded alike and keeps its slice
+    [r*m, (r+1)*m), m = B / (n_data * grad_accum): its local microbatch j
+    (rows j::grad_accum of its B / n_data) holds global rows r*B/n_data +
+    j + grad_accum*q, which are exactly those of microbatch j. So n ranks
+    step as one process at the full batch, up to reduction order."""
+    micro = batch // grad_accum
+    m = micro // mesh.n_data
+    lo = mesh.data_rank * m
+    return [{k: v[lo:lo + m] for k, v in fp.draw_augment(
+        generator, micro, device=device).items()}
+        for _ in range(grad_accum)]
 
 
 def accumulate_microbatches(state: TrainState, img_u8, depth_raw,
@@ -381,7 +480,8 @@ def train_step(state: TrainState, img_u8, depth_raw, generator=None, *,
             state, img_u8, depth_raw, generator, grad_accum=grad_accum,
             input_hw=input_hw, target_hw=target_hw, si_lambda=si_lambda,
             augment=augment, loss_kind=loss_kind, draws=draws)
-        grad_norm = _finish_update(state, grad_accum, ema_decay, lr=lr)
+        grad_norm, _, stats = _finish_update(state, grad_accum, ema_decay,
+                                             lr=lr, sums=stats)
         fin = losses.finalize_depth_metrics(stats)
         return state, {"loss": fin["loss"], "grad_norm": grad_norm,
                        "rmse": fin["rmse"]}
@@ -427,12 +527,14 @@ def distill_train_step(state: TrainState, teacher, img_u8, depth_raw,
     match = torch.mean(torch.square(pred_log.float() - teacher_log))
     loss = (1.0 - distill_alpha) * gt_loss + distill_alpha * match
     loss.backward()
-    grad_norm = _finish_update(state, ema_decay=ema_decay, lr=lr)
     with torch.no_grad():
-        rmse = losses.depth_metrics(pred_log.detach(), depths)["rmse"]
-    return state, {"loss": loss.detach(), "gt_loss": gt_loss.detach(),
-                   "distill": match.detach(), "grad_norm": grad_norm,
-                   "rmse": rmse}
+        stats = losses.depth_metric_stats(pred_log.detach(), depths)
+    grad_norm, means, stats = _finish_update(
+        state, ema_decay=ema_decay, lr=lr,
+        means={"loss": loss.detach(), "gt_loss": gt_loss.detach(),
+               "distill": match.detach()}, sums=stats)
+    rmse = losses.finalize_depth_metrics(stats)["rmse"]
+    return state, {**means, "grad_norm": grad_norm, "rmse": rmse}
 
 
 # ---------------------------------------------------------------------------

@@ -107,6 +107,22 @@ last line is printed:
    wrapper's host dispatch through the registered op, straight to the
    launch, and through a `torch.library.custom_op` twin.
 
+11. The parallel modes (parallel/), each rank a child process running the
+   port's CLI on this card: make3d-encdec b16 on two ranks over gloo (b8
+   each, the v1 kernel twice a step in every rank) against one process at
+   b16 fed the same rows, each logged loss within STEP_LOSS_RTOL; ZeRO-1
+   on two ranks against that run (params within the JAX ZeRO-1 test's
+   tolerances, each rank holding half the optimizer state); phase 9's
+   plain encdec pair again in a one-rank NCCL group at K=1 and K=10 (the
+   all-reduce captured in the graph), equal to phase 9's bit for bit;
+   dpt-384 b16 at --tp 2 on two ranks against the tp=1 run that computes
+   each block as tp=2 does (`sharding_rules.tp_twin`), held to twice the
+   largest gap of four plain tp=1 runs (the gap to a plain run reported),
+   with the model-axis all-reduces a step and their time; `serve --dp 0`
+   against --dp 1 (and --dp 2 refused on one card); `eval` on two ranks
+   (b8 each) against one process at b8 within EVAL_METRIC_RTOL. Each rank times a gradient all-reduce of its model's
+   size on gloo. Phase 2 holds v1 at the per-rank shapes.
+
 The last lines are one `{"kernels": [...]}` JSON line, the nvidia-smi line
 of the card, and `{"ok": true, "device": {...}}`.
 """
@@ -568,6 +584,30 @@ def slice6_specs(torch, fp):
         ("image u8 [8,480,640,3] -> [240,320], augment rows (microbatch "
          "of 8)", frames, aug(gen, 8, RAW_HW, (240, 320), device=dev),
          (240, 320), False))
+
+
+def parallel_specs(torch, fp):
+    """The v1 kernel's cases at the per-rank shapes of phase 11's data
+    parallelism (b16 on two ranks: b8 each): make3d-encdec's Make3D grid
+    to 120x160, and dpt-384's frames and NYU depth to 384x384 (its image
+    b8 at 240x320 is slice6's), augment rows."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(22)
+    frames = torch.randint(0, 256, (8, 480, 640, 3), dtype=torch.uint8,
+                           device=dev, generator=gen)
+    aug = fp.augment_params
+    return (
+        ("depth f32 [8,305,55,1] -> [120,160], augment rows (make3d-encdec "
+         "b16 on two ranks)", make3d_depth(torch, gen, 8),
+         aug(gen, 8, MAKE3D_DEPTH_HW, (120, 160), device=dev), (120, 160),
+         True),
+        ("image u8 [8,480,640,3] -> [384,384], augment rows (dpt-384 b16 "
+         "on two data ranks)", frames,
+         aug(gen, 8, RAW_HW, (384, 384), device=dev), (384, 384), False),
+        ("depth f32 [8,480,640,1] -> [384,384], augment rows (dpt-384 b16 "
+         "on two data ranks, NYU shape)", nyu_depth(torch, gen, 8),
+         aug(gen, 8, NYU_DEPTH_HW, (384, 384), device=dev), (384, 384),
+         True))
 
 
 def family_cases(torch, fp, resize, ref, specs):
@@ -2264,12 +2304,14 @@ def param_gap(torch, a, b):
 
 
 def graph_pair(torch, np, fp, cfg, tmp, name, k, card, dataset=None,
-               profile=False):
+               profile=False, keep=None):
     """cfg's run at K=1 (eager) and at K=k (graph replays) from one seed
     and one pool: params within GRAPH_PARAM_RTOL/ATOL, the last loss
     within GRAPH_LOSS_RTOL, and the v1 kernel called in every eager step
     (2 a step and microbatch) and in no replayed one (replays run no
-    Python; the profiler counts them). Returns both runs' records."""
+    Python; the profiler counts them). Returns both runs' records; with a
+    `keep` dict, also puts {K: (host params, last metrics)} of both runs
+    there (phase 11 reruns them in a process group)."""
     import dataclasses
 
     accum = cfg.train.grad_accum
@@ -2293,6 +2335,10 @@ def graph_pair(torch, np, fp, cfg, tmp, name, k, card, dataset=None,
                grad_accum=accum, augment=cfg.data.augment, k=k,
                params_max_abs_diff=worst, params_excess_over_tol=excess,
                loss_rel_diff=loss_gap, eager=r1, graph=rk, card=card)
+    if keep is not None:
+        for kk, state, last in ((1, eager, m1), (k, graph, mk)):
+            keep[kk] = ({n: v.detach().cpu() for n, v
+                         in state.model.state_dict().items()}, last)
     del eager, graph
     torch.cuda.empty_cache()
     return out
@@ -2392,11 +2438,12 @@ def _cli_feed_run(torch, np, fp, cli, steplib, data, tmp, name, extra):
                 trace=trace_stats(traces[0], end - traced))
 
 
-def pipeline_phase(torch, np, fp, card, tmp, encdec_cfg):
+def pipeline_phase(torch, np, fp, card, tmp, encdec_cfg, handoff):
     """Phase 9: the input pipeline and the K-step CUDA graph at full
     width. Returns the v1 launches of its paths: counted in Python for the
     eager steps, and per step from the profiler's trace of replayed
-    blocks."""
+    blocks. Puts the plain encdec pair's config, scenes and results in
+    `handoff` (phase 11 reruns it in a one-rank process group)."""
     import dataclasses
 
     from ann3depth_tpu_torch import cli
@@ -2425,8 +2472,11 @@ def pipeline_phase(torch, np, fp, card, tmp, encdec_cfg):
                                  ("encdec_accum", ACCUM, False)):
         cfg = dataclasses.replace(enc, train=dataclasses.replace(
             enc.train, grad_accum=accum))
+        keep = {} if name == "encdec" else None
         pair = graph_pair(torch, np, fp, cfg, tmp, name, POOL_K, card,
-                          scenes, profile)
+                          scenes, profile, keep)
+        if keep is not None:
+            handoff.update(cfg=cfg, scenes=scenes, runs=keep)
         pair["pool_bytes"] = pool_bytes
         out[name] = pair
     # Every replayed step launches v1's resample twice. The profiler may
@@ -3033,6 +3083,481 @@ def quant_export_phase(torch, np, fp, card, tmp, encdec_cfg):
                 export_launches=export_launches)
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the parallel modes (parallel/) on the one card.
+# ---------------------------------------------------------------------------
+
+# make3d-encdec b16 from phase 8's Make3D records on two ranks over gloo
+# (b8 each), PAR_STEPS steps logged every PAR_EVERY, rank 0's profiler
+# tracing steps PAR_EVERY..2*PAR_EVERY-1; ZeRO-1 the same; dpt-384 b16 at
+# --tp 2 from the NYU records, TP_STEPS steps. ZeRO-1 against replicated
+# data parallelism: the JAX test's tolerances (tests/test_zero1.py:28).
+PAR_STEPS, PAR_EVERY, TP_STEPS = 15, 5, 5
+ZERO1_RTOL, ZERO1_ATOL = 5e-4, 1e-3
+
+# One rank: the port's CLI run through its `main`, with the v1 wrapper's
+# launches and input shapes recorded, the optimizer state's bytes of the
+# trained state, the model-axis all-reduces of tensor parallelism, and the
+# time of an all-reduce of each given size on the run's backend (taken
+# before the run: the CLI leaves the process group when it ends).
+_RANK_MAIN = r"""
+import json, sys, time
+import torch
+import torch.distributed as dist
+from ann3depth_tpu_torch import cli
+from ann3depth_tpu_torch.ops import fused_preprocess as fp
+from ann3depth_tpu_torch.parallel import multihost, sharding_rules
+from ann3depth_tpu_torch.train import loop
+
+argv, sizes = json.loads(sys.argv[1]), json.loads(sys.argv[2])
+args = cli.build_parser().parse_args(argv)
+cli._join_group(args)
+dev = multihost.local_device(args.device)
+out = dict(rank=multihost.process_index(), world=multihost.process_count(),
+           backend=multihost.backend(), device=str(dev), all_reduce=[])
+for n in sizes:
+    x = torch.ones(n, device=dev)
+    for _ in range(3):
+        dist.all_reduce(x)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        dist.all_reduce(x)
+    torch.cuda.synchronize(dev)
+    out["all_reduce"].append(dict(floats=n, bytes=4 * n,
+                                  ms=(time.perf_counter() - t0) * 1e2))
+    del x
+calls = []
+kernel = fp.fused_preprocess
+
+def recorded(x, params, *, out_hw, depth_mode=False, **kw):
+    calls.append((tuple(x.shape), bool(depth_mode)))
+    return kernel(x, params, out_hw=out_hw, depth_mode=depth_mode, **kw)
+
+train = loop.train
+
+def kept(*a, **kw):
+    state, metrics = train(*a, **kw)
+    opt = state.optimizer
+    out["optimizer_state_bytes"] = (
+        opt.state_bytes() if hasattr(opt, "state_bytes") else sum(
+            v.numel() * v.element_size() for st in opt.state.values()
+            for v in st.values() if torch.is_tensor(v)))
+    out["local_params"] = sum(p.numel() for p in state.model.parameters())
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+    return state, metrics
+
+fp.fused_preprocess, loop.train = recorded, kept
+sharding_rules.collectives.update(forward=0, backward=0, update=0)
+kernel.launches = 0
+t0 = time.perf_counter()
+rc = cli.main(argv)
+torch.cuda.synchronize(dev)
+out.update(rc=rc, seconds=time.perf_counter() - t0,
+           v1_launches=kernel.launches, v1_calls=len(calls),
+           v1_shapes=sorted({f"{list(s)}:{d}" for s, d in calls}),
+           tp_collectives=dict(sharding_rules.collectives))
+print("RANK " + json.dumps(out), flush=True)
+"""
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def rank_runs(argv, sizes=(), world=2, timeout=400):
+    """The port's CLI on `world` ranks of one process group (child
+    processes on this card, each through _RANK_MAIN); every child is
+    stopped when this returns. Returns the ranks' records, each with the
+    lines its run printed."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    port = str(_free_port())
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _RANK_MAIN, json.dumps(
+            argv + ["--coordinator", f"127.0.0.1:{port}", "--num-processes",
+                    str(world), "--process-id", str(r)]),
+         json.dumps(list(sizes))],
+        cwd=root, env=dict(os.environ, PYTHONPATH=root),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(world)]
+    try:
+        outs = [p.communicate(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    records = []
+    for r, (p, (stdout, stderr)) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"rank {r} of {argv[:3]} exited "
+              f"{p.returncode}:\n{stderr[-4000:]}")
+        lines = stdout.strip().splitlines()
+        rec = [json.loads(x[5:]) for x in lines if x.startswith("RANK ")]
+        check(len(rec) == 1, f"rank {r}: no record in {lines[-5:]}")
+        records.append({**rec[0], "printed": [
+            x for x in lines if not x.startswith("RANK ")]})
+    return records
+
+
+class _RankRows:
+    """A dataset's batches as n data ranks read them, concatenated in rank
+    order: rank r's rows of each step (its strided shard's `batches` at
+    batch/n), so one process at the full batch takes the same feed."""
+
+    def __init__(self, dataset, n):
+        from ann3depth_tpu_torch.data.batching import ProcessShardView
+
+        self.views = [ProcessShardView(dataset, r, n) for r in range(n)]
+
+    def batches(self, batch_size, **kw):
+        import numpy as np
+
+        n = len(self.views)
+        for parts in zip(*(v.batches(batch_size // n, **kw)
+                           for v in self.views)):
+            yield tuple(np.concatenate(x) for x in zip(*parts))
+
+
+def _restored(torch, cfg, ckpt_dir, dev):
+    from ann3depth_tpu_torch.train import loop
+    from ann3depth_tpu_torch.train.checkpoint import CheckpointManager
+
+    state = loop.create_state(cfg, dev)
+    _, step = CheckpointManager(ckpt_dir).restore_params(state)
+    check(step == cfg.train.steps, f"{ckpt_dir}: restored step {step}")
+    return state
+
+
+def _losses(path):
+    with open(path) as f:
+        return {r["step"]: r["loss"] for r in map(json.loads, f)
+                if "loss" in r}
+
+
+def _rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-12)
+
+
+def _v1_at(np, records, batch, steps, label):
+    """Every rank launched v1 twice a step (image and depth), all at the
+    per-rank batch."""
+    for r in records:
+        lead = {int(s.split(",")[0].strip("[")) for s in r["v1_shapes"]}
+        check(r["v1_launches"] == r["v1_calls"] == 2 * steps
+              and lead == {batch}, f"{label} rank {r['rank']}: v1 "
+              f"{r['v1_launches']} launches, {r['v1_calls']} calls at "
+              f"{r['v1_shapes']}, want {2 * steps} at batch {batch}")
+
+
+def _nccl_one_rank(torch, fp, tmp, handoff, card):
+    """Phase 9's plain encdec pair (K=1 and K=POOL_K) again in a one-rank
+    NCCL group: the step all-reduces its gradients and metrics (captured
+    in the graph under K > 1), which moves no value, so both runs must
+    equal phase 9's bit for bit."""
+    import dataclasses
+    import datetime
+
+    import torch.distributed as dist
+
+    out = {}
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=300))
+    try:
+        for k, (params, last) in sorted(handoff["runs"].items()):
+            cfg = handoff["cfg"]
+            cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+                cfg.train, steps_per_dispatch=k))
+            state, metrics, rec = pool_run(torch, fp, cfg, tmp, f"nccl_k{k}",
+                                           handoff["scenes"], profile=False)
+            got = {n: v.detach().cpu()
+                   for n, v in state.model.state_dict().items()}
+            same = all(torch.equal(got[n], v) for n, v in params.items())
+            check(same and metrics == last, f"one-rank NCCL K={k}: params "
+                  f"equal {same}, metrics {metrics} against {last}")
+            out[f"k{k}"] = dict(bitwise_equal=True, step_ms=rec["step_ms"],
+                                v1_calls_counted=rec["v1_calls_counted"],
+                                loss=metrics["loss"])
+            del state
+    finally:
+        dist.destroy_process_group()
+    out["card"] = card
+    return out
+
+
+def _data_parallel(torch, np, fp, tmp, data):
+    """make3d-encdec b16 on two ranks over gloo (b8 each) against one
+    process at b16 fed the same rows (`_RankRows`), then ZeRO-1 on two
+    ranks against that two-rank run. Returns (records, v1 launches)."""
+    import glob
+
+    from ann3depth_tpu_torch import cli
+    from ann3depth_tpu_torch.train import loop
+
+    dev = torch.device("cuda")
+    work = f"{tmp}/p11"
+    enc = ["train", "--config", "make3d-encdec", "--datasets", "make3d",
+           "--data-dir", data, "--steps", str(PAR_STEPS), "--log-every",
+           str(PAR_EVERY), "--checkpoint-every", str(PAR_STEPS),
+           "--eval-every", "0"]
+    cfg = cli.resolve_config(cli.build_parser().parse_args(
+        enc + ["--ckpt-dir", f"{work}/ref"]))
+    n_enc = sum(p.numel() for p in loop.create_state(cfg, dev).model
+                .parameters())
+    dp = rank_runs(enc + ["--ckpt-dir", f"{work}/dp", "--workdir",
+                          f"{work}/dp_wd", "--profile", f"{work}/dp_trace",
+                          "--profile-steps", str(PAR_EVERY),
+                          "--dist-backend", "gloo"], sizes=[n_enc])
+    _v1_at(np, dp, 8, PAR_STEPS, "data parallel")
+    fp.fused_preprocess.launches = 0
+    ref, _ = loop.train(cfg, workdir=f"{work}/ref_wd", progress=False,
+                        dataset=_RankRows(loop.build_dataset(cfg), 2))
+    ref_launches = fp.fused_preprocess.launches
+    want, got = _losses(f"{work}/ref_wd/metrics.jsonl"), _losses(
+        f"{work}/dp_wd/metrics.jsonl")
+    gaps = {s: _rel(got[s], want[s]) for s in want}
+    check(sorted(got) == sorted(want) and max(gaps.values())
+          <= STEP_LOSS_RTOL, f"two ranks against one process: losses "
+          f"{got} against {want}")
+    two = _restored(torch, cfg, f"{work}/dp", dev)
+    worst, _ = param_gap(torch, two, ref)
+    del two, ref
+    traces = glob.glob(f"{work}/dp_trace/*.json")
+    check(len(traces) == 1, f"rank 0 trace files {traces}")
+    with open(f"{work}/dp_wd/metrics.jsonl") as f:
+        rows = [json.loads(x) for x in f]
+    out = dict(data_parallel=dict(
+        ranks=2, backend="gloo", batch=16, per_rank_batch=8,
+        steps=PAR_STEPS, loss_rel_gap=gaps, loss_rtol=STEP_LOSS_RTOL,
+        params_max_abs_diff=worst,
+        rank0_step_ms=_steady_ms(rows, 16, 2 * PAR_EVERY),
+        rank0_trace=trace_stats(traces[0], PAR_EVERY),
+        grad_all_reduce=[r["all_reduce"][0] for r in dp], params=n_enc,
+        rank_seconds=[r["seconds"] for r in dp],
+        peak_memory_bytes=[r["peak_memory_bytes"] for r in dp],
+        one_process_v1_launches=ref_launches))
+    launches = dict(data_parallel_per_rank=[r["v1_launches"] for r in dp])
+
+    z1 = rank_runs(enc + ["--ckpt-dir", f"{work}/z1", "--workdir",
+                          f"{work}/z1_wd", "--zero1", "--dist-backend",
+                          "gloo"])
+    _v1_at(np, z1, 8, PAR_STEPS, "zero1")
+    a = _restored(torch, cfg, f"{work}/z1", dev)
+    b = _restored(torch, cfg, f"{work}/dp", dev)
+    close = all(torch.allclose(x, y, rtol=ZERO1_RTOL, atol=ZERO1_ATOL)
+                for x, y in zip(a.model.parameters(), b.model.parameters()))
+    worst, _ = param_gap(torch, a, b)
+    del a, b
+    zl = _losses(f"{work}/z1_wd/metrics.jsonl")
+    check(close and max(_rel(zl[s], got[s]) for s in got) <= 1e-4,
+          f"zero1 against replicated: params within rtol {ZERO1_RTOL} / "
+          f"atol {ZERO1_ATOL}: {close} (max {worst}); losses {zl} {got}")
+    zb = [r["optimizer_state_bytes"] for r in z1]
+    rb = [r["optimizer_state_bytes"] for r in dp]
+    check(all(z <= 0.5 * r + 64 * 1024 for z, r in zip(zb, rb)),
+          f"zero1 optimizer bytes per rank {zb} against replicated {rb}")
+    out["zero1"] = dict(params_max_abs_diff=worst, rtol=ZERO1_RTOL,
+                        atol=ZERO1_ATOL, losses=zl,
+                        optimizer_state_bytes_per_rank=zb,
+                        replicated_optimizer_state_bytes_per_rank=rb,
+                        rank_seconds=[r["seconds"] for r in z1])
+    launches["zero1_per_rank"] = [r["v1_launches"] for r in z1]
+    return out, launches
+
+
+def _tensor_parallel(torch, np, fp, tmp, data):
+    """dpt-384 b16 at --tp 2 on two ranks over gloo against tp=1 in one
+    process: held to twice the largest gap of DPT_CONTROL_RUNS plain tp=1
+    runs (their F.interpolate backward sums with atomics), as phase 9
+    holds DPT, against the tp=1 run that computes each block as tp=2 does
+    (`sharding_rules.tp_twin`: the same partial products, f32 sums and
+    roundings); its gap to a plain tp=1 run (another order of the same
+    sums, which DPT's first steps carry a long way in bf16) is reported
+    beside the twin's. Returns (record, v1 launches)."""
+    import dataclasses
+
+    from ann3depth_tpu_torch import cli
+    from ann3depth_tpu_torch.parallel import sharding_rules
+    from ann3depth_tpu_torch.train import loop
+
+    dev = torch.device("cuda")
+    work = f"{tmp}/p11tp"
+    tpf = ["train", "--config", "dpt-384", "--datasets", "nyu", "--data-dir",
+           data, "--steps", str(TP_STEPS), "--log-every", "1",
+           "--checkpoint-every", str(TP_STEPS), "--eval-every", "0"]
+    cfg = cli.resolve_config(cli.build_parser().parse_args(
+        tpf + ["--ckpt-dir", f"{work}/tp1"]))
+    create = loop.create_state
+
+    def twin_state(c, device=None):
+        state = create(c, device)
+        sharding_rules.tp_twin(state.model, 2)
+        return state
+
+    runs = {}
+    plain = [f"tp1_{i}" for i in range(DPT_CONTROL_RUNS)]
+    for name in plain + ["twin"]:
+        c = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, ckpt_dir=f"{work}/{name}"))
+        loop.create_state = twin_state if name == "twin" else create
+        try:
+            state, _ = loop.train(c, workdir=f"{work}/{name}",
+                                  progress=False)
+        finally:
+            loop.create_state = create
+        runs[name] = (state, _losses(f"{work}/{name}/metrics.jsonl"))
+    n_dpt = sum(p.numel() for p in runs["tp1_0"][0].model.parameters())
+    tokens = (cfg.data.input_hw[0] // 16) * (cfg.data.input_hw[1] // 16)
+    act = cfg.train.batch_size * tokens * runs["tp1_0"][0].model.dim
+    tp = rank_runs(tpf + ["--tp", "2", "--ckpt-dir", f"{work}/tp2",
+                          "--workdir", f"{work}/tp2_wd", "--dist-backend",
+                          "gloo"], sizes=[n_dpt, act])
+    _v1_at(np, tp, 16, TP_STEPS, "tp")
+    runs["tp2"] = (_restored(torch, cfg, f"{work}/tp2", dev),
+                   _losses(f"{work}/tp2_wd/metrics.jsonl"))
+
+    def gap(a, b):
+        (sa, la), (sb, lb) = runs[a], runs[b]
+        return (param_gap(torch, sa, sb)[0],
+                max(_rel(la[s], lb[s]) for s in lb))
+
+    gaps = {f"{a}_vs_{b}": gap(a, b) for i, a in enumerate(plain)
+            for b in plain[:i]}
+    param_tol = max(2 * max(g[0] for g in gaps.values()), GRAPH_PARAM_ATOL)
+    loss_tol = max(2 * max(g[1] for g in gaps.values()), GRAPH_LOSS_RTOL)
+    gaps.update(tp2_vs_twin=gap("tp2", "twin"),
+                tp2_vs_tp1=gap("tp2", "tp1_0"),
+                twin_vs_tp1=gap("twin", "tp1_0"))
+    worst, loss_gap = gaps["tp2_vs_twin"]
+    check(worst <= param_tol and loss_gap <= loss_tol,
+          f"tp=2 against its tp=1 twin: params {worst} (tol {param_tol}), "
+          f"loss {loss_gap} (tol {loss_tol}); gaps {gaps}")
+    per_step = {k: v / TP_STEPS for k, v in tp[0]["tp_collectives"].items()}
+    check(per_step["forward"] > 0 and per_step["backward"] > 0,
+          f"tp collectives {per_step}")
+    with open(f"{work}/tp2_wd/metrics.jsonl") as f:
+        rows = [json.loads(x) for x in f]
+    out = dict(
+        tp=2, batch=16, steps=TP_STEPS, params=n_dpt,
+        local_params_per_rank=[r["local_params"] for r in tp],
+        gaps={k: dict(params_max_abs_diff=v[0], loss_rel_gap=v[1])
+              for k, v in gaps.items()},
+        param_tol=param_tol, loss_tol=loss_tol,
+        losses={k: v[1] for k, v in runs.items()},
+        model_axis_all_reduces_per_step=per_step,
+        rank0_step_ms=_steady_ms(rows, cfg.train.batch_size, 2),
+        activation_all_reduce=[r["all_reduce"][1] for r in tp],
+        grad_all_reduce_dpt=[r["all_reduce"][0] for r in tp],
+        rank_seconds=[r["seconds"] for r in tp],
+        peak_memory_bytes=[r["peak_memory_bytes"] for r in tp])
+    del runs
+    torch.cuda.empty_cache()
+    return out, dict(tensor_parallel_per_rank=[r["v1_launches"] for r in tp])
+
+
+def _serve_dp(torch, np, fp):
+    """`serve --dp 0` (on one card: dp=1) against --dp 1 on one batch of 8
+    frames; --dp 2 refused with the JAX package's error."""
+    from ann3depth_tpu_torch import cli
+
+    frames = np.random.default_rng(11).integers(
+        0, 256, (8, *RAW_HW, 3), dtype=np.uint8)
+    answers, launches = {}, {}
+    for dp in ("1", "0"):
+        svc = cli.make_service(cli.build_parser().parse_args(
+            ["serve", "--config", "make3d-encdec", "--init", "--dp", dp,
+             "--max-batch", "8", "--no-warmup"]))
+        try:
+            fp.fused_preprocess.launches = 0
+            futs = [svc.submit(f) for f in frames]
+            answers[dp] = np.stack([f.result(timeout=120) for f in futs])
+            launches[f"serve_dp{dp}"] = fp.fused_preprocess.launches
+        finally:
+            svc.close()
+    gap = float(np.abs(np.log(answers["0"]) - np.log(answers["1"])).max())
+    check(gap <= SERVE_LOG_TOL and launches["serve_dp0"] > 0,
+          f"serve --dp 0 against --dp 1: {gap} in log-depth")
+    try:
+        cli.make_service(cli.build_parser().parse_args(
+            ["serve", "--config", "make3d-encdec", "--init", "--dp", "2"]))
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    check(refused == "dp=2 needs 2 devices, have 1",
+          f"serve --dp 2 on one card: {refused!r}")
+    return dict(devices=torch.cuda.device_count(), log_gap=gap,
+                tol=SERVE_LOG_TOL, dp2_refusal=refused), launches
+
+
+def _eval_ranks(fp, data, encdec_cfg):
+    """`eval` on two ranks (each its strided half of the Make3D test
+    records at b8, the statistics summed) against one process on phase
+    4's checkpoint, within EVAL_METRIC_RTOL: one process at b8, whose
+    convs pick the ranks' algorithms (each image's answer depends on the
+    batch's shape, not on the other images); its b16 reading, where cuDNN
+    picks others (the bf16 rounding moves sq_rel ~4e-4), is reported.
+    Each rank runs as many batches as the one process at b16."""
+    from ann3depth_tpu_torch import cli
+
+    ev = ["eval", "--config", "make3d-encdec", "--datasets", "make3d",
+          "--data-dir", data, "--ckpt-dir", encdec_cfg.train.ckpt_dir]
+    fp.fused_preprocess.launches = 0
+    one = _cli_json(cli, ev)
+    one_launches = fp.fused_preprocess.launches
+    at8 = _cli_json(cli, ev + ["--batch-size", "8"])
+    ranks = rank_runs(ev + ["--dist-backend", "gloo"])
+    two = json.loads(ranks[0]["printed"][-1])
+    tol = EVAL_METRIC_RTOL["make3d-encdec"]
+    gaps = {k: _rel(two[k], at8[k]) for k in at8}
+    check(sorted(two) == sorted(at8) and max(gaps.values()) <= tol
+          and all(r["v1_launches"] == one_launches > 0 for r in ranks),
+          f"eval on two ranks against one process at b8: {gaps} (rtol "
+          f"{tol}); v1 {[r['v1_launches'] for r in ranks]} against "
+          f"{one_launches}")
+    return (dict(rel_gaps_to_one_process_b8=gaps, rtol=tol, metrics=two,
+                 rel_gaps_to_one_process_b16={
+                     k: _rel(two[k], one[k]) for k in one}),
+            dict(eval_per_rank=[r["v1_launches"] for r in ranks]))
+
+
+def parallel_phase(torch, np, fp, card, tmp, encdec_cfg, handoff):
+    """Phase 11: data parallelism on two ranks (gloo, this card) against
+    one process at the full batch; ZeRO-1 against it; a one-rank NCCL
+    group against phase 9; dpt-384 at --tp 2 against tp=1; `serve --dp`;
+    `eval` on two ranks against one process. Returns the v1 launches of
+    its runs."""
+    data = f"{tmp}/data"  # phase 8's records
+    out, launches, seconds = {}, {}, {}
+    t0 = time.perf_counter()
+    rec, n = _data_parallel(torch, np, fp, tmp, data)
+    out.update(rec)
+    launches.update(n)
+    seconds["data_parallel_and_zero1"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    out["nccl_one_rank"] = _nccl_one_rank(torch, fp, tmp, handoff, card)
+    launches["nccl_one_rank_eager"] = {
+        k: v["v1_calls_counted"] for k, v in out["nccl_one_rank"].items()
+        if k != "card"}
+    seconds["nccl_one_rank"] = time.perf_counter() - t0
+
+    for name, fn, args in (
+            ("tensor_parallel", _tensor_parallel, (torch, np, fp, tmp, data)),
+            ("serve_dp", _serve_dp, (torch, np, fp)),
+            ("eval", _eval_ranks, (fp, data, encdec_cfg))):
+        t0 = time.perf_counter()
+        out[name], n = fn(*args)
+        launches.update(n)
+        seconds[name] = time.perf_counter() - t0
+    out.update(seconds=seconds, card=card,
+               note="two ranks share one card: times show the "
+               "collectives' cost, not scaling")
+    print("parallel: " + json.dumps(out), flush=True)
+    return launches
+
+
 def main():
     import torch
 
@@ -3068,6 +3593,8 @@ def main():
                         library="interpolate")
     del specs
     slice6 = family_cases(torch, fp, resize, ref, slice6_specs(torch, fp))
+    parallel = family_cases(torch, fp, resize, ref,
+                            parallel_specs(torch, fp))
     serve_launches = serve_slice(torch, np, fp, card)
     with tempfile.TemporaryDirectory() as tmp:
         train, cfg, img, dep = train_slice(torch, np, fp, card, tmp)
@@ -3081,10 +3608,14 @@ def main():
         phase7 = family_phase(torch, np, fp, card, tmp)
         phase8 = slice6_phase(torch, np, fp, card, tmp, cfg.train.ckpt_dir,
                               train["loop_images_per_s"])
-        phase9 = pipeline_phase(torch, np, fp, card, tmp, cfg)
+        handoff = {}
+        phase9 = pipeline_phase(torch, np, fp, card, tmp, cfg, handoff)
         t10 = time.perf_counter()
         phase10 = quant_export_phase(torch, np, fp, card, tmp, cfg)
         print(f"phase 10: {time.perf_counter() - t10:.1f} s", flush=True)
+        t11 = time.perf_counter()
+        phase11 = parallel_phase(torch, np, fp, card, tmp, cfg, handoff)
+        print(f"phase 11: {time.perf_counter() - t11:.1f} s", flush=True)
 
     def entry(case, **kw):
         """One kernel's entry of the kernels line, from its train case."""
@@ -3109,7 +3640,8 @@ def main():
         slice6_cases=slice6, slice6_launches=phase8,
         pipeline_launches=phase9, host_dispatch=dispatch,
         quant_launches=phase10["quant_launches"],
-        export_launches=phase10["export_launches"])
+        export_launches=phase10["export_launches"],
+        parallel_cases=parallel, parallel_launches=phase11)
     v2 = entry(
         cases_v2[1],  # the train shape, b16 augment rows
         name="fused_preprocess_v2",

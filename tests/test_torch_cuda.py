@@ -20,7 +20,9 @@ a distillation step fed both ways and an accumulated step against a
 full-batch one. Repeated train steps in torch's deterministic mode agree
 bit for bit. The int8 ops (ops/quant.py) give the CPU's answer bit for bit
 (exact int32 sums, the same f32 quantize and dequantize); an exported
-serving program gives the eager program's within EXPORT_RTOL.
+serving program gives the eager program's within EXPORT_RTOL. A one-rank
+NCCL group's all-reduce moves no value: its runs (eager, and a CUDA graph
+that captures the all-reduce) equal the runs without a group bit for bit.
 """
 
 import copy
@@ -825,3 +827,104 @@ def test_exported_program_on_the_card_matches_eager(cuda, tmp_path):
         assert got.shape == want.shape == (3, 32, 48)
         np.testing.assert_allclose(got, want, rtol=EXPORT_RTOL, atol=0,
                                    err_msg=quant)
+
+
+# ---------------------------------------------------------------------------
+# The parallel modes on the card (parallel/): the per-rank shapes of the v1
+# kernel, a one-rank NCCL group whose all-reduce moves no value (the step
+# and its CUDA graph give the non-distributed numbers bit for bit), and two
+# ranks sharing the card over gloo.
+# ---------------------------------------------------------------------------
+
+def test_v1_at_the_dpt_per_rank_batch(cuda):
+    """dpt-384 b16 on two ranks: each rank's augmented b8 to 384x384."""
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    frames = torch.randint(0, 256, (8, 480, 640, 3), generator=gen,
+                           device=cuda).to(torch.uint8)
+    params = fp.augment_params(gen, 8, (480, 640), (384, 384), device=cuda)
+    got = fp.fused_preprocess(frames, params, out_hw=(384, 384))
+    want = fp.plain_preprocess(frames, params, out_hw=(384, 384))
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@pytest.mark.parametrize("k", [1, 4])
+def test_one_rank_nccl_step_is_the_single_device_step(cuda, tmp_path, k):
+    """A one-rank NCCL group (the step all-reduces its gradients and
+    metrics, and under K > 1 the graph captures that all-reduce) gives the
+    numbers of the run without a group, bit for bit, with cuDNN's
+    deterministic algorithms (the small net computes in f32, whose convs
+    may otherwise sum in another order from run to run)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        plain, m_plain = _train(_pool_cfg(
+            tmp_path, f"plain{k}", {"augment": True}, steps_per_dispatch=k,
+            ema_decay=0.9), tmp_path, f"plain{k}")
+        dist.init_process_group(
+            "nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+            world_size=1, timeout=datetime.timedelta(seconds=120))
+        try:
+            grouped, m_grouped = _train(_pool_cfg(
+                tmp_path, f"nccl{k}", {"augment": True},
+                steps_per_dispatch=k, ema_decay=0.9), tmp_path, f"nccl{k}")
+        finally:
+            dist.destroy_process_group()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    assert m_grouped == m_plain
+    for (name, x), y in zip(plain.model.state_dict().items(),
+                            grouped.model.state_dict().values()):
+        assert torch.equal(x, y), name
+
+
+def test_two_gloo_ranks_share_the_card(cuda, tmp_path):
+    """Two ranks on one card over gloo with CUDA tensors through the CLI:
+    they train in lockstep (rank 0 prints the metrics); K > 1 refuses,
+    since gloo's collectives cannot be captured in a CUDA graph."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    base = ["train", "--config", "smoke", "--dist-backend", "gloo",
+            "--synth-n", "16", "--batch-size", "4", "--steps", "4",
+            "--log-every", "2", "--checkpoint-every", "4"]
+
+    def ranks(extra):
+        port = str(_free_port())
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "ann3depth_tpu_torch", *base, *extra,
+             "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
+             "--process-id", str(r)], cwd=root,
+            env=dict(os.environ, PYTHONPATH=str(root)),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(2)]
+        try:
+            outs = [p.communicate(timeout=300) for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        return [(p.returncode, *out) for p, out in zip(procs, outs)]
+
+    outs = ranks(["--ckpt-dir", str(tmp_path / "a")])
+    assert [rc for rc, _, _ in outs] == [0, 0], outs[0][2][-2000:]
+    metrics = json.loads(outs[0][1].strip().splitlines()[-1])
+    assert math.isfinite(metrics["loss"])
+    outs = ranks(["--ckpt-dir", str(tmp_path / "b"), "--cache-device",
+                  "--steps-per-dispatch", "2"])
+    assert all(rc != 0 for rc, _, _ in outs)
+    assert "gloo backend's collectives cannot be captured" in outs[0][2]

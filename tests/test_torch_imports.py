@@ -38,7 +38,10 @@ def test_port_files_found():
     assert "ann3depth_tpu_torch/ops/fused_preprocess.py" in PORT_FILES
     for module in ("pipeline/feed.py", "pipeline/device_cache.py",
                    "pipeline/streaming_pool.py", "pipeline/grain_loader.py",
-                   "train/dispatch.py", "ops/quant.py", "serving.py"):
+                   "train/dispatch.py", "ops/quant.py", "serving.py",
+                   "parallel/multihost.py", "parallel/mesh.py",
+                   "parallel/shard_step.py", "parallel/zero1.py",
+                   "parallel/sharding_rules.py"):
         assert f"ann3depth_tpu_torch/{module}" in PORT_FILES
     assert len(PORT_FILES) > 10
 

@@ -321,8 +321,10 @@ def _saved_checkpoints(ckpt_dir):
 def test_service_from_config_refuses_what_is_not_ported(tmp_path):
     """Serving from a checkpoint is ported: the latest save, the one at
     ckpt_step, or its EMA params, each as the same model served directly
-    (f32: 1e-5 relative); an empty directory raises. dp > 1 is still
-    refused."""
+    (f32: 1e-5 relative); an empty directory raises. dp=2 serves the
+    checkpoint on two devices (here ["cpu", "cpu"]) with the answers of
+    dp=1, bit for bit (each replica runs the same ops on its part of the
+    batch); without a second device it raises the JAX package's error."""
     cfg, models = _saved_checkpoints(tmp_path / "c")
     x = _frames(2, seed=6)
     for kw, model in ((dict(), models[1]), (dict(ckpt_step=1), models[0]),
@@ -340,7 +342,18 @@ def test_service_from_config_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(RuntimeError, match="no checkpoint"):
         server.service_from_config(cfg, ckpt_dir=str(tmp_path / "empty"),
                                    device="cpu")
-    with pytest.raises(NotImplementedError, match="dp=2"):
+    answers = []
+    for kw in (dict(), dict(dp=2, devices=["cpu", "cpu"])):
+        svc = server.service_from_config(cfg, raw_hw=RAW_HW, device="cpu",
+                                         max_batch=4, **kw)
+        try:
+            futs = [svc.submit(f) for f in _frames(3, seed=8)]
+            answers.append(np.stack([f.result(timeout=60) for f in futs]))
+            assert svc.batch_multiple == kw.get("dp", 1)
+        finally:
+            svc.close()
+    np.testing.assert_array_equal(answers[1], answers[0])
+    with pytest.raises(ValueError, match="dp=2 needs 2 devices, have 1"):
         server.service_from_config(cfg, init=True, dp=2, device="cpu")
 
 
@@ -387,11 +400,15 @@ def test_cli_without_init_or_artifact_exits(tmp_path):
         assert out.shape == (120, 160) and np.isfinite(out).all()
     finally:
         svc.close()
-    for flags, match in ((["--dp", "2"], "not ported yet"),
-                         (["--artifact", "x", "--ema"], "--artifact")):
+    for flags, error, match in (
+            (["--dp", "2"], ValueError, "dp=2 needs 2 devices, have 1"),
+            (["--artifact", "x", "--ema"], SystemExit, "--artifact"),
+            (["--artifact", "x", "--dp", "2"], SystemExit,
+             "--dp requires checkpoint mode: an exported artifact is a "
+             "single-device program")):
         args = cli.build_parser().parse_args(
             base + ["--ckpt-dir", str(tmp_path / "c")] + flags)
-        with pytest.raises(SystemExit, match=match):
+        with pytest.raises(error, match=match):
             cli.make_service(args)
     # --quant int8 serves the int8 twin of the same checkpoint (the JAX
     # registry's refusals stand: the small model has none).

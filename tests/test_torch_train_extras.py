@@ -594,6 +594,14 @@ REFUSALS = {  # case -> (train overrides, error, message)
     "distill_with_accum": (dict(distill_from="T", grad_accum=2,
                                 batch_size=4), ValueError,
                            "distill_from composes"),
+    "distill_with_zero1": (dict(distill_from="T", zero1=True), ValueError,
+                           "distill_from composes"),
+    "distill_with_tp": (dict(distill_from="T", tensor_parallel=2),
+                        ValueError, "distill_from composes"),
+    "tp_below_one": (dict(tensor_parallel=0), ValueError,
+                     "tensor_parallel must be >= 1"),
+    "tp_on_a_non_dpt_model": (dict(tensor_parallel=2), ValueError,
+                              "requires a dpt-family model"),
     "distill_alpha_zero": (dict(distill_from="T", distill_alpha=0.0),
                            ValueError, "distill_alpha"),
     "distill_alpha_above_one": (dict(distill_from="T", distill_alpha=1.5),

@@ -341,11 +341,14 @@ def test_evaluate_from_checkpoint_and_empty_dir(tmp_path):
 
 
 # The input pipeline's options (cache_device, use_grain,
-# steps_per_dispatch) and int8-qat training are ported now: they train, or
-# meet the JAX loop's validation (tests/test_torch_dispatch.py and
-# tests/test_torch_quant.py hold them to it).
+# steps_per_dispatch), int8-qat training and the parallel modes are ported
+# now: they train, or meet the JAX loop's validation
+# (tests/test_torch_dispatch.py, tests/test_torch_quant.py and
+# tests/test_torch_parallel.py hold them to it). ZeRO-1 trains on one
+# process; tensor parallelism needs a dpt-family model.
 NOW_PORTED = {"cache_device": None, "use_grain": None,
-              "steps_per_dispatch": "needs --cache-device", "quant": None}
+              "steps_per_dispatch": "needs --cache-device", "quant": None,
+              "zero1": None, "tensor_parallel": "requires a dpt-family"}
 
 
 @pytest.mark.parametrize("section,field,value", [
@@ -413,16 +416,34 @@ def test_cli_resolves_the_jax_flags():
     assert args.device == "cuda"  # the card unless asked otherwise
 
 
+# What each flag does now: --zero1 trains (one process: one chunk); the
+# others stop with the JAX CLI's refusal or the port's own.
+CLI_FLAG_OUTCOMES = {
+    "--zero1": None,
+    "--multihost": (ValueError, "no process group to join"),
+    "--tp": (ValueError, "requires a dpt-family model"),
+    "--preprocess-impl": (SystemExit, "not ported yet"),
+    "--coordinator": (ValueError, "--coordinator needs --num-processes"),
+    "--distill-model": (SystemExit, "distill-from"),
+}
+
+
 @pytest.mark.parametrize("flags", [["--zero1"], ["--multihost"],
                                    ["--tp", "2"],
                                    ["--preprocess-impl", "pallas"],
                                    ["--coordinator", "localhost:1234"],
                                    ["--distill-model", "encdec"]])
-def test_cli_flags_outside_the_slice_exit(tmp_path, flags):
-    with pytest.raises(SystemExit, match="not ported yet|distill-from"):
-        cli.main(CLI_SMALL + ["--steps", "1", "--ckpt-dir",
-                              str(tmp_path / "c"), "--device", "cpu"]
-                 + flags)
+def test_cli_flags_outside_the_slice_exit(tmp_path, flags, capsys):
+    argv = CLI_SMALL + ["--steps", "1", "--ckpt-dir", str(tmp_path / "c"),
+                        "--device", "cpu"] + flags
+    outcome = CLI_FLAG_OUTCOMES[flags[0]]
+    if outcome is None:
+        assert cli.main(argv) == 0
+        metrics = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert np.isfinite(metrics["loss"])
+        return
+    with pytest.raises(outcome[0], match=outcome[1]):
+        cli.main(argv)
 
 
 def test_cli_train_on_the_card_raises_without_one(tmp_path):
