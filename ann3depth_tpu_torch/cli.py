@@ -1,6 +1,6 @@
 """Command line of the PyTorch port.
 
-Counterpart of `ann3depth_tpu/cli.py`, with the subcommands ported so far:
+Counterpart of `ann3depth_tpu/cli.py`, with every one of its subcommands:
 
     python -m ann3depth_tpu_torch train --config make3d-encdec --steps 50 \\
         --datasets synthetic --synth-hw 480 640 --synth-depth-hw 305 55
@@ -34,15 +34,20 @@ Counterpart of `ann3depth_tpu/cli.py`, with the subcommands ported so far:
     python -m ann3depth_tpu_torch eval --config make3d-encdec --device cpu \
         --coordinator 127.0.0.1:29500 --num-processes 2 --process-id 1
     python -m ann3depth_tpu_torch serve --config make3d-encdec --dp 0
+    python -m ann3depth_tpu_torch sweep --config make3d-encdec --steps 200 \\
+        --param train.learning_rate=1e-4,3e-4 --out-dir sweeps/lr
+    python -m ann3depth_tpu_torch info --config dpt-384 --flops
+    python -m ann3depth_tpu_torch download --dataset make3d --data-dir data
 
-Every subcommand but `prepare` takes the JAX CLI's shared flags (`_COMMON_FLAGS`, the
-JAX `_common_flags`) and its own, plus --device (default cuda; it raises
-when no card is present, unless --device cpu is given). `train` and `eval`
-join a process group with --multihost (torchrun's environment) or
---coordinator/--num-processes/--process-id, one process per device (NCCL
-on the card, gloo with --device cpu; --dist-backend gloo also runs CUDA
-tensors, so several ranks can share a card). Flags of options the port
-lacks stop with "not ported yet".
+Every subcommand but `prepare` and `download` takes the JAX CLI's shared
+flags (`_COMMON_FLAGS`, the JAX `_common_flags`) and its own, plus --device
+(default cuda; it raises when no card is present, unless --device cpu is
+given). `train` and `eval` join a process group with --multihost
+(torchrun's environment) or --coordinator/--num-processes/--process-id,
+one process per device (NCCL on the card, gloo with --device cpu;
+--dist-backend gloo also runs CUDA tensors, so several ranks can share a
+card). `bench` stops with a message: the benchmark suite (benchmarks/)
+drives the JAX package only.
 """
 
 from __future__ import annotations
@@ -80,6 +85,7 @@ _COMMON_FLAGS = (
     ("--cache-device", "flag", "data", "cache_device"),
     ("--cache-window-mb", int, "data", "cache_window_mb"),
     ("--window-epochs", _window_epochs, "data", "window_epochs"),
+    ("--preprocess-impl", str, "data", "preprocess_impl"),
     ("--ckpt-dir", str, "train", "ckpt_dir"),
     ("--batch-size", int, "train", "batch_size"),
     ("--grad-accum", int, "train", "grad_accum"),
@@ -126,9 +132,13 @@ _CHOICES = {"--loss": ["si", "si+grad", "l2", "berhu"],
             "--schedule": ["cosine", "constant"],
             "--optimizer": ["adamw", "adam", "sgd"],
             "--quant": ["none", "int8", "int8-qat"],
+            "--preprocess-impl": ["xla", "pallas"],
             "--colormap": COLORMAPS}
-# JAX CLI flags of paths the port lacks and that map onto no config field.
-_NOT_PORTED_COMMON = ("--preprocess-impl",)
+_HELP = {"--preprocess-impl":
+         "device preprocess implementation (DataConfig.preprocess_impl). "
+         "Both values compute the same function, as in the JAX package, "
+         "and run the same code: the CUDA kernel (csrc/fused_preprocess.cu) "
+         "on the card, its plain PyTorch version with --device cpu"}
 
 
 def _dest(flag):
@@ -151,13 +161,7 @@ def _add_flags(p, table):
                            metavar=("H", "W"))
         else:
             p.add_argument(flag, dest=dest, type=kind,
-                           choices=_CHOICES.get(flag))
-
-
-def _not_ported(p, flags):
-    for flag in flags:
-        p.add_argument(flag, dest=_dest(flag), nargs="?", const=True,
-                       default=None, help="not ported yet")
+                           choices=_CHOICES.get(flag), help=_HELP.get(flag))
 
 
 def _common_flags(p):
@@ -165,7 +169,6 @@ def _common_flags(p):
     p.add_argument("--config", default="make3d-encdec",
                    choices=sorted(cfglib.PRESETS), help="named preset")
     _add_flags(p, _COMMON_FLAGS)
-    _not_ported(p, _NOT_PORTED_COMMON)
     p.add_argument("--ckpt-step", type=int, metavar="N",
                    help="use the checkpoint saved at step N instead of the "
                         "latest (eval/infer/live/serve; train reads "
@@ -385,17 +388,52 @@ def build_parser() -> argparse.ArgumentParser:
                          "modes; artifacts carry their own)")
     ps.add_argument("--no-warmup", action="store_true",
                     help="skip running every batch bucket at startup")
+
+    pn = sub.add_parser("info", help="inspect a model/config: parameter "
+                        "count, shapes, registry, optional FLOPs")
+    _common_flags(pn)
+    pn.add_argument("--flops", action="store_true",
+                    help="also count the forward pass's FLOPs per image "
+                         "(torch.utils.flop_counter) and report the "
+                         "card's dense bf16 peak where it is known")
+
+    pd = sub.add_parser("download", help="fetch + extract datasets")
+    pd.add_argument("--dataset", required=True, choices=["make3d", "nyu"])
+    pd.add_argument("--data-dir", default="data")
+    pd.add_argument("--record-checksums", action="store_true",
+                    help="after verification, write the staged archives' "
+                         "sha256 into <data-dir>/<dataset>/checksums.json; "
+                         "every later verify enforces them (first verified "
+                         "staging becomes a hard integrity gate)")
+
+    pb = sub.add_parser("bench", help="run the benchmark suite (JAX "
+                        "package only; stops in the port)")
+    _common_flags(pb)
+    pb.add_argument("--serving", action="store_true",
+                    help="measure inference throughput (bench_infer) "
+                         "instead of training")
+
+    pw = sub.add_parser(
+        "sweep", help="hyperparameter grid search: sequential train+eval "
+        "trials over --param axes, ledger in <out-dir>/sweep.jsonl, best "
+        "trial in summary.json")
+    _common_flags(pw)
+    pw.add_argument("--param", action="append", default=[],
+                    metavar="dotted.path=v1,v2,...", required=True,
+                    help="one grid axis over a config field, e.g. "
+                         "train.learning_rate=1e-4,3e-4 (repeatable; the "
+                         "grid is the cartesian product)")
+    pw.add_argument("--out-dir", required=True,
+                    help="sweep root: per-trial subdirs + sweep.jsonl + "
+                         "summary.json")
+    pw.add_argument("--metric", default="rmse",
+                    help="eval metric that ranks trials (rmse, abs_rel, "
+                         "sq_rel, log10, rmse_log, silog, loss minimize; "
+                         "delta1-3 maximize). default: rmse")
+    pw.add_argument("--max-eval-batches", type=int,
+                    help="bound each trial's eval (full test split "
+                         "otherwise)")
     return ap
-
-
-def _refuse_not_ported(args):
-    """Stop on the flags of options the port lacks (--cache-device is
-    eval's device-resident test pool and --tp a training option; the
-    other paths ignore them, as in the JAX CLI)."""
-    given = [f for f in _NOT_PORTED_COMMON
-             if getattr(args, _dest(f)) is not None]
-    if given:
-        raise SystemExit(f"{', '.join(given)}: not ported yet")
 
 
 def make_service(args):
@@ -416,7 +454,6 @@ def make_service(args):
                 "at export time)")
         return serverlib.service_from_artifact(args.artifact, **svc_kw)
     cfg = resolve_config(args)
-    _refuse_not_ported(args)
     return serverlib.service_from_config(
         cfg, init=args.init, raw_hw=tuple(args.raw_hw), use_ema=args.ema,
         ckpt_step=args.ckpt_step, dp=args.dp, **svc_kw)
@@ -426,7 +463,6 @@ def train_main(args):
     if args.ckpt_step is not None:
         raise SystemExit("train reads checkpoints via --resume or "
                          "--resume-step, not --ckpt-step")
-    _refuse_not_ported(args)
     if not args.distill_from and any(
             getattr(args, k) is not None
             for k in ("distill_model", "distill_width_mult",
@@ -447,7 +483,6 @@ def eval_main(args):
     from ann3depth_tpu_torch.train import loop
 
     cfg = resolve_config(args)
-    _refuse_not_ported(args)
     _join_group(args)
     common = dict(max_batches=args.max_batches,
                   report_worst=args.report_worst, tta=args.tta,
@@ -500,7 +535,6 @@ def live_main(args):
     from ann3depth_tpu_torch.live import viewer
 
     cfg = resolve_config(args)
-    _refuse_not_ported(args)
     stats = viewer.run(cfg, camera=args.camera, video=args.video,
                        display=not args.no_display,
                        max_frames=args.max_frames, record=args.record,
@@ -515,7 +549,6 @@ def infer_main(args):
     if bool(args.image) == bool(args.video):
         raise SystemExit("infer needs exactly one of --image or --video")
     cfg = resolve_config(args)
-    _refuse_not_ported(args)
     if args.video:
         from ann3depth_tpu_torch.live import transcode
 
@@ -601,7 +634,6 @@ def export_main(args):
     from ann3depth_tpu_torch.train import loop
 
     cfg = resolve_config(args)
-    _refuse_not_ported(args)
     if args.avg_last and args.ckpt_step is not None:
         raise SystemExit("--avg-last and --ckpt-step are exclusive")
     if args.init:
@@ -641,9 +673,92 @@ def serve_main(args):
     return 0
 
 
+def info_main(args):
+    """Parameter count, shapes and registry of a config's model (one
+    forward on --device); with --flops its FLOPs per image and, on a card
+    of utils/flops.PEAK_BF16_FLOPS, the card's peak. Prints one JSON
+    line with the JAX CLI's keys."""
+    if args.ckpt_step is not None:
+        raise SystemExit("info inspects the model definition, not a "
+                         "checkpoint; --ckpt-step has no effect")
+    import torch
+
+    from ann3depth_tpu_torch.device import resolve_device
+    from ann3depth_tpu_torch.models import registry
+    from ann3depth_tpu_torch.train import loop
+    from ann3depth_tpu_torch.train import step as steplib
+    from ann3depth_tpu_torch.utils import flops as flopslib
+
+    cfg = resolve_config(args)
+    dev = resolve_device(args.device)
+    model = steplib.init_params(registry.build(cfg.model),
+                                cfg.data.input_hw, device=dev).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    x = torch.zeros((1, *cfg.data.input_hw, 3), device=dev)
+    with torch.no_grad():
+        out = model(x)
+    info = {
+        "model": cfg.model.name,
+        "config": args.config,
+        "compute_dtype": cfg.model.compute_dtype,
+        "quant": cfg.model.quant,
+        "params": n_params,
+        "params_mib_f32": round(n_params * 4 / 2**20, 2),
+        "input_hw": list(cfg.data.input_hw),
+        "output_hw": list(out.shape[1:3]),
+        "target_hw": list(loop.resolved_target_hw(cfg)),
+        "batch_size": cfg.train.batch_size,
+        "registry": registry.available(),
+    }
+    if args.flops:
+        fl = flopslib.forward_flops(model, x)
+        info["forward_gflops_per_image"] = round(fl / 1e9, 3)
+        peak = flopslib.device_peak_flops(dev)
+        if peak:
+            info["device_peak_tflops"] = round(peak / 1e12, 1)
+            info["device_kind"] = torch.cuda.get_device_name(dev)
+    print(json.dumps(info), flush=True)
+    return 0
+
+
+def download_main(args):
+    from ann3depth_tpu_torch.data import download
+
+    download.download(args.dataset, args.data_dir,
+                      record=args.record_checksums)
+    return 0
+
+
+def bench_main(args):
+    raise SystemExit(
+        "bench is not part of the PyTorch port: the benchmark suite "
+        "(benchmarks/bench_train.py, bench_infer.py) drives the JAX "
+        "package; run `python -m ann3depth_tpu bench` for it, and "
+        "chip_smoke.py for the port's measurements on the card")
+
+
+def sweep_main(args):
+    """Grid search (sweep.run_sweep) on --device; prints the best row, the
+    trial count and the summary's path. Joins no process group."""
+    from ann3depth_tpu_torch import sweep as sweeplib
+
+    cfg = resolve_config(args)
+    grid = [sweeplib.parse_param(spec) for spec in args.param]
+    result = sweeplib.run_sweep(cfg, grid, args.out_dir, metric=args.metric,
+                                max_eval_batches=args.max_eval_batches,
+                                device=args.device)
+    print(json.dumps({"best": result["best"],
+                      "n_trials": len(result["rows"]),
+                      "summary": result["summary_path"]}), flush=True)
+    return 0
+
+
 _MODES = {"train": train_main, "eval": eval_main, "live": live_main,
           "infer": infer_main, "serve": serve_main, "prepare": prepare_main,
-          "export": export_main}
+          "export": export_main, "info": info_main,
+          "download": download_main, "bench": bench_main,
+          "sweep": sweep_main}
+
 
 
 def main(argv=None):

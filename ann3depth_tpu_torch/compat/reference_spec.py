@@ -7,6 +7,8 @@ same (tests/test_torch_preprocess.py compares them).
 
 from __future__ import annotations
 
+import dataclasses
+
 # Canonical tensor shapes: 320x240 RGB input, 160x120 depth target.
 # Layout convention at every public function: NHWC, H=rows, W=cols.
 INPUT_H = 240
@@ -54,6 +56,11 @@ DEFAULT_ADAM_B2 = 0.999
 # Bilinear resizes use half-pixel centers everywhere.
 RESIZE_ALIGN_CORNERS = False
 
+# Eval metrics sum their statistics over all valid pixels of the split and
+# finalize once ("global-pixel"); the eval loss is the mean over images of
+# the per-image loss.
+EVAL_ACCUMULATION = "global-pixel"
+
 # Literature eval crops (--crop eigen|garg): fractions of the depth map's
 # (H, W) as (top, bottom, left, right); metrics count only rows
 # [top*H, bottom*H) and columns [left*W, right*W).
@@ -61,3 +68,20 @@ EVAL_CROPS = {
     "eigen": (0.3324324, 0.91351351, 0.0359477, 0.96405229),
     "garg": (0.40810811, 0.99189189, 0.03594771, 0.96405229),
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class ReferenceSpec:
+    """Bundled view of the constants for code that wants one object."""
+
+    input_h: int = INPUT_H
+    input_w: int = INPUT_W
+    target_h: int = TARGET_H
+    target_w: int = TARGET_W
+    rgb_mean: tuple = RGB_MEAN
+    rgb_std: tuple = RGB_STD
+    si_loss_lambda: float = SI_LOSS_LAMBDA
+    depth_cap: float = MAKE3D_DEPTH_CAP
+
+
+SPEC = ReferenceSpec()

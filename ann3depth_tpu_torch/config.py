@@ -20,7 +20,7 @@ class DataConfig:
     data_dir: str = "data"
     input_hw: Tuple[int, int] = (ref.INPUT_H, ref.INPUT_W)
     augment: bool = False
-    preprocess_impl: str = "xla"   # "xla" | "pallas" (JAX package only)
+    preprocess_impl: str = "xla"   # "xla" | "pallas": the same code here
     prefetch: int = 2
     use_grain: bool = False
     num_workers: int = 0

@@ -21,6 +21,10 @@ uses numpy and torch only.
                                    ->  block0.attn.out.weight [E, H*D]
     fuse1/Conv_0/kernel            ->  fuse1.conv_skip.weight
     pos_embed                      ->  pos_embed
+
+`flax_name`, `flax_layout` and `to_flax` are the inverse: a torch
+state_dict -> flax paths and flax-layout arrays (the attention kernels need
+the heads count to split H*D back into (H, D)).
 """
 
 from __future__ import annotations
@@ -41,6 +45,8 @@ _MODULE_NAMES = {"GroupNorm_0": "norm", "LayerNorm_0": "norm1",
                  "Conv_1": "conv1", "Conv_2": "conv2"}
 _LEAF_NAMES = {"kernel": "weight", "scale": "weight", "bias": "bias",
                "pos_embed": "pos_embed"}
+_FLAX_MODULES = {v: k for k, v in _MODULE_NAMES.items()}
+_NORMS = ("GroupNorm_0", "LayerNorm_0", "LayerNorm_1")
 
 
 def flatten(tree, prefix=""):
@@ -77,6 +83,52 @@ def _torch_layout(key: str, a: np.ndarray) -> np.ndarray:
     if key.endswith("/bias") and a.ndim == 2:     # (H, D) -> [H*D]
         return a.reshape(-1)
     return a
+
+
+def flax_name(torch_key: str) -> str:
+    """Inverse of `torch_name`. A top-level module keeps its own name (the
+    small net's `conv1` is flax's `conv1`; a fusion block's `conv1` is
+    `Conv_1`); `weight` is a norm's `scale`, else a `kernel`."""
+    *mods, leaf = torch_key.split(".")
+    if leaf == "pos_embed" and not mods:
+        return leaf
+    if leaf not in ("weight", "bias"):
+        raise KeyError(f"no flax name for torch param {torch_key!r}")
+    mods = mods[:1] + [_FLAX_MODULES.get(m, m) for m in mods[1:]]
+    if leaf == "weight":
+        leaf = "scale" if mods[-1] in _NORMS else "kernel"
+    return "/".join(mods + [leaf])
+
+
+def flax_layout(key: str, a: np.ndarray, heads=None) -> np.ndarray:
+    """Inverse of `_torch_layout`: a torch parameter in the layout of its
+    flax leaf `key`. `heads` splits an attention projection's H*D."""
+    attn = "/MultiHeadDotProductAttention_0/" in key
+    if attn and heads is None:
+        raise ValueError(f"{key}: the attention layout needs heads")
+    if key.endswith("/kernel"):
+        if a.ndim == 4:                      # conv OIHW -> HWIO
+            return a.transpose(2, 3, 1, 0)
+        if attn and key.endswith("/out/kernel"):   # [E, H*D] -> (H, D, E)
+            return a.T.reshape(heads, -1, a.shape[0])
+        if attn:                                   # [H*D, E] -> (E, H, D)
+            return a.T.reshape(a.shape[1], heads, -1)
+        if a.ndim == 2:                      # Dense [out, in] -> [in, out]
+            return a.T
+    if attn and key.endswith("/bias") and not key.endswith("/out/bias"):
+        return a.reshape(heads, -1)               # [H*D] -> (H, D)
+    return a
+
+
+def to_flax(state_dict, heads=None) -> dict:
+    """A torch state_dict -> {flax path: f32 numpy array in flax layout},
+    the flat form of the flax params tree `to_state_dict` takes."""
+    out = {}
+    for name, t in state_dict.items():
+        key = flax_name(name)
+        a = t.detach().to("cpu", torch.float32).numpy()
+        out[key] = np.ascontiguousarray(flax_layout(key, a, heads))
+    return out
 
 
 def to_state_dict(params) -> dict:

@@ -108,7 +108,7 @@ class Make3DDataset:
         if not ids:
             raise FileNotFoundError(
                 f"no paired Make3D examples under {base} (split={split}); "
-                f"run `python -m ann3depth_tpu download --dataset make3d` "
+                f"run `python -m ann3depth_tpu_torch download --dataset make3d` "
                 f"or stage archives manually (data/download.py)")
         dropped = (len(imgs) - len(ids), len(deps) - len(ids))
         if any(dropped):

@@ -47,7 +47,7 @@ class NYUDataset:
         self.path = path or os.path.join(data_dir, "nyu", MAT_NAME)
         if not os.path.exists(self.path):
             raise FileNotFoundError(
-                f"{self.path} not found; run `python -m ann3depth_tpu "
+                f"{self.path} not found; run `python -m ann3depth_tpu_torch "
                 f"download --dataset nyu` or stage the file manually")
         import h5py
 

@@ -29,6 +29,17 @@ DPT_SMALL = dict(dim=128, depth=6, heads=4, fusion_features=64,
                  tap_layers=(1, 2, 4, 5))
 
 
+def register(name):
+    """Class decorator: add a model class to the registry under `name`.
+    `build` constructs it with the registry's keywords (compute_dtype, and
+    remat for every name but "small"); `output_hw` and
+    `s2d_input_factor` read its `output_hw` and `S2D_INPUT_FACTOR`."""
+    def deco(cls):
+        _CLASSES[name] = cls
+        return cls
+    return deco
+
+
 def available():
     return sorted(_CLASSES)
 

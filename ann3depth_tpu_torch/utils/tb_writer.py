@@ -10,7 +10,7 @@ warning. JSONL (utils/metrics_writer.py) stays the primary sink.
 from __future__ import annotations
 
 import logging
-from typing import Mapping
+from typing import Mapping, Optional
 
 import numpy as np
 
@@ -50,3 +50,7 @@ class TensorBoardWriter:
         if self._writer is not None:
             self._writer.close()
             self._writer = None
+
+
+def maybe_tb_writer(logdir: Optional[str]) -> Optional[TensorBoardWriter]:
+    return TensorBoardWriter(logdir) if logdir else None

@@ -123,6 +123,25 @@ last line is printed:
    (b8 each) against one process at b8 within EVAL_METRIC_RTOL. Each rank times a gradient all-reduce of its model's
    size on gloo. Phase 2 holds v1 at the per-rank shapes.
 
+12. The tools, through the port's CLI at full width: `info --flops` of
+   make3d-encdec, make3d-multiscale, make3d-small and dpt-384 (the params
+   the training phases count, the output shape the model gives, the
+   card's bf16 peak); `sweep` of make3d-encdec (b16, Make3D-shaped
+   synthetic scenes) over two learning rates and two losses, 20 steps and
+   2 eval batches a trial, each trial's v1 launches, wall time, images/s
+   and peak memory (within 10% of the first trial's), then the same grid
+   again (every trial skipped, no launch), and trial 0 against `train` +
+   `eval` of its overrides in fresh directories, bit for bit; `download`
+   of four staged Make3D archives (48 scenes: 480x640 JPEGs and 55x305x4
+   Position3DGrid .mat files, 32 train and 16 test), recording then
+   verifying their sums, and of NYU's staged labeled file (phase 8's, or
+   a v7.3 header stand-in where h5py is missing), then 10 train steps of
+   make3d-encdec from the extracted tree and `eval` of its Test134/; and
+   5 train steps at each `--preprocess-impl`, equal bit for bit. The TF
+   checkpoint import (compat/tf_ckpt_import.py) is not driven: the card's
+   machine has no tensorflow (tests/test_torch_tf_import.py holds it on
+   the CPU).
+
 The last lines are one `{"kernels": [...]}` JSON line, the nvidia-smi line
 of the card, and `{"ok": true, "device": {...}}`.
 """
@@ -139,7 +158,7 @@ import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
-BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor cores
+H100 = "NVIDIA H100 80GB HBM3"  # whose dense bf16 peak utils/flops.py holds
 F32_FLOPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 IMAGE_TOL = 1e-4              # normalized units; both sides are f32
 DEPTH_TOL = 1e-3              # metres
@@ -280,6 +299,17 @@ EVAL_POOL_RTOL = 1e-6
 QUANT_BATCH = {"make3d-encdec": 32, "dpt-384": 16}
 QAT_STEPS, QAT_POOL_STEPS, QAT_K, QAT_POOL_SCENES = 20, 30, 10, 32
 EXPORT_BATCH, EXPORT_RTOL = 8, 1e-6
+# Phase 12. `info` of each family must count the params its training
+# prints; the sweep runs the grid of SWEEP_PARAMS (4 trials of SWEEP_STEPS
+# steps, SWEEP_EVAL_BATCHES eval batches each), every trial's peak memory
+# within SWEEP_PEAK_RTOL of the first's; the Make3D tree holds TREE_SPLIT
+# scenes (train, test) and trains TREE_STEPS steps; each --preprocess-impl
+# value trains IMPL_STEPS steps.
+INFO_PARAMS = {"make3d-encdec": 1_417_665, "make3d-multiscale": 1_454_082,
+               "make3d-small": 21_505, "dpt-384": 23_408_641}
+SWEEP_PARAMS = ("train.learning_rate=1e-4,3e-4", "train.loss=si,berhu")
+SWEEP_STEPS, SWEEP_EVAL_BATCHES, SWEEP_PEAK_RTOL = 20, 2, 0.10
+TREE_SPLIT, TREE_STEPS, IMPL_STEPS = (32, 16), 10, 5
 
 
 def check(cond, msg):
@@ -912,6 +942,7 @@ def train_slice(torch, np, fp, card, tmp, cfg=None,
     from ann3depth_tpu_torch.train import loop
     from ann3depth_tpu_torch.train import step as steplib
     from ann3depth_tpu_torch.train.checkpoint import CheckpointManager
+    from ann3depth_tpu_torch.utils import flops as flopslib
 
     dev = torch.device("cuda")
     seen = []  # every step's loss, as device scalars (no extra host sync)
@@ -1018,7 +1049,8 @@ def train_slice(torch, np, fp, card, tmp, cfg=None,
         timed, images, depths))
     profiled = device_profile(torch, lambda: steplib.train_step(
         timed, img, dep, gen, augment=True, **kw), 5, step_ms)
-    flops = step_flops(torch, steplib, timed, images, depths)
+    flops = step_flops(steplib, timed, images, depths)
+    peak_flops = flopslib.PEAK_BF16_FLOPS[H100]
 
     # One step from the same state and batch, fed by the kernel and by the
     # plain preprocess, with the same augmentation draw.
@@ -1047,8 +1079,8 @@ def train_slice(torch, np, fp, card, tmp, cfg=None,
         step_ms=step_ms, images_per_s=batch / step_ms * 1e3,
         preprocess_ms=pre_ms, fwd_bwd_update_ms=update_ms,
         fwd_bwd_flops=flops,
-        mfu_of_step=flops / (step_ms * 1e-3) / BF16_FLOPS_PER_S,
-        mfu_of_fwd_bwd_update=flops / (update_ms * 1e-3) / BF16_FLOPS_PER_S,
+        mfu_of_step=flops / (step_ms * 1e-3) / peak_flops,
+        mfu_of_fwd_bwd_update=flops / (update_ms * 1e-3) / peak_flops,
         max_memory_allocated_bytes=peak,
         device_profile=profiled or "not measured: no kernel in the trace",
         step_loss_kernel=l_kernel, step_loss_plain=l_plain,
@@ -1057,18 +1089,19 @@ def train_slice(torch, np, fp, card, tmp, cfg=None,
     return out, cfg, img, dep
 
 
-def step_flops(torch, steplib, state, images, depths):
+def step_flops(steplib, state, images, depths):
     """FLOPs of one forward and backward of the model on this batch (2 a
     multiply-add, matmuls, convolutions and attention), as
-    torch.utils.flop_counter counts them."""
-    from torch.utils.flop_counter import FlopCounterMode
+    utils/flops.step_flops counts them."""
+    from ann3depth_tpu_torch.utils import flops
 
-    counter = FlopCounterMode(display=False)
-    with counter:
+    def fwd_bwd():
         loss, _ = steplib.loss_fn(state.model, images, depths, 0.5)
         loss.backward()
+
+    n = flops.step_flops(fwd_bwd)
     state.optimizer.zero_grad(set_to_none=True)
-    return counter.get_total_flops()
+    return n
 
 
 def v2_in_step(torch, fp, cfg, img, dep, card, label="instep"):
@@ -3558,6 +3591,324 @@ def parallel_phase(torch, np, fp, card, tmp, encdec_cfg, handoff):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the tools (sweep, info, download, --preprocess-impl).
+# ---------------------------------------------------------------------------
+
+def _encdec_argv(*extra):
+    """`cli` flags of make3d-encdec (b16, full width) on synthetic scenes
+    at Make3D's raw shapes (RGB 480x640, laser grid 305x55)."""
+    return ["--config", "make3d-encdec", "--datasets", "synthetic",
+            "--synth-hw", *map(str, RAW_HW), "--synth-depth-hw",
+            *map(str, MAKE3D_DEPTH_HW), *extra]
+
+
+def info_runs(torch, cli, train):
+    """`cli info --flops` of each family at full width on the card: its
+    params must be the counts the training phases print, its output the
+    shape the model produces, its peak the card's, and the rest what
+    `info --device cpu` prints (FLOPs are counted from shapes)."""
+    from ann3depth_tpu_torch.models import registry
+    from ann3depth_tpu_torch.utils import flops
+
+    kind = torch.cuda.get_device_name(0)
+    peak = flops.PEAK_BF16_FLOPS.get(kind)
+    out = {}
+    for preset, params in INFO_PARAMS.items():
+        info = _cli_json(cli, ["info", "--config", preset, "--flops"])
+        hw = list(registry.output_hw(info["model"], info["input_hw"]))
+        check(info["params"] == params, f"info {preset}: {info['params']} "
+              f"params, the training phases count {params}")
+        check(info["output_hw"] == hw == info["target_hw"],
+              f"info {preset}: output {info['output_hw']}, model {hw}")
+        check(info.get("device_peak_tflops") == (peak and peak / 1e12)
+              and info.get("device_kind") == (peak and kind),
+              f"info {preset}: peak {info.get('device_peak_tflops')} on "
+              f"{kind}")
+        cpu = _cli_json(cli, ["info", "--config", preset, "--flops",
+                              "--device", "cpu"])
+        check(cpu == {k: v for k, v in info.items() if k not in (
+            "device_peak_tflops", "device_kind")},
+            f"info {preset}: the card's {info}, the CPU's {cpu}")
+        out[preset] = {k: info[k] for k in (
+            "params", "input_hw", "output_hw", "forward_gflops_per_image")}
+    # Phase 4 counts a forward and backward of its b16 batch: about three
+    # forwards an image.
+    out["encdec_fwd_bwd_over_forward"] = train["fwd_bwd_flops"] / (
+        train["batch"] * out["make3d-encdec"]["forward_gflops_per_image"]
+        * 1e9)
+    out["device_peak_tflops"] = peak and peak / 1e12
+    return out
+
+
+def sweep_run(torch, np, fp, cli, tmp):
+    """`cli sweep` of make3d-encdec over SWEEP_PARAMS, each trial's train
+    and eval launches, wall time and peak memory read around its
+    `loop.train` and `loop.evaluate`; then the same grid again, which must
+    train nothing; then trial 0 as `cli train` + `cli eval`, which must
+    score the same metrics bit for bit."""
+    from ann3depth_tpu_torch.train import loop
+
+    out_dir = f"{tmp}/sweep"
+    argv = ["sweep", *_encdec_argv("--steps", str(SWEEP_STEPS),
+                                   "--max-eval-batches",
+                                   str(SWEEP_EVAL_BATCHES), "--out-dir",
+                                   out_dir)]
+    for spec in SWEEP_PARAMS:
+        argv += ["--param", spec]
+    trials = []
+    inner_train, inner_eval = loop.train, loop.evaluate
+
+    def train(cfg, **kw):
+        torch.cuda.synchronize()
+        rec = dict(allocated_before_bytes=torch.cuda.memory_allocated(),
+                   steps=cfg.train.steps, batch=cfg.train.batch_size)
+        torch.cuda.reset_peak_memory_stats()
+        fp.fused_preprocess.launches = 0
+        t0 = time.perf_counter()
+        result = inner_train(cfg, **kw)
+        torch.cuda.synchronize()
+        rec["train_s"] = time.perf_counter() - t0
+        rec["train_launches"] = fp.fused_preprocess.launches
+        trials.append(rec)
+        return result
+
+    def evaluate(cfg, **kw):
+        fp.fused_preprocess.launches = 0
+        result = inner_eval(cfg, **kw)
+        torch.cuda.synchronize()
+        trials[-1].update(eval_launches=fp.fused_preprocess.launches,
+                          peak_bytes=torch.cuda.max_memory_allocated())
+        return result
+
+    loop.train, loop.evaluate = train, evaluate
+    try:
+        t0 = time.perf_counter()
+        first = _cli_json(cli, argv)
+        sweep_s = time.perf_counter() - t0
+        fp.fused_preprocess.launches = 0
+        again = _cli_json(cli, argv)
+        rerun_launches = fp.fused_preprocess.launches
+    finally:
+        loop.train, loop.evaluate = inner_train, inner_eval
+    with open(f"{out_dir}/sweep.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    n = int(np.prod([len(s.split("=")[1].split(",")) for s in SWEEP_PARAMS]))
+    check(len(rows) == n == first["n_trials"] == len(trials),
+          f"sweep: {len(rows)} ledger rows, {len(trials)} trials run")
+    best = min(rows, key=lambda r: r["eval"]["rmse"])
+    with open(first["summary"]) as f:
+        summary = json.load(f)
+    check(summary["best"] == best == first["best"],
+          f"sweep: best {first['best']['trial']}, argmin {best['trial']}")
+    for i, rec in enumerate(trials):
+        check(rec["train_launches"] == 2 * SWEEP_STEPS
+              and rec["eval_launches"] == 2 * SWEEP_EVAL_BATCHES,
+              f"sweep trial {i}: v1 launched {rec['train_launches']} times "
+              f"in {SWEEP_STEPS} steps, {rec['eval_launches']} in "
+              f"{SWEEP_EVAL_BATCHES} eval batches")
+        check(abs(rec["peak_bytes"] - trials[0]["peak_bytes"])
+              <= SWEEP_PEAK_RTOL * trials[0]["peak_bytes"],
+              f"sweep trial {i}: peak {rec['peak_bytes']} B against trial "
+              f"0's {trials[0]['peak_bytes']} B")
+        with open(f"{out_dir}/trial_{i:03d}/metrics.jsonl") as f:
+            logged = [r["images_per_sec"] for r in map(json.loads, f)
+                      if "images_per_sec" in r]
+        rec.update(overrides=rows[i]["overrides"], rmse=rows[i]["eval"][
+            "rmse"], images_per_s=rec["steps"] * rec["batch"]
+            / rec["train_s"], loop_images_per_s=logged)
+    check(again["best"] == first["best"] and rerun_launches == 0,
+          f"sweep rerun: v1 launched {rerun_launches} times, best "
+          f"{again['best']['trial']}")
+
+    # Trial 0 standalone, in fresh directories, through train and eval.
+    flags = []
+    for path, value in rows[0]["overrides"].items():
+        flags += [{"train.learning_rate": "--learning-rate",
+                   "train.loss": "--loss"}[path], str(value)]
+    ckpt = f"{tmp}/sweep_alone"
+    _cli_json(cli, ["train", *_encdec_argv("--steps", str(SWEEP_STEPS),
+                                           "--ckpt-dir", ckpt, *flags)])
+    alone = _cli_json(cli, ["eval", *_encdec_argv(
+        "--ckpt-dir", ckpt, "--max-batches", str(SWEEP_EVAL_BATCHES),
+        *flags)])
+    check(alone == rows[0]["eval"], f"sweep trial 0 scored "
+          f"{rows[0]['eval']}, its train + eval {alone}")
+    return dict(trials=trials, sweep_s=sweep_s, best=first["best"],
+                rerun_launches=rerun_launches, alone_equal=True)
+
+
+def _stage_make3d_tree(np, root, seed=6):
+    """The four Make3D archives under <root>/make3d/, from TREE_SPLIT
+    synthetic scenes at Make3D's raw shapes: 480x640 JPEGs and
+    Position3DGrid (55, 305, 4) .mat files, depth in channel 3."""
+    import tarfile
+
+    import scipy.io
+    from PIL import Image
+
+    from ann3depth_tpu_torch.data.synthetic import SyntheticDepthDataset
+
+    scenes = SyntheticDepthDataset(n=sum(TREE_SPLIT), img_hw=RAW_HW,
+                                   depth_hw=MAKE3D_DEPTH_HW, seed=seed)
+    src, base = f"{root}/src", f"{root}/make3d"
+    layout = (("Train400Img.tar.gz", "Train400Img", 0),
+              ("Train400Depth.tgz", "Train400Depth", 0),
+              ("Test134.tar.gz", "Test134", 1),
+              ("Test134Depth.tar.gz", "Gridlaserdata", 1))
+    for _, sub, _ in layout:
+        os.makedirs(f"{src}/{sub}")
+    for i in range(len(scenes)):
+        img, depth = scenes[i]
+        test = i >= TREE_SPLIT[0]
+        sid = f"{'test' if test else 'train'}scene-{i:03d}"
+        Image.fromarray(img).save(
+            f"{src}/{'Test134' if test else 'Train400Img'}/img-{sid}.jpg")
+        grid = np.zeros((*MAKE3D_DEPTH_HW[::-1], 4), np.float32)
+        grid[..., 3] = depth.T
+        scipy.io.savemat(f"{src}/{'Gridlaserdata' if test else 'Train400Depth'}"
+                         f"/depth_sph_corr-{sid}.mat",
+                         {"Position3DGrid": grid})
+    os.makedirs(base)
+    for archive, sub, _ in layout:
+        with tarfile.open(f"{base}/{archive}", "w:gz") as tf:
+            tf.add(f"{src}/{sub}", arcname=sub)
+    return [archive for archive, _, _ in layout]
+
+
+def _stage_nyu(data_dir, root):
+    """NYU's labeled file staged under <root>/nyu: phase 8's v7.3 .mat
+    where it wrote one (h5py), else a stand-in with only what `download`
+    reads, a MATLAB 7.3 userblock and the HDF5 signature at byte 512."""
+    import shutil
+
+    src = f"{data_dir}/nyu/nyu_depth_v2_labeled.mat"
+    dst = f"{root}/nyu/nyu_depth_v2_labeled.mat"
+    os.makedirs(f"{root}/nyu")
+    if os.path.exists(src):
+        shutil.copy(src, dst)
+        return "phase 8's nyu_depth_v2_labeled.mat"
+    with open(dst, "wb") as f:
+        f.write(b"MATLAB 7.3 MAT-file".ljust(116, b" ") + b" " * 8
+                + b"\x00\x02IM" + b"\x00" * 384 + b"\x89HDF\r\n\x1a\n")
+    return "v7.3 header stand-in (no h5py)"
+
+
+def download_run(torch, np, fp, cli, steplib, tmp, train):
+    """`cli download` of staged Make3D archives (recording, then verifying
+    their sums) and of NYU's staged .mat; then make3d-encdec (b16) trains
+    TREE_STEPS steps from the extracted tree and `cli eval` scores its
+    Test134/."""
+    from ann3depth_tpu_torch.data import download
+
+    root = f"{tmp}/tree"
+    t0 = time.perf_counter()
+    archives = _stage_make3d_tree(np, root)
+    stage_s = time.perf_counter() - t0
+    base = ["download", "--dataset", "make3d", "--data-dir", root]
+    t0 = time.perf_counter()
+    check(cli.main(base + ["--record-checksums"]) == 0
+          and cli.main(base) == 0, "download make3d")
+    download_s = time.perf_counter() - t0
+    with open(f"{root}/make3d/{download.RECORDED_NAME}") as f:
+        sums = json.load(f)
+    check(sorted(sums) == sorted(archives), f"recorded sums of {sorted(sums)}")
+    nyu_route = _stage_nyu(f"{tmp}/data", root)
+    check(cli.main(["download", "--dataset", "nyu", "--data-dir", root,
+                    "--record-checksums"]) == 0, "download nyu")
+
+    ckpt = f"{tmp}/tree_ckpt"
+    argv = ["--config", "make3d-encdec", "--datasets", "make3d",
+            "--data-dir", root, "--ckpt-dir", ckpt]
+    fp.fused_preprocess.launches = 0
+    t0 = time.perf_counter()
+    with _recording(fp, steplib) as seen:
+        last = _cli_json(cli, ["train", *argv, "--steps", str(TREE_STEPS),
+                               "--log-every", "5"])
+    train_s = time.perf_counter() - t0
+    launches = fp.fused_preprocess.launches
+    losses = [float(x) for x in seen["losses"]]
+    check(len(losses) == TREE_STEPS and launches == 2 * TREE_STEPS
+          and bool(np.isfinite(losses).all()),
+          f"make3d tree: {len(losses)} steps, {launches} v1 launches, "
+          f"losses {losses}")
+    check(all(c == ((16, *RAW_HW, 3), False) or c == (
+        (16, *MAKE3D_DEPTH_HW, 1), True) for c in seen["calls"]),
+        f"make3d tree: v1 calls {set(seen['calls'])}")
+    with open(f"{ckpt}/metrics.jsonl") as f:
+        ips = [r["images_per_sec"] for r in map(json.loads, f)
+               if "images_per_sec" in r]
+    fp.fused_preprocess.launches = 0
+    ev = _cli_json(cli, ["eval", *argv])
+    eval_launches = fp.fused_preprocess.launches
+    n_batches = TREE_SPLIT[1] // 16
+    check(_all_finite(np, ev) and eval_launches == 2 * n_batches,
+          f"make3d tree eval: {eval_launches} v1 launches, {ev}")
+    return dict(scenes=TREE_SPLIT, stage_s=stage_s, download_s=download_s,
+                nyu_route=nyu_route, steps=TREE_STEPS, train_s=train_s,
+                losses=losses, last=last, loop_images_per_s=ips,
+                phase4_loop_images_per_s=train["loop_images_per_s"],
+                launches=launches, eval=ev, eval_launches=eval_launches)
+
+
+def impl_runs(torch, np, fp, cli, steplib, tmp):
+    """`cli train` for IMPL_STEPS steps with --preprocess-impl xla and
+    pallas from one seed: both must launch v1 twice a step and end on the
+    same losses and params, bit for bit."""
+    out, params = {}, []
+    for impl in ("xla", "pallas"):
+        ckpt = f"{tmp}/impl_{impl}"
+        fp.fused_preprocess.launches = 0
+        with _recording(fp, steplib) as seen:
+            _cli_json(cli, ["train", *_encdec_argv(
+                "--steps", str(IMPL_STEPS), "--ckpt-dir", ckpt,
+                "--preprocess-impl", impl)])
+        out[impl] = dict(losses=[float(x) for x in seen["losses"]],
+                         launches=fp.fused_preprocess.launches)
+        check(len(out[impl]["losses"]) == IMPL_STEPS
+              and out[impl]["launches"] == 2 * IMPL_STEPS,
+              f"--preprocess-impl {impl}: {out[impl]}")
+        saved = torch.load(f"{ckpt}/ckpt_{IMPL_STEPS}.pt", map_location="cpu",
+                           weights_only=False)["model"]
+        params.append(saved)
+    same = out["xla"]["losses"] == out["pallas"]["losses"] and all(
+        torch.equal(params[0][k], params[1][k]) for k in params[0])
+    check(same, f"--preprocess-impl xla and pallas differ: {out}")
+    return dict(out, bitwise_equal=same)
+
+
+def tools_phase(torch, np, fp, card, tmp, train):
+    """Phase 12: `info --flops` of the four families, a `sweep` of
+    make3d-encdec (4 trials) and its rerun, `download` into a Make3D tree
+    that the card trains from, and `--preprocess-impl xla|pallas`. Returns
+    the v1 launches of its paths."""
+    from ann3depth_tpu_torch import cli
+    from ann3depth_tpu_torch.train import step as steplib
+
+    seconds, out = {}, {}
+    for name, fn, args in (
+            ("info", info_runs, (torch, cli, train)),
+            ("sweep", sweep_run, (torch, np, fp, cli, tmp)),
+            ("download", download_run,
+             (torch, np, fp, cli, steplib, tmp, train)),
+            ("preprocess_impl", impl_runs, (torch, np, fp, cli, steplib,
+                                            tmp))):
+        t0 = time.perf_counter()
+        out[name] = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+    out.update(seconds=seconds, card=card)
+    print("tools: " + json.dumps(out), flush=True)
+    return dict(
+        sweep_launches=[dict(train=t["train_launches"],
+                             eval=t["eval_launches"])
+                        for t in out["sweep"]["trials"]],
+        sweep_rerun_launches=out["sweep"]["rerun_launches"],
+        make3d_tree_launches=dict(train=out["download"]["launches"],
+                                  eval=out["download"]["eval_launches"]),
+        preprocess_impl_launches={k: out["preprocess_impl"][k]["launches"]
+                                  for k in ("xla", "pallas")})
+
+
 def main():
     import torch
 
@@ -3616,6 +3967,9 @@ def main():
         t11 = time.perf_counter()
         phase11 = parallel_phase(torch, np, fp, card, tmp, cfg, handoff)
         print(f"phase 11: {time.perf_counter() - t11:.1f} s", flush=True)
+        t12 = time.perf_counter()
+        phase12 = tools_phase(torch, np, fp, card, tmp, train)
+        print(f"phase 12: {time.perf_counter() - t12:.1f} s", flush=True)
 
     def entry(case, **kw):
         """One kernel's entry of the kernels line, from its train case."""
@@ -3641,7 +3995,7 @@ def main():
         pipeline_launches=phase9, host_dispatch=dispatch,
         quant_launches=phase10["quant_launches"],
         export_launches=phase10["export_launches"],
-        parallel_cases=parallel, parallel_launches=phase11)
+        parallel_cases=parallel, parallel_launches=phase11, **phase12)
     v2 = entry(
         cases_v2[1],  # the train shape, b16 augment rows
         name="fused_preprocess_v2",

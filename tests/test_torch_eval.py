@@ -219,19 +219,21 @@ def test_cli_eval(ckpts, tmp_path, capsys):
 
 
 # --tp is a training option now ported: eval ignores it, as the JAX CLI's
-# evaluate scores on its own data mesh (these cases keep their ids).
+# evaluate scores on its own data mesh; --preprocess-impl is accepted and
+# both of its values run the same preprocess (these cases keep their ids).
 @pytest.mark.parametrize("flags,match", [
     (["--protocols", "plain", "--report-dir", "x"], "exclusive"),
     pytest.param(["--cache-device", "--tp", "2"], None,
                  id="flags1-not ported yet"),
     pytest.param(["--quant", "int8", "--tp", "2"], None,
                  id="flags2-not ported yet"),
-    (["--preprocess-impl", "pallas"], "not ported yet"),
+    pytest.param(["--preprocess-impl", "pallas"], None,
+                 id="flags3-not ported yet"),
     pytest.param(["--tp", "2"], None, id="flags4-not ported yet"),
 ])
 def test_cli_eval_refuses(ckpts, flags, match, capsys):
-    """Eval refuses what the port lacks; with --tp it prints the metrics
-    it prints without it."""
+    """Eval refuses what the port lacks; with --tp or --preprocess-impl it
+    prints the metrics it prints without them."""
     _, tcfg = ckpts
     argv = ["eval"] + CLI_SMALL + ["--ckpt-dir", tcfg.train.ckpt_dir]
     if match is not None:
@@ -239,7 +241,8 @@ def test_cli_eval_refuses(ckpts, flags, match, capsys):
             cli.main(argv + flags)
         return
     printed = []
-    for extra in (flags, [f for f in flags if f not in ("--tp", "2")]):
+    ignored = ("--tp", "2", "--preprocess-impl", "pallas")
+    for extra in (flags, [f for f in flags if f not in ignored]):
         assert cli.main(argv + extra) == 0
         printed.append(json.loads(
             capsys.readouterr().out.strip().splitlines()[-1]))

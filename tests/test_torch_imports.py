@@ -41,7 +41,9 @@ def test_port_files_found():
                    "train/dispatch.py", "ops/quant.py", "serving.py",
                    "parallel/multihost.py", "parallel/mesh.py",
                    "parallel/shard_step.py", "parallel/zero1.py",
-                   "parallel/sharding_rules.py"):
+                   "parallel/sharding_rules.py", "sweep.py",
+                   "data/download.py", "compat/tf_ckpt_import.py",
+                   "utils/flops.py"):
         assert f"ann3depth_tpu_torch/{module}" in PORT_FILES
     assert len(PORT_FILES) > 10
 
@@ -60,6 +62,15 @@ def test_import_checker_catches_forbidden_imports():
                     "import triton\ndef f():\n    import triton\n")
     assert list(_imports(bad)) == [("jax", True), ("ann3depth_tpu", True),
                                    ("triton", True), ("triton", False)]
+
+
+def test_tf_import_module_imports_no_tensorflow():
+    """tensorflow is imported where a checkpoint is read, never when the
+    module is (it takes seconds, and the card's machine has none)."""
+    code = ("import sys; import ann3depth_tpu_torch.compat.tf_ckpt_import; "
+            "assert 'tensorflow' not in sys.modules")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=300)
 
 
 def test_chip_smoke_without_a_card_fails_and_prints_no_result():

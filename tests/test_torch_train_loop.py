@@ -38,7 +38,8 @@ from ann3depth_tpu_torch.train import step as tstep
 
 ROOT = Path(__file__).resolve().parent.parent
 COPIES = ["data/batching.py", "data/synthetic.py", "data/make3d.py",
-          "data/records.py", "data/nyu.py", "utils/metrics_writer.py"]
+          "data/records.py", "data/nyu.py", "utils/metrics_writer.py",
+          "data/download.py"]
 
 
 # ---------------------------------------------------------------------------
@@ -52,8 +53,10 @@ def test_copy_is_the_original_up_to_imports(path):
     note = re.compile(r"\n\nA copy of `ann3depth_tpu/[^`]+`, so that the "
                       r"port imports nothing of\nthe JAX package; [^\n]+\n")
     assert len(note.findall(copy)) == 1, "the copy names its original"
+    # The copies' messages point the user at the port's own CLI.
     copy = note.sub("\n", copy).replace("ann3depth_tpu_torch.",
-                                        "ann3depth_tpu.")
+                                        "ann3depth_tpu.").replace(
+        "python -m ann3depth_tpu_torch ", "python -m ann3depth_tpu ")
     assert copy == orig
 
 
@@ -416,13 +419,15 @@ def test_cli_resolves_the_jax_flags():
     assert args.device == "cuda"  # the card unless asked otherwise
 
 
-# What each flag does now: --zero1 trains (one process: one chunk); the
-# others stop with the JAX CLI's refusal or the port's own.
+# What each flag does now: --zero1 trains (one process: one chunk);
+# --preprocess-impl is accepted and trains as the run without it does
+# (both values run the same preprocess), bit for bit; the others stop with
+# the JAX CLI's refusal or the port's own.
 CLI_FLAG_OUTCOMES = {
     "--zero1": None,
     "--multihost": (ValueError, "no process group to join"),
     "--tp": (ValueError, "requires a dpt-family model"),
-    "--preprocess-impl": (SystemExit, "not ported yet"),
+    "--preprocess-impl": "same",
     "--coordinator": (ValueError, "--coordinator needs --num-processes"),
     "--distill-model": (SystemExit, "distill-from"),
 }
@@ -437,6 +442,19 @@ def test_cli_flags_outside_the_slice_exit(tmp_path, flags, capsys):
     argv = CLI_SMALL + ["--steps", "1", "--ckpt-dir", str(tmp_path / "c"),
                         "--device", "cpu"] + flags
     outcome = CLI_FLAG_OUTCOMES[flags[0]]
+    if outcome == "same":
+        printed = []
+        for name, extra in (("a", flags), ("b", [])):
+            assert cli.main(CLI_SMALL + ["--steps", "1", "--ckpt-dir",
+                                         str(tmp_path / name), "--device",
+                                         "cpu"] + extra) == 0
+            printed.append(json.loads(
+                capsys.readouterr().out.strip().splitlines()[-1]))
+        assert printed[0] == printed[1]
+        assert np.isfinite(printed[0]["loss"])
+        assert cli.resolve_config(cli.build_parser().parse_args(
+            argv)).data.preprocess_impl == "pallas"
+        return
     if outcome is None:
         assert cli.main(argv) == 0
         metrics = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
