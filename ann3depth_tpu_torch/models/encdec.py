@@ -14,6 +14,12 @@ matmul (see `UpStage`). With quant "int8" every stage conv is an int8
 `ops.quant.QConv` (the head stays f32), with "int8-qat" its fake-quant
 training twin; the params are the same under every quant.
 
+The JAX model's variant fields: `norm="none"` drops each stage's GroupNorm
+(and its params); `upsample="resize"` makes the decoder's x2 an
+`F.interpolate` bilinear in the compute dtype, cast as JAX's
+`.astype(dtype)`; `UpStage(refine=True)` adds a residual 3x3 conv after
+the skip. The defaults ("group", "matmul", no refine) are the registry's.
+
 Public layout is the JAX package's: NHWC in, NHWC out. Inside, tensors are
 NCHW in channels_last memory, which is the same bytes as NHWC, so the
 permutes at the edges are free. Params are f32; with compute_dtype bf16 the
@@ -138,45 +144,67 @@ def make_conv(in_ch, out_ch, kernel, stride=1, quant="none"):
 
 
 class Stage(nn.Module):
-    """Encoder stage: strided conv -> GroupNorm -> relu -> conv -> relu."""
+    """Encoder stage: strided conv -> GroupNorm -> relu -> conv -> relu.
+    norm "none": no GroupNorm (and no norm params)."""
 
-    def __init__(self, in_ch, features, stride=2, quant="none"):
+    def __init__(self, in_ch, features, stride=2, quant="none", norm="group"):
         super().__init__()
+        if norm not in ("group", "none"):
+            raise ValueError(f"norm must be 'group' or 'none', not {norm!r}")
         self.conv_down = make_conv(in_ch, features, 3, stride, quant)
-        self.norm = nn.GroupNorm(8, features, eps=1e-6)
+        self.norm = (nn.GroupNorm(8, features, eps=1e-6) if norm == "group"
+                     else None)
         self.conv_refine = make_conv(features, features, 3, quant=quant)
 
     def forward(self, x):
         x = self.conv_down(x)
-        x = F.group_norm(x.float(), self.norm.num_groups, self.norm.weight,
-                         self.norm.bias, self.norm.eps).to(x.dtype)
+        if self.norm is not None:
+            x = F.group_norm(x.float(), self.norm.num_groups,
+                             self.norm.weight, self.norm.bias,
+                             self.norm.eps).to(x.dtype)
         x = F.relu(x)
         y = self.conv_refine(x)
         return F.relu(x + y)
 
 
 class UpStage(nn.Module):
-    """Decoder stage: 1x1 projection at low res -> bilinear x2 -> 3x3 conv
-    + 1x1-projected additive skip."""
+    """Decoder stage: 1x1 projection at low res -> bilinear x2 (by
+    `upsample`: "matmul" or "resize") -> 3x3 conv + 1x1-projected additive
+    skip; with `refine`, a 3x3 conv added back (relu after)."""
 
-    def __init__(self, in_ch, skip_ch, features, quant="none"):
+    def __init__(self, in_ch, skip_ch, features, quant="none",
+                 upsample="matmul", refine=False):
         super().__init__()
+        if upsample not in ("matmul", "resize"):
+            raise ValueError(f"upsample must be 'matmul' or 'resize', not "
+                             f"{upsample!r}")
+        self.upsample = upsample
         self.proj_down = make_conv(in_ch, features, 1, quant=quant)
         self.conv_up = make_conv(features, features, 3, quant=quant)
         self.proj_skip = make_conv(skip_ch, features, 1, quant=quant)
+        self.conv_refine = (make_conv(features, features, 3, quant=quant)
+                            if refine else None)
 
     def forward(self, x, skip):
         x = self.proj_down(x)
-        # NCHW channels_last is NHWC bytes: both permutes are views. The
-        # matmuls run in f32 and the result is rounded once to the compute
-        # dtype. Rounding after each of the two bf16 matmuls, as the JAX
-        # stage does, is the same function but moves the bf16 step further
-        # from the JAX step whenever the two sides' inputs differ by a
-        # rounding (tests/test_torch_train.py).
         with torch.autocast(x.device.type, enabled=False):
-            up = upsample_matmul(x.permute(0, 2, 3, 1).float(), 2)
-        x = self.conv_up(up.to(x.dtype).permute(0, 3, 1, 2))
-        return F.relu(x + self.proj_skip(skip))
+            if self.upsample == "resize":
+                up = F.interpolate(x, scale_factor=2, mode="bilinear",
+                                   align_corners=False)
+            else:
+                # NCHW channels_last is NHWC bytes: both permutes are
+                # views. The matmuls run in f32 and the result is rounded
+                # once to the compute dtype. Rounding after each of the two
+                # bf16 matmuls, as the JAX stage does, is the same function
+                # but moves the bf16 step further from the JAX step
+                # whenever the two sides' inputs differ by a rounding
+                # (tests/test_torch_train.py).
+                up = upsample_matmul(x.permute(0, 2, 3, 1).float(), 2)
+                up = up.to(x.dtype).permute(0, 3, 1, 2)
+        x = F.relu(self.conv_up(up) + self.proj_skip(skip))
+        if self.conv_refine is not None:
+            x = F.relu(x + self.conv_refine(x))
+        return x
 
 
 class EncDecDepthNet(nn.Module):
@@ -190,7 +218,8 @@ class EncDecDepthNet(nn.Module):
     OUTPUT_STRIDE = 2  # input HW -> output HW ratio
 
     def __init__(self, width_mult=1.0, compute_dtype=torch.bfloat16,
-                 enc_widths=(64, 128, 256), remat=False, quant="none"):
+                 enc_widths=(64, 128, 256), remat=False, quant="none",
+                 norm="group", upsample="matmul"):
         super().__init__()
         self.compute_dtype = compute_dtype
         self.remat = remat
@@ -198,11 +227,11 @@ class EncDecDepthNet(nn.Module):
                        for c in enc_widths]
         w0, w1, w2 = self.widths
         stem = 3 * self.S2D_INPUT_FACTOR ** 2
-        self.enc0 = Stage(stem, w0, stride=1, quant=quant)
-        self.enc1 = Stage(w0, w1, quant=quant)
-        self.enc2 = Stage(w1, w2, quant=quant)
-        self.dec0 = UpStage(w2, w1, w1, quant=quant)
-        self.dec1 = UpStage(w1, w0, w0, quant=quant)
+        self.enc0 = Stage(stem, w0, stride=1, quant=quant, norm=norm)
+        self.enc1 = Stage(w0, w1, quant=quant, norm=norm)
+        self.enc2 = Stage(w1, w2, quant=quant, norm=norm)
+        self.dec0 = UpStage(w2, w1, w1, quant=quant, upsample=upsample)
+        self.dec1 = UpStage(w1, w0, w0, quant=quant, upsample=upsample)
         self.head = Conv(w0, 1, 3, bias=True)  # f32 under every quant
 
     def init_weights(self, generator=None, input_hw=None):

@@ -100,6 +100,23 @@ def upsample_matmul(x, factor: int = 2):
     return torch.einsum("pw,bowc->bopc", ax, y)
 
 
+def upsample_matmul_nhwc(x, factor: int = 2):
+    """`upsample_matmul` as two batched GEMMs on the NHWC bytes: the rows
+    as [B, H, W*C], then the columns as [B*H*f, W, C]. The same function
+    (the same fixed matrices, in x.dtype), but its result is contiguous
+    NHWC, where einsum's is a permuted view that a conv after it copies,
+    and its backward is GEMMs on contiguous operands too. The two round
+    apart by an ulp at some shapes, so encdec, multiscale and live keep
+    `upsample_matmul` and their numbers; only DPT's "matmul" runs this."""
+    b, h, w, c = x.shape
+    ay = _upsample_matrix(h, factor, x.dtype, x.device)
+    ax = _upsample_matrix(w, factor, x.dtype, x.device)
+    y = torch.bmm(ay.expand(b, -1, -1), x.reshape(b, h, w * c))
+    n = b * h * factor
+    y = torch.bmm(ax.expand(n, -1, -1), y.view(n, w, c))
+    return y.view(b, h * factor, w * factor, c)
+
+
 def upsample2x_matmul(x):
     """Bilinear x2 upsample as two fixed matmuls (see upsample_matmul)."""
     return upsample_matmul(x, 2)

@@ -19,6 +19,8 @@ A module is sharded only where its dimension divides the model axis (heads
 for attention, hidden width for the MLP), else replicated, as the JAX
 rules shard a leaf only where its dimension divides the axis. Everything
 else (patch embedding, LayerNorms, reassembly, fusion head) is replicated.
+A `FusedQKVSelfAttention` holds `Attention`'s params under its names and
+is sharded as one: each rank projects its heads with its rows of q/k/v.
 
 A sharded run's checkpoints hold the single-device layout: `gather_state`
 all-gathers the shards of params, optimizer moments and EMA, and
@@ -246,14 +248,17 @@ def tp_twin(model, n):
     sums moves a DPT's answers (PERF.md §6), so the twin, not the
     plain model, is what a tensor-parallel run equals. Param names and
     the state_dict are the plain model's."""
-    from ann3depth_tpu_torch.models.dpt import Attention, MLP
+    from ann3depth_tpu_torch.models.dpt import (MLP, Attention,
+                                                FusedQKVSelfAttention)
 
     if n > 1:
         for block in model.children():
-            for child, twin_cls, kind in (("attn", _TwinAttention, Attention),
-                                          ("mlp", _TwinMLP, MLP)):
+            for child, twin_cls, kinds in (
+                    ("attn", _TwinAttention, (Attention,
+                                              FusedQKVSelfAttention)),
+                    ("mlp", _TwinMLP, (MLP,))):
                 module = getattr(block, child, None)
-                if type(module) is kind and _divides(module, n):
+                if type(module) in kinds and _divides(module, n):
                     setattr(block, child, twin_cls(module, n))
     return model
 
@@ -268,15 +273,18 @@ def shard_params(model, mesh) -> dict:
     """Shard a DPT model's blocks over the mesh's model axis, in place;
     returns the plan {param name: sharded dim}, also kept as
     `model.tp_plan`. A model axis of one rank shards nothing."""
-    from ann3depth_tpu_torch.models.dpt import Attention, MLP
+    from ann3depth_tpu_torch.models.dpt import (MLP, Attention,
+                                                FusedQKVSelfAttention)
 
     plan, n = {}, mesh.n_model
     if n > 1:
         for bname, block in list(model.named_children()):
-            for child, tp_cls, kind in (("attn", TPAttention, Attention),
-                                        ("mlp", TPMLP, MLP)):
+            for child, tp_cls, kinds in (
+                    ("attn", TPAttention, (Attention,
+                                           FusedQKVSelfAttention)),
+                    ("mlp", TPMLP, (MLP,))):
                 module = getattr(block, child, None)
-                if type(module) is not kind or not _divides(module, n):
+                if type(module) not in kinds or not _divides(module, n):
                     continue
                 setattr(block, child, tp_cls(module, mesh))
                 for pname, _ in getattr(block, child).named_parameters():

@@ -62,13 +62,6 @@ class BlockRunner:
 
     def __init__(self, state, sampler, k: int, *, step_kwargs: dict,
                  draw_seed: Callable[[int], int], teacher=None):
-        optimizer = getattr(state.optimizer, "inner", state.optimizer)
-        if isinstance(optimizer, torch.optim.SGD):
-            raise NotImplementedError(
-                f"steps_per_dispatch={k} with optimizer 'sgd': torch's SGD "
-                "applies a tensor learning rate through .item(), which a "
-                "CUDA graph cannot capture; use adamw or adam, or "
-                "steps_per_dispatch 1")
         mesh = state.mesh
         if (mesh is not None and mesh.distributed and sampler.device.type
                 == "cuda" and multihost.backend() == "gloo"):

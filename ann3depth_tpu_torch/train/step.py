@@ -109,11 +109,11 @@ class UpdateRule:
     norm (when clip_norm > 0), sets the learning rate to `schedule(count)`
     (or to a given tensor's value) and steps.
 
-    On the card adamw and adam hold their learning rate in a device tensor
-    and are built with capturable=True, so that a CUDA graph of the step
-    reads the rate of each replay (train/dispatch.py); every step on the
-    card, eager or replayed, runs that arithmetic. On the CPU, and for sgd,
-    the rate is a Python float."""
+    On the card every optimizer holds its learning rate in a device tensor
+    (adamw and adam built with capturable=True, sgd's `CapturableSGD`
+    reads it as a tensor), so that a CUDA graph of the step reads the rate of each replay
+    (train/dispatch.py); every step on the card, eager or replayed, runs
+    that arithmetic. On the CPU the rate is a Python float."""
 
     build: Callable
     schedule: Callable[[int], float]
@@ -175,6 +175,43 @@ def global_norm(tensors):
     return torch.sqrt(sum(t.float().pow(2).sum() for t in tensors))
 
 
+class CapturableSGD(torch.optim.SGD):
+    """optax.sgd after add_decayed_weights, the sgd rule on every device.
+    Per param: g += wd p; t = g + b1 t (no trace when b1 is 0);
+    p -= lr t. On the card the learning rate is a one-element device
+    tensor that no step reads on the host, so that a CUDA graph can
+    capture the step (torch's SGD applies a tensor rate through
+    `.item()`); on the CPU it is a float. The trace is torch's
+    `momentum_buffer` (zeros before the first step, where torch's SGD
+    starts from g: the same values), so the state_dicts of the two load
+    into each other."""
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("CapturableSGD takes no closure")
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            grads = [p.grad for p in params]
+            if group["weight_decay"]:
+                grads = torch._foreach_add(grads, params,
+                                           alpha=group["weight_decay"])
+            if group["momentum"]:
+                bufs = []
+                for p in params:
+                    st = self.state[p]
+                    if st.get("momentum_buffer") is None:
+                        st["momentum_buffer"] = torch.zeros_like(p)
+                    bufs.append(st["momentum_buffer"])
+                torch._foreach_mul_(bufs, group["momentum"])
+                torch._foreach_add_(bufs, grads)
+                grads = bufs
+            torch._foreach_sub_(params, torch._foreach_mul(grads,
+                                                           group["lr"]))
+
+
 def make_inner_optimizer(sched, optimizer="adamw", b1=0.9, b2=0.999,
                          weight_decay=0.0) -> UpdateRule:
     """The clip-free update rule.
@@ -184,9 +221,8 @@ def make_inner_optimizer(sched, optimizer="adamw", b1=0.9, b2=0.999,
     additive L2 term before the momentum.
 
     capturable (the card): adamw and adam take a device-tensor learning
-    rate and capturable=True. torch's SGD applies a tensor rate through
-    `.item()`, which a CUDA graph cannot capture, so sgd keeps a float
-    rate everywhere (and train/dispatch.py refuses it)."""
+    rate and capturable=True; sgd (`CapturableSGD` on every device) takes
+    the device-tensor rate."""
     def lr0(params, capturable):
         if not capturable:
             return 0.0
@@ -212,9 +248,9 @@ def make_inner_optimizer(sched, optimizer="adamw", b1=0.9, b2=0.999,
                                     capturable=capturable)
     elif optimizer == "sgd":
         def build(params, capturable=False):
-            return torch.optim.SGD(params, lr=0.0,
-                                   momentum=b1 if b1 > 0 else 0.0,
-                                   weight_decay=weight_decay)
+            return CapturableSGD(params, lr=lr0(params, capturable),
+                                 momentum=b1 if b1 > 0 else 0.0,
+                                 weight_decay=weight_decay)
     else:
         raise ValueError(f"unknown optimizer {optimizer!r}; "
                          "have adamw | adam | sgd")

@@ -142,6 +142,31 @@ last line is printed:
    machine has no tensorflow (tests/test_torch_tf_import.py holds it on
    the CPU).
 
+13. The models' variant fields at full width, each model reached by a
+   registry name this script registers on a subclass with the field set
+   (`_register_variants`): dpt-384 at upsample "matmul" from phase 8's NYU
+   records in the device pool (augmented), in the default mode four K=1
+   runs and a K=DPT_K graph run held as phase 9 holds "resize" (twice
+   the largest K=1 pair gap), their gaps beside phase 9's; under
+   torch.use_deterministic_algorithms(True), in a child process, two K=1
+   runs that must be equal bit for bit and a K=DPT_K graph run held to
+   the fixed GRAPH_* tolerances; the eager and graph step ms and busy
+   share in both modes, and the upsamples' share of the device time
+   against "resize" (phase 9's runs and a traced one), v1 twice a step;
+   phase 7's dpt-384 checkpoint served at b16 under each attention_impl
+   (serving fn device ms and kernels a batch, log-depth against "flax"
+   held to its jitter control, "fused" loading the "flax" state strictly);
+   make3d-encdec (b16) from phase 9's pool at norm "none", at upsample
+   "resize" and with refine on both decoder stages, VARIANT_STEPS steps
+   each, the losses falling; the default encdec's forward and backward
+   device ms with its upsamples as `upsample_matmul` (einsums) and as
+   `upsample_matmul_nhwc` (batched GEMMs); `--optimizer sgd` at K=1 against K=POOL_K
+   within the GRAPH_* tolerances, its step ms and busy share beside phase
+   9's adamw; and Make3D's four archives at their true scale
+   (tools/synth_real_scale.py: 2272x1704 JPEGs, Test134Depth in the
+   (305, 55, 4) orientation, TRUE_SCALE_SPLIT scenes) through `download`,
+   TRUE_SCALE_STEPS train steps of make3d-encdec and `eval`.
+
 The last lines are one `{"kernels": [...]}` JSON line, the nvidia-smi line
 of the card, and `{"ok": true, "device": {...}}`.
 """
@@ -310,6 +335,23 @@ INFO_PARAMS = {"make3d-encdec": 1_417_665, "make3d-multiscale": 1_454_082,
 SWEEP_PARAMS = ("train.learning_rate=1e-4,3e-4", "train.loss=si,berhu")
 SWEEP_STEPS, SWEEP_EVAL_BATCHES, SWEEP_PEAK_RTOL = 20, 2, 0.10
 TREE_SPLIT, TREE_STEPS, IMPL_STEPS = (32, 16), 10, 5
+# Phase 13. encdec variants train VARIANT_STEPS steps (warmup
+# VARIANT_WARMUP; the mean loss of the last FALL_WINDOW steps must be
+# below that of the first); sgd runs momentum SGD_B1 and weight decay
+# SGD_WD; the true-scale Make3D tree holds TRUE_SCALE_SPLIT scenes and
+# trains TRUE_SCALE_STEPS steps.
+VARIANT_STEPS, VARIANT_WARMUP, FALL_WINDOW = 10, 2, 3
+SGD_B1, SGD_WD = 0.9, 1e-4
+TRUE_SCALE_SPLIT, TRUE_SCALE_STEPS = (32, 16), 10
+# In the default mode the matmul DPT's runs still part: cuDNN attention's
+# backward sums in no fixed order (torch says so in deterministic mode),
+# and so do some of cuDNN's default algorithms for the fusion head's
+# channels_last convs. So its default-mode graph run is held as phase 9
+# holds "resize" (`dpt_graph_control`). Under
+# torch.use_deterministic_algorithms(True), which picks cuDNN attention's
+# deterministic algorithm, it repeats bit for bit, and its graph run is
+# held there to the fixed GRAPH_* tolerances (in a child process: the
+# mode needs CUBLAS_WORKSPACE_CONFIG before the first cuBLAS handle).
 
 
 def check(cond, msg):
@@ -2377,6 +2419,51 @@ def graph_pair(torch, np, fp, cfg, tmp, name, k, card, dataset=None,
     return out
 
 
+def _pair_gap(torch, x, y):
+    """(largest |param gap|, relative gap of the last loss) of two
+    pool_run results."""
+    return (param_gap(torch, x[0], y[0])[0],
+            abs(x[1]["loss"] - y[1]["loss"]) / abs(y[1]["loss"]))
+
+
+def dpt_graph_control(torch, fp, cfg, tmp, name, card, profile=False):
+    """A DPT whose runs part (phases 9 and 13a): cfg at K=1
+    DPT_CONTROL_RUNS times (the control) and once at K=DPT_K, the graph
+    run held against the first K=1 run within twice the largest gap of
+    the K=1 pairs (never tighter than GRAPH_*), the v1 kernel twice an
+    eager step. With `profile`, the first K=1 run and the graph run are
+    traced. Returns the record, the K=1 runs and the graph run."""
+    import dataclasses
+
+    steps = cfg.train.steps
+    eager = [pool_run(torch, fp, cfg, tmp, f"{name}_k1_{i}",
+                      profile=profile and i == 0)
+             for i in range(DPT_CONTROL_RUNS)]
+    graph = pool_run(torch, fp, dataclasses.replace(
+        cfg, train=dataclasses.replace(cfg.train, steps_per_dispatch=DPT_K)),
+        tmp, f"{name}_k{DPT_K}", profile=profile)
+    pairs = [_pair_gap(torch, eager[i], eager[j])
+             for i in range(DPT_CONTROL_RUNS) for j in range(i)]
+    control = tuple(max(p[m] for p in pairs) for m in (0, 1))
+    graph_gap = _pair_gap(torch, graph, eager[0])
+    allowed = (max(2 * control[0], GRAPH_PARAM_ATOL),
+               max(2 * control[1], GRAPH_LOSS_RTOL))
+    check(graph_gap[0] <= allowed[0] and graph_gap[1] <= allowed[1]
+          and graph[2]["v1_calls_counted"] == 2 * DPT_K
+          and all(r[2]["v1_calls_counted"] == 2 * steps for r in eager),
+          f"{name}: K={DPT_K} against K=1 apart by {graph_gap} (params max "
+          f"abs, loss rel), allowed {allowed} (twice the largest K=1 pair "
+          f"gap, of {pairs}); v1 calls "
+          f"{[r[2]['v1_calls_counted'] for r in eager]}, "
+          f"{graph[2]['v1_calls_counted']}")
+    record = dict(steps=steps, k=DPT_K, control_pairs=pairs,
+                  control_gap=control, graph_gap=graph_gap, allowed=allowed,
+                  eager=eager[0][2],
+                  eager_step_ms=[r[2]["step_ms"] for r in eager],
+                  graph=graph[2], card=card)
+    return record, eager, graph
+
+
 def _window_mb(ex_bytes, examples, batch):
     """The smallest --cache-window-mb whose window holds `examples` rows
     by the sampler's own arithmetic (pipeline/streaming_pool.py)."""
@@ -2471,6 +2558,22 @@ def _cli_feed_run(torch, np, fp, cli, steplib, data, tmp, name, extra):
                 trace=trace_stats(traces[0], end - traced))
 
 
+def dpt_pool_config(data):
+    """dpt-384 (b16, augmented) from phase 8's NYU records under `data` in
+    the device pool, DPT_POOL_STEPS steps at K=1 (phases 9 and 13)."""
+    import dataclasses
+
+    from ann3depth_tpu_torch.config import get_config
+
+    dpt = get_config("dpt-384")
+    return dataclasses.replace(
+        dpt, data=dataclasses.replace(dpt.data, data_dir=data,
+                                      cache_device=True, augment=True),
+        train=dataclasses.replace(dpt.train, steps=DPT_POOL_STEPS,
+                                  log_every=5, checkpoint_every=0,
+                                  eval_every=0))
+
+
 def pipeline_phase(torch, np, fp, card, tmp, encdec_cfg, handoff):
     """Phase 9: the input pipeline and the K-step CUDA graph at full
     width. Returns the v1 launches of its paths: counted in Python for the
@@ -2544,49 +2647,13 @@ def pipeline_phase(torch, np, fp, card, tmp, encdec_cfg, handoff):
               f"{p['loss_rel_diff']}")
         print(f"graph {name}: " + json.dumps(p), flush=True)
 
-    # dpt-384 (b16) from the NYU records: DPT_CONTROL_RUNS runs at K=1
-    # (the control: its F.interpolate backward sums with atomics, and two
-    # runs' losses part by 2e-5 to 1e-3 from one pair to the next) and one
-    # at K=DPT_K, held against the first K=1 run within twice the largest
-    # gap of the K=1 pairs.
-    dpt = get_config("dpt-384")
-    dpt = dataclasses.replace(
-        dpt, data=dataclasses.replace(dpt.data, data_dir=data,
-                                      cache_device=True, augment=True),
-        train=dataclasses.replace(dpt.train, steps=DPT_POOL_STEPS,
-                                  log_every=5, checkpoint_every=0,
-                                  eval_every=0))
-    eager = [pool_run(torch, fp, dpt, tmp, f"dpt_k1_{i}", profile=False)
-             for i in range(DPT_CONTROL_RUNS)]
-    graph = pool_run(torch, fp, dataclasses.replace(
-        dpt, train=dataclasses.replace(dpt.train, steps_per_dispatch=DPT_K)),
-        tmp, f"dpt_k{DPT_K}", profile=False)
-
-    def gap(x, y):
-        return (param_gap(torch, x[0], y[0])[0],
-                abs(x[1]["loss"] - y[1]["loss"]) / abs(y[1]["loss"]))
-
-    pairs = [gap(eager[i], eager[j]) for i in range(DPT_CONTROL_RUNS)
-             for j in range(i)]
-    control = tuple(max(p[m] for p in pairs) for m in (0, 1))
-    graph_gap = gap(graph, eager[0])
-    allowed = (max(2 * control[0], GRAPH_PARAM_ATOL),
-               max(2 * control[1], GRAPH_LOSS_RTOL))
-    check(graph_gap[0] <= allowed[0] and graph_gap[1] <= allowed[1]
-          and graph[2]["v1_calls_counted"] == 2 * DPT_K
-          and all(r[2]["v1_calls_counted"] == 2 * DPT_POOL_STEPS
-                  for r in eager),
-          f"dpt: K={DPT_K} against K=1 apart by {graph_gap} (params max "
-          f"abs, loss rel), allowed {allowed} (twice the largest K=1 pair "
-          f"gap, of {pairs}); v1 calls "
-          f"{[r[2]['v1_calls_counted'] for r in eager]}, "
-          f"{graph[2]['v1_calls_counted']}")
-    out["dpt"] = dict(steps=DPT_POOL_STEPS, k=DPT_K, control_pairs=pairs,
-                      control_gap=control, graph_gap=graph_gap,
-                      allowed=allowed, eager=eager[0][2],
-                      eager_step_ms=[r[2]["step_ms"] for r in eager],
-                      graph=graph[2], card=card)
+    # dpt-384 (b16) from the NYU records (its F.interpolate backward sums
+    # with atomics, and two runs' losses part by 2e-5 to 1e-3 from one
+    # pair to the next).
+    out["dpt"], eager, graph = dpt_graph_control(
+        torch, fp, dpt_pool_config(data), tmp, "dpt", card)
     print("graph dpt: " + json.dumps(out["dpt"]), flush=True)
+    handoff.update(dpt=out["dpt"], encdec=out["encdec"])
     del eager, graph
     torch.cuda.empty_cache()
 
@@ -3877,7 +3944,7 @@ def impl_runs(torch, np, fp, cli, steplib, tmp):
     return dict(out, bitwise_equal=same)
 
 
-def tools_phase(torch, np, fp, card, tmp, train):
+def tools_phase(torch, np, fp, card, tmp, train, handoff):
     """Phase 12: `info --flops` of the four families, a `sweep` of
     make3d-encdec (4 trials) and its rerun, `download` into a Make3D tree
     that the card trains from, and `--preprocess-impl xla|pallas`. Returns
@@ -3898,6 +3965,7 @@ def tools_phase(torch, np, fp, card, tmp, train):
         seconds[name] = time.perf_counter() - t0
     out.update(seconds=seconds, card=card)
     print("tools: " + json.dumps(out), flush=True)
+    handoff["tree_images_per_s"] = out["download"]["loop_images_per_s"]
     return dict(
         sweep_launches=[dict(train=t["train_launches"],
                              eval=t["eval_launches"])
@@ -3907,6 +3975,497 @@ def tools_phase(torch, np, fp, card, tmp, train):
                                   eval=out["download"]["eval_launches"]),
         preprocess_impl_launches={k: out["preprocess_impl"][k]["launches"]
                                   for k in ("xla", "pallas")})
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the models' variant fields.
+# ---------------------------------------------------------------------------
+
+def _register_variants():
+    """Registry names for the variant fields, as a caller reaches a field
+    no preset sets: a subclass with the field fixed, registered under its
+    own name (`registry.register`). The registry builds each with its
+    family's keywords ("dpt-*" as a DPT, the encdec ones at width 1)."""
+    from ann3depth_tpu_torch.models import registry
+    from ann3depth_tpu_torch.models.dpt import DPTDepthNet
+    from ann3depth_tpu_torch.models.encdec import EncDecDepthNet, UpStage
+
+    def fixed(base, **fields):
+        class Variant(base):
+            def __init__(self, **kw):
+                super().__init__(**kw, **fields)
+        return Variant
+
+    class Refined(EncDecDepthNet):
+        """Both decoder stages with refine=True."""
+
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            w0, w1, w2 = self.widths
+            self.dec0 = UpStage(w2, w1, w1, refine=True)
+            self.dec1 = UpStage(w1, w0, w0, refine=True)
+
+    for name, cls in (
+            ("dpt-matmul", fixed(DPTDepthNet, upsample="matmul")),
+            ("dpt-jnn", fixed(DPTDepthNet, attention_impl="jnn")),
+            ("dpt-fused", fixed(DPTDepthNet, attention_impl="fused")),
+            ("encdec-nonorm", fixed(EncDecDepthNet, norm="none")),
+            ("encdec-resize", fixed(EncDecDepthNet, upsample="resize")),
+            ("encdec-refine", Refined)):
+        registry.register(name)(cls)
+
+
+def _with_model(cfg, name):
+    import dataclasses
+
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
+                                                              name=name))
+
+
+def _with_train(cfg, **kw):
+    import dataclasses
+
+    return dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
+                                                              **kw))
+
+
+def upsample_costs(torch, impl, batch=16, features=128, grid=24):
+    """Device ms (torch.profiler) of dpt-384's fusion-head upsamples at
+    `batch`, 384x384, through `models.dpt._up(..., impl)`: the six calls of
+    a forward (fuse3/fuse2/fuse1 outputs x2, skips x2 and x4, the f32
+    head's x2) with their backward, and the forwards that remat repeats in
+    the backward (the three inside the fusion blocks)."""
+    from ann3depth_tpu_torch.models.dpt import _up
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    shapes = [((batch, features, grid, grid), 2, bf16, True),
+              ((batch, features, grid, grid), 2, bf16, False),
+              ((batch, features, 2 * grid, 2 * grid), 2, bf16, True),
+              ((batch, features, grid, grid), 4, bf16, False),
+              ((batch, features, 4 * grid, 4 * grid), 2, bf16, True),
+              ((batch, 1, 8 * grid, 8 * grid), 2, f32, False)]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = []
+    for shape, f, dt, in_block in shapes:
+        x = torch.randn(shape, generator=gen, device="cuda").to(dt).to(
+            memory_format=torch.channels_last).requires_grad_()
+        out = (*shape[:2], shape[2] * f, shape[3] * f)
+        g = torch.randn(out, generator=gen, device="cuda").to(dt).to(
+            memory_format=torch.channels_last)
+        cases.append((x, f, g, in_block))
+
+    def fwd_bwd():
+        for x, f, g, _ in cases:
+            x.grad = None
+            torch.autograd.backward(_up(x, f, impl), g)
+
+    def refwd():
+        with torch.no_grad():
+            for x, f, _, in_block in cases:
+                if in_block:
+                    _up(x, f, impl)
+
+    return dict(fwd_bwd_ms=device_ms(torch, fwd_bwd, iters=10)[0],
+                remat_refwd_ms=device_ms(torch, refwd, iters=10)[0])
+
+
+_DETERMINISTIC_CHILD = r"""
+import json, sys
+import torch
+torch.use_deterministic_algorithms(True)
+import chip_smoke
+print(json.dumps(chip_smoke.deterministic_dpt_runs(sys.argv[1])))
+"""
+
+
+def deterministic_dpt_runs(tmp):
+    """Run in a process under torch.use_deterministic_algorithms(True):
+    dpt-384 at upsample "matmul" from phase 9's pool of the NYU records in
+    `tmp`, two K=1 runs and a traced K=DPT_K graph run. Returns whether
+    the pair is equal bit for bit, the graph run's gap to the first (the
+    largest param gap and its excess over GRAPH_*, the relative loss gap),
+    the v1 launches, the K=1 runs' step ms, the graph run's traced figures
+    and its trace."""
+    import torch
+
+    from ann3depth_tpu_torch.device import resolve_device
+    from ann3depth_tpu_torch.ops import fused_preprocess as fp
+
+    resolve_device("cuda")
+    _register_variants()
+    mm = _with_model(dpt_pool_config(f"{tmp}/data"), "dpt-matmul")
+    eager = [pool_run(torch, fp, mm, tmp, f"mm_det_k1_{i}", profile=False)
+             for i in range(2)]
+    graph = pool_run(torch, fp, _with_train(mm, steps_per_dispatch=DPT_K),
+                     tmp, f"mm_det_k{DPT_K}")
+    worst, excess = param_gap(torch, graph[0], eager[0][0])
+    return dict(k1_pair_bitwise_equal=_same_run(torch, eager[0], eager[1]),
+                k1_pair_gap=_pair_gap(torch, eager[1], eager[0]),
+                graph_params_max_abs_diff=worst,
+                graph_params_excess_over_tol=excess,
+                graph_loss_rel_diff=_pair_gap(torch, graph, eager[0])[1],
+                eager_step_ms=[r[2]["step_ms"] for r in eager],
+                graph=_traced_row(graph[2]),
+                v1_calls=[r[2]["v1_calls_counted"] for r in eager + [graph]],
+                graph_trace=graph[2]["trace"])
+
+
+def _traced_row(r):
+    t = r.get("trace", {})
+    return dict(step_ms=r["step_ms"], busy_share=t.get("busy_share"),
+                device_busy_ms_per_step=t.get("device_busy_ms_per_step"),
+                kernels_per_step=t.get("kernels_per_step"),
+                window_ms_per_step=t.get("window_ms_per_step"))
+
+
+def _same_run(torch, x, y):
+    """Whether two pool_run results have equal params and logged losses,
+    bit for bit."""
+    return all(torch.equal(a, b) for a, b in zip(
+        x[0].model.state_dict().values(),
+        y[0].model.state_dict().values())) and [
+        v for _, v in x[2]["logged"]] == [v for _, v in y[2]["logged"]]
+
+
+def _replays_ok(trace):
+    """Every replayed step of a traced graph run launched v1's resample
+    twice (the first replay reported, not held: phase 9)."""
+    replays = trace["v1_resample_per_replay"]
+    return bool(replays) and (
+        min(replays[1:]) >= 2 if any(replays)
+        else trace["v1_resample_per_step"] * len(replays)
+        >= 2 * (len(replays) - 1))
+
+
+def variant_dpt(torch, np, fp, tmp, card, handoff):
+    """Phase 13a: dpt-384 at upsample "matmul" from phase 9's pool of NYU
+    records (augmented). In the default mode, where its runs part,
+    `dpt_graph_control` as phase 9 runs it for "resize" (the first K=1
+    run and the graph run traced). Then in a child process under
+    torch.use_deterministic_algorithms(True) two K=1 runs that must be
+    equal bit for bit and a traced K=DPT_K graph run held to the fixed
+    GRAPH_* tolerances. Step ms: the untraced K=1 runs'; the graph runs'
+    window ms and device busy ms a step from their traces. A traced K=1
+    run at "resize" and the upsamples' device ms in both modes give their
+    share of the step."""
+    base = dpt_pool_config(f"{tmp}/data")
+    mm = _with_model(base, "dpt-matmul")
+    steps = base.train.steps
+    default, eager, graph = dpt_graph_control(torch, fp, mm, tmp, "mm", card,
+                                              profile=True)
+    resize = pool_run(torch, fp, base, tmp, "rs_k1_traced")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    proc = subprocess.run([sys.executable, "-c", _DETERMINISTIC_CHILD, tmp],
+                          cwd=root, env=env, capture_output=True, text=True,
+                          timeout=600)
+    check(proc.returncode == 0,
+          f"deterministic dpt runs: {proc.stderr[-3000:]}")
+    det = json.loads(proc.stdout.strip().splitlines()[-1])
+    counted = ([r[2]["v1_calls_counted"] for r in eager + [graph, resize]]
+               + det["v1_calls"])
+    t = det.pop("graph_trace")
+    costs = {impl: upsample_costs(torch, impl) for impl in ("resize",
+                                                             "matmul")}
+    busy = {"resize": resize[2]["trace"]["device_busy_ms_per_step"],
+            "matmul": eager[0][2]["trace"]["device_busy_ms_per_step"]}
+    for impl, c in costs.items():
+        c["share_of_device_step"] = ((c["fwd_bwd_ms"] + c["remat_refwd_ms"])
+                                     / busy[impl])
+    p9 = handoff["dpt"]
+
+    def window(row):
+        """A traced run's figures from its trace: its step_ms, read from
+        a log interval that holds the trace's export when no interval
+        follows the window (10 steps), is dropped."""
+        return {k: v for k, v in row.items() if k != "step_ms"}
+
+    out = dict(
+        steps=steps, k=DPT_K,
+        default_mode=dict(
+            k1_pair_bitwise_equal=_same_run(torch, eager[0], eager[1]),
+            control_pairs=default["control_pairs"],
+            control_gap=default["control_gap"],
+            graph_gap=default["graph_gap"], allowed=default["allowed"],
+            phase9_resize_control_gap=p9["control_gap"],
+            phase9_resize_graph_gap=p9["graph_gap"]),
+        deterministic_mode=det,
+        v1_calls=dict(counted=counted, replayed_resample_per_replay=t[
+            "v1_resample_per_replay"]),
+        step_ms=dict(matmul_eager=default["eager_step_ms"][1:],
+                     matmul_eager_deterministic=det["eager_step_ms"],
+                     resize_eager_phase9=p9["eager_step_ms"],
+                     resize_graph_phase9=p9["graph"]["step_ms"]),
+        traced=dict(matmul_k1=window(_traced_row(eager[0][2])),
+                    matmul_graph=window(_traced_row(graph[2])),
+                    matmul_graph_deterministic=window(det["graph"]),
+                    resize_k1=window(_traced_row(resize[2]))),
+        upsample=costs, card=card)
+    print("variant dpt matmul: " + json.dumps(out), flush=True)
+    losses = [r[1]["loss"] for r in eager + [graph, resize]]
+    check(bool(np.isfinite(losses).all()), f"dpt variants: losses {losses}")
+    check(det["k1_pair_bitwise_equal"]
+          and det["graph_params_excess_over_tol"] <= 0
+          and det["graph_loss_rel_diff"] <= GRAPH_LOSS_RTOL,
+          f"matmul dpt in deterministic mode: {det}; GRAPH_* tolerances")
+    n = DPT_CONTROL_RUNS
+    check(counted == [2 * steps] * n + [2 * DPT_K, 2 * steps]
+          + [2 * steps] * 2 + [2 * DPT_K] and _replays_ok(t),
+          f"matmul dpt: v1 calls {counted}, replays "
+          f"{t['v1_resample_per_replay']}")
+    launches = dict(default_k1=counted[:n], default_graph_eager_block=
+                    counted[n], resize_k1=counted[n + 1],
+                    deterministic_k1=counted[n + 2:n + 4],
+                    deterministic_graph_eager_block=counted[n + 4],
+                    deterministic_replayed_resample_per_step=t[
+                        "v1_resample_per_step"])
+    del eager, graph, resize
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _call_stats(torch, fn, iters=5):
+    """(device ms, CUDA kernels) a call of `fn`, from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    check(kernels, "the profiler recorded no kernel")
+    ms = sum((e.time_range.end - e.time_range.start) for e in kernels) / 1e3
+    return ms / iters, len(kernels) / iters
+
+
+def variant_attention(torch, np, fp, tmp, card):
+    """Phase 13b: phase 7's dpt-384 checkpoint under each attention_impl,
+    served at b16: the serving fn's device ms and kernels a batch, and the
+    log-depth of 16 training frames (plain-fed) against "flax" within its
+    jitter control; "fused" and "jnn" load the "flax" state strictly."""
+    from ann3depth_tpu_torch import serving
+    from ann3depth_tpu_torch.train import loop
+
+    preset, depth_hw, steps, _, every, warmup = FAMILIES[0]
+    cfg = _train_config(f"{tmp}/{preset}", preset, depth_hw, steps=steps,
+                        every=every, warmup=warmup)
+    img, _ = next(loop.build_dataset(cfg, "train").batches(
+        16, steps=1, shuffle=False))
+    x = torch.from_numpy(img).cuda()
+    input_hw = cfg.data.input_hw
+    names = {"flax": cfg.model.name, "jnn": "dpt-jnn", "fused": "dpt-fused"}
+    models = {impl: serving.model_from_checkpoint(_with_model(cfg, name),
+                                                  device="cuda")
+              for impl, name in names.items()}
+    flax_sd = models["flax"].state_dict()
+    for impl in ("jnn", "fused"):
+        models[impl].load_state_dict(flax_sd, strict=True)
+    want = _plain_log_depth(torch, fp, models["flax"], input_hw, img)
+    tol, control = log_depth_tol(torch, np, fp, models["flax"], cfg.model,
+                                 input_hw, img, want)
+    runs = {}
+    for impl, model in models.items():
+        got = _plain_log_depth(torch, fp, model, input_hw, img)
+        fn = serving.make_serving_fn(model, input_hw)
+        fp.fused_preprocess.launches = 0
+        with torch.inference_mode():
+            fn(x)
+        launches = fp.fused_preprocess.launches
+        ms, kernels = _call_stats(torch, lambda: fn(x))
+        runs[impl] = dict(
+            log_depth_vs_flax=check_log_close(np, got, want, tol,
+                                              f"attention {impl}"),
+            bitwise_equal_to_flax=bool(np.array_equal(got, want)),
+            serving_device_ms=ms, serving_kernels=kernels,
+            serving_event_ms=time_ms(lambda: fn(x), iters=10),
+            v1_launches_a_batch=launches)
+        check(launches == 1, f"attention {impl}: v1 called {launches} "
+              "times a batch")
+    out = dict(batch=16, tol=tol, jitter_control=control, runs=runs,
+               card=card)
+    print("variant dpt attention: " + json.dumps(out), flush=True)
+    del models
+    torch.cuda.empty_cache()
+    return {impl: r["v1_launches_a_batch"] for impl, r in runs.items()}
+
+
+def encdec_upsample_forms(torch, cfg, batch=16):
+    """Device ms of one forward and backward of cfg's encdec (random
+    frames at `batch`) with its x2 upsamples as `ops.resize.upsample_matmul`
+    (two einsums: what the model runs) and, swapped in for this
+    measurement only, as `upsample_matmul_nhwc` (DPT's batched GEMMs)."""
+    from ann3depth_tpu_torch.models import encdec, registry
+    from ann3depth_tpu_torch.ops import resize
+    from ann3depth_tpu_torch.train import step as steplib
+
+    model = steplib.init_params(registry.build(cfg.model),
+                                cfg.data.input_hw, 0, device="cuda")
+    x = torch.randn((batch, *cfg.data.input_hw, 3), device="cuda")
+
+    def fwd_bwd():
+        model(x).float().mean().backward()
+
+    out = {}
+    try:
+        for name in ("upsample_matmul", "upsample_matmul_nhwc"):
+            encdec.upsample_matmul = getattr(resize, name)
+            out[f"{name}_fwd_bwd_ms"] = device_ms(torch, fwd_bwd, iters=10)[0]
+    finally:
+        encdec.upsample_matmul = resize.upsample_matmul
+    del model
+    return out
+
+
+def variant_encdec(torch, np, fp, tmp, card, handoff):
+    """Phase 13c and d: make3d-encdec (b16) from phase 9's pool of 64
+    scenes at norm "none", upsample "resize" and refine on both decoder
+    stages, VARIANT_STEPS steps each; the default encdec's forward and
+    backward under both upsample forms; then `--optimizer sgd` at K=1 and
+    K=POOL_K (graph_pair: the GRAPH_* tolerances)."""
+    enc, scenes = handoff["cfg"], handoff["scenes"]
+    runs, launches = {}, {}
+    for name in ("encdec-nonorm", "encdec-resize", "encdec-refine"):
+        # Logged every step: the loss curve (and a host sync a step).
+        cfg = _with_train(_with_model(enc, name), steps=VARIANT_STEPS,
+                          warmup_steps=VARIANT_WARMUP, log_every=1,
+                          checkpoint_every=VARIANT_STEPS)
+        state, _, run = pool_run(torch, fp, cfg, tmp, name, scenes,
+                                 profile=False)
+        losses = [v for _, v in run["logged"]]
+        first, last = _losses_fall(np, losses, FALL_WINDOW, name)
+        check(run["v1_calls_counted"] == 2 * VARIANT_STEPS
+              and len(losses) == VARIANT_STEPS,
+              f"{name}: {run['v1_calls_counted']} v1 calls in "
+              f"{len(losses)} steps")
+        runs[name] = dict(params=sum(p.numel() for p in
+                                     state.model.parameters()),
+                          losses=losses, first_mean=first, last_mean=last,
+                          step_ms=run["step_ms"], seconds=run["seconds"])
+        launches[name] = run["v1_calls_counted"]
+        del state
+    forms = encdec_upsample_forms(torch, enc)
+    print("variant encdec: " + json.dumps(dict(runs=runs, batch=16,
+                                               upsample_forms=forms,
+                                               card=card)), flush=True)
+
+    sgd = _with_train(enc, optimizer="sgd", adam_b1=SGD_B1,
+                      weight_decay=SGD_WD)
+    pair = graph_pair(torch, np, fp, sgd, tmp, "sgd", POOL_K, card, scenes,
+                      profile=True)
+    g = pair["graph"]["trace"]
+    check(pair["params_excess_over_tol"] <= 0
+          and pair["loss_rel_diff"] <= GRAPH_LOSS_RTOL and _replays_ok(g),
+          f"sgd: K={POOL_K} graph against K=1 eager: params apart by "
+          f"{pair['params_max_abs_diff']} (excess "
+          f"{pair['params_excess_over_tol']}), loss by "
+          f"{pair['loss_rel_diff']}; replays {g['v1_resample_per_replay']}")
+    adamw = handoff["encdec"]
+    print("variant sgd: " + json.dumps(dict(
+        b1=SGD_B1, weight_decay=SGD_WD, pair=pair,
+        sgd_k1=_traced_row(pair["eager"]),
+        **{f"sgd_k{POOL_K}": _traced_row(pair["graph"]),
+           f"adamw_k{POOL_K}_phase9": _traced_row(adamw["graph"])},
+        adamw_k1_phase9=_traced_row(adamw["eager"]), card=card)),
+        flush=True)
+    launches.update(sgd_k1=pair["eager"]["v1_calls_counted"],
+                    sgd_graph_eager_block=pair["graph"]["v1_calls_counted"],
+                    sgd_replayed_resample_per_step=g["v1_resample_per_step"])
+    return launches
+
+
+def true_scale_make3d(torch, np, fp, tmp, card, handoff):
+    """Phase 13e: Make3D's four archives at their true scale from
+    tools/synth_real_scale.py (2272x1704 JPEGs, Test134Depth in the
+    (305, 55, 4) orientation) through `cli download`, TRUE_SCALE_STEPS
+    train steps of make3d-encdec (b16) from the tree (the losses falling,
+    the loader's frames 480x640 and its grids 305x55 at every v1 call) and
+    `cli eval` of Test134/."""
+    import importlib.util
+
+    from ann3depth_tpu_torch import cli
+    from ann3depth_tpu_torch.train import step as steplib
+
+    root = f"{tmp}/true_scale"
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        "synth_real_scale.py")
+    spec = importlib.util.spec_from_file_location("synth_real_scale", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        tool.synth_make3d(root, n_train=TRUE_SCALE_SPLIT[0],
+                          n_test=TRUE_SCALE_SPLIT[1])
+    write_s = time.perf_counter() - t0
+    archive_mb = sum(os.path.getsize(os.path.join(root, "make3d", f))
+                     for f in os.listdir(f"{root}/make3d")) / 1e6
+    t0 = time.perf_counter()
+    check(cli.main(["download", "--dataset", "make3d", "--data-dir", root])
+          == 0, "download of the true-scale Make3D archives")
+    download_s = time.perf_counter() - t0
+    ckpt = f"{tmp}/true_scale_ckpt"
+    argv = ["--config", "make3d-encdec", "--datasets", "make3d",
+            "--data-dir", root, "--ckpt-dir", ckpt]
+    fp.fused_preprocess.launches = 0
+    t0 = time.perf_counter()
+    with _recording(fp, steplib) as seen:
+        _cli_json(cli, ["train", *argv, "--steps", str(TRUE_SCALE_STEPS),
+                        "--log-every", "5", "--warmup-steps",
+                        str(VARIANT_WARMUP)])
+    train_s = time.perf_counter() - t0
+    launches = fp.fused_preprocess.launches
+    first, last = _losses_fall(np, seen["losses"], FALL_WINDOW,
+                               "true-scale make3d")
+    check(len(seen["losses"]) == TRUE_SCALE_STEPS
+          and launches == 2 * TRUE_SCALE_STEPS and all(
+              c in (((16, *RAW_HW, 3), False),
+                    ((16, *MAKE3D_DEPTH_HW, 1), True))
+              for c in seen["calls"]),
+          f"true-scale make3d: {len(seen['losses'])} steps, {launches} v1 "
+          f"launches, calls {set(seen['calls'])}")
+    with open(f"{ckpt}/metrics.jsonl") as f:
+        ips = [r["images_per_sec"] for r in map(json.loads, f)
+               if "images_per_sec" in r]
+    fp.fused_preprocess.launches = 0
+    ev = _cli_json(cli, ["eval", *argv])
+    eval_launches = fp.fused_preprocess.launches
+    check(_all_finite(np, ev)
+          and eval_launches == 2 * (TRUE_SCALE_SPLIT[1] // 16),
+          f"true-scale make3d eval: {eval_launches} v1 launches, {ev}")
+    out = dict(scenes=TRUE_SCALE_SPLIT, image_wh=list(tool.MAKE3D_IMG_WH),
+               archives_mb=archive_mb, write_s=write_s,
+               download_s=download_s, train_s=train_s,
+               losses=[float(v) for v in seen["losses"]],
+               first_mean=first, last_mean=last, loop_images_per_s=ips,
+               phase12_tree_images_per_s=handoff["tree_images_per_s"],
+               eval=ev, launches=launches, eval_launches=eval_launches,
+               card=card)
+    print("true-scale make3d: " + json.dumps(out), flush=True)
+    return dict(train=launches, eval=eval_launches)
+
+
+def variants_phase(torch, np, fp, card, tmp, handoff):
+    """Phase 13: the models' variant fields (13a-d) and the true-scale
+    Make3D tree (13e). Returns the v1 launches of its paths."""
+    _register_variants()
+    seconds, launches = {}, {}
+    for name, fn, args in (
+            ("dpt_matmul", variant_dpt, (torch, np, fp, tmp, card, handoff)),
+            ("dpt_attention", variant_attention, (torch, np, fp, tmp, card)),
+            ("encdec", variant_encdec, (torch, np, fp, tmp, card, handoff)),
+            ("true_scale_make3d", true_scale_make3d,
+             (torch, np, fp, tmp, card, handoff))):
+        t0 = time.perf_counter()
+        launches[name] = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+    print("phase 13 seconds: " + json.dumps(dict(seconds, card=card)),
+          flush=True)
+    return launches
 
 
 def main():
@@ -3968,8 +4527,11 @@ def main():
         phase11 = parallel_phase(torch, np, fp, card, tmp, cfg, handoff)
         print(f"phase 11: {time.perf_counter() - t11:.1f} s", flush=True)
         t12 = time.perf_counter()
-        phase12 = tools_phase(torch, np, fp, card, tmp, train)
+        phase12 = tools_phase(torch, np, fp, card, tmp, train, handoff)
         print(f"phase 12: {time.perf_counter() - t12:.1f} s", flush=True)
+        t13 = time.perf_counter()
+        phase13 = variants_phase(torch, np, fp, card, tmp, handoff)
+        print(f"phase 13: {time.perf_counter() - t13:.1f} s", flush=True)
 
     def entry(case, **kw):
         """One kernel's entry of the kernels line, from its train case."""
@@ -3995,7 +4557,8 @@ def main():
         pipeline_launches=phase9, host_dispatch=dispatch,
         quant_launches=phase10["quant_launches"],
         export_launches=phase10["export_launches"],
-        parallel_cases=parallel, parallel_launches=phase11, **phase12)
+        parallel_cases=parallel, parallel_launches=phase11,
+        variant_launches=phase13, **phase12)
     v2 = entry(
         cases_v2[1],  # the train shape, b16 augment rows
         name="fused_preprocess_v2",

@@ -18,7 +18,9 @@ preprocess agree to 1e-2 relative in loss: the model computes in bf16
 (2^-8 relative), and its inputs differ by f32 summation order only; so do
 a distillation step fed both ways and an accumulated step against a
 full-batch one. Repeated train steps in torch's deterministic mode agree
-bit for bit. The int8 ops (ops/quant.py) give the CPU's answer bit for bit
+bit for bit (a DPT at upsample "matmul" too). The capturable sgd rule on
+the card gives the CPU rule's params within 1e-6 (p - lr t against
+p + (-lr) t may round apart by an ulp). The int8 ops (ops/quant.py) give the CPU's answer bit for bit
 (exact int32 sums, the same f32 quantize and dequantize); an exported
 serving program gives the eager program's within EXPORT_RTOL. A one-rank
 NCCL group's all-reduce moves no value: its runs (eager, and a CUDA graph
@@ -520,11 +522,13 @@ def test_live_engine_with_smoothing_matches_plain_fed_steps(cuda,
                            (d.cpu(), r.cpu()))
 
 
-# Determinism of the encdec and multiscale train steps. In the default mode
-# cuDNN may pick nondeterministic algorithms; torch's deterministic mode
+# Determinism of the encdec, multiscale and matmul-upsample DPT train steps.
+# In the default mode cuDNN may pick nondeterministic algorithms (and cuDNN
+# attention's backward sums in no fixed order); torch's deterministic mode
 # (which needs CUBLAS_WORKSPACE_CONFIG set before the process's first cuBLAS
-# handle, hence a child process) raises on any op without a deterministic
-# implementation, as F.interpolate's CUDA backward was.
+# handle, hence a child process) picks deterministic ones and raises on any
+# op without a deterministic implementation, as F.interpolate's CUDA
+# backward is (a DPT at upsample "resize").
 DETERMINISTIC_RUNS = r"""
 import json, sys
 import torch
@@ -540,16 +544,24 @@ img = torch.randint(0, 256, (8, 96, 128, 3), generator=gen,
 depth = 1 + 59 * torch.rand((8, 61, 11), generator=gen, device=dev)
 
 
+def build(name):
+    if name == "dpt-matmul":
+        from ann3depth_tpu_torch.models.dpt import DPTDepthNet
+        return DPTDepthNet(dim=64, depth=4, heads=2, fusion_features=32,
+                           tap_layers=(0, 1, 2, 3), upsample="matmul")
+    return registry.build(ModelConfig(name=name, width_mult=0.5))
+
+
 def run(name):
-    model = steplib.init_params(registry.build(ModelConfig(
-        name=name, width_mult=0.5)), (64, 96), 0, device=dev)
+    model = steplib.init_params(build(name), (64, 96), 0, device=dev)
     state = steplib.TrainState.create(model, steplib.make_optimizer(
         1e-3, warmup_steps=0, total_steps=20))
     draws, losses = torch.Generator(device=dev), []
     for i in range(20):
         draws.manual_seed(i)
         state, m = steplib.train_step(state, img, depth, draws,
-                                      input_hw=(64, 96), target_hw=(32, 48),
+                                      input_hw=(64, 96),
+                                      target_hw=model.output_hw((64, 96)),
                                       augment=True)
         losses.append(m["loss"])
     return torch.stack(losses).tolist()
@@ -559,7 +571,7 @@ print(json.dumps([run(sys.argv[1]), run(sys.argv[1])]))
 """
 
 
-@pytest.mark.parametrize("name", ["encdec", "multiscale"])
+@pytest.mark.parametrize("name", ["encdec", "multiscale", "dpt-matmul"])
 def test_train_steps_are_bitwise_repeatable_in_deterministic_mode(cuda,
                                                                   name):
     """20 augmented train steps, twice from one state and one feed, under
@@ -676,7 +688,8 @@ def _assert_params_close(a, b):
 
 
 @pytest.mark.parametrize("data,train", [
-    ({}, {}), ({"augment": True}, {"grad_accum": 2, "ema_decay": 0.9})])
+    ({}, {}), ({"augment": True}, {"grad_accum": 2, "ema_decay": 0.9}),
+    ({}, {"optimizer": "sgd", "adam_b1": 0.9, "weight_decay": 1e-4})])
 def test_graph_blocks_match_eager_steps(cuda, tmp_path, data, train):
     before = fp.fused_preprocess.launches
     eager, m1 = _train(_pool_cfg(tmp_path, "k1", data, **train), tmp_path,
@@ -928,3 +941,36 @@ def test_two_gloo_ranks_share_the_card(cuda, tmp_path):
                   "--steps-per-dispatch", "2"])
     assert all(rc != 0 for rc, _, _ in outs)
     assert "gloo backend's collectives cannot be captured" in outs[0][2]
+
+
+# ---------------------------------------------------------------------------
+# The capturable sgd rule on the card.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b1,weight_decay", [(0.0, 0.0), (0.9, 1e-4)])
+def test_capturable_sgd_on_the_card_matches_the_cpu_rule(cuda, b1,
+                                                         weight_decay):
+    """The sgd rule on the card (a device-tensor rate) against the same
+    rule on the CPU (a float rate) on the same gradients, three steps,
+    within 1e-6."""
+    gen = torch.Generator().manual_seed(0)
+    init = [torch.randn(64, 33, generator=gen), torch.randn(17,
+                                                            generator=gen)]
+    cpu = [torch.nn.Parameter(t.clone()) for t in init]
+    dev = [torch.nn.Parameter(t.to(cuda)) for t in init]
+    rule = steplib.make_inner_optimizer(lambda c: 0.1 / (c + 1), "sgd",
+                                        b1=b1, weight_decay=weight_decay)
+    opt_cpu, opt_dev = rule.init(cpu), rule.init(dev)
+    assert isinstance(opt_dev, steplib.CapturableSGD)
+    assert isinstance(opt_cpu, steplib.CapturableSGD)
+    assert isinstance(opt_dev.param_groups[0]["lr"], torch.Tensor)
+    assert isinstance(opt_cpu.param_groups[0]["lr"], float)
+    for count in range(3):
+        for pc, pd in zip(cpu, dev):
+            g = torch.randn(pc.shape, generator=gen)
+            pc.grad, pd.grad = g.clone(), g.to(cuda)
+        rule.apply(opt_cpu, count)
+        rule.apply(opt_dev, count)
+        for pc, pd in zip(cpu, dev):
+            torch.testing.assert_close(pd.detach().cpu(), pc.detach(),
+                                       rtol=0, atol=1e-6)

@@ -146,16 +146,43 @@ def test_k_blocks_on_the_window_pool_match_k1(tmp_path):
     _params_close(s1, s2)
 
 
-def test_sgd_under_k_steps_is_refused(tmp_path):
-    """torch's SGD reads a tensor learning rate with .item(): no graph
-    can capture it, so the K-step path refuses it by name."""
-    cfg = _cfg(get_config, tmp_path, "s", optimizer="sgd",
-               steps_per_dispatch=2)
-    with pytest.raises(NotImplementedError, match="'sgd'"):
-        _run(cfg, tmp_path, "s")
-    state, _ = _run(_cfg(get_config, tmp_path, "s1", optimizer="sgd"),
-                    tmp_path, "s1")
-    assert state.step == 8
+@pytest.mark.parametrize("b1,weight_decay", [(0.0, 0.0), (0.9, 1e-4)])
+def test_sgd_under_k_steps_matches_eager(tmp_path, b1, weight_decay):
+    """--optimizer sgd under K-step blocks lands on the K=1 params (the
+    rule is train/step.CapturableSGD, whose rate on the card a graph reads
+    on the device; tests/test_torch_variants.py holds it against torch's
+    SGD), and from one sgd checkpoint a K=2 run resumes as a K=1 run
+    does."""
+    import shutil
+
+    kw = dict(optimizer="sgd", adam_b1=b1, weight_decay=weight_decay,
+              learning_rate=1e-2)
+    s1, m1 = _run(_cfg(get_config, tmp_path, "a", checkpoint_every=4, **kw),
+                  tmp_path, "a")
+    s2, m2 = _run(_cfg(get_config, tmp_path, "b", steps_per_dispatch=2,
+                       **kw), tmp_path, "b")
+    assert s1.step == s2.step == 8 and np.isfinite(m1["loss"])
+    _params_close(s1, s2)
+    assert np.isclose(m1["loss"], m2["loss"], rtol=2e-4)
+    init = tloop.create_state(_cfg(get_config, tmp_path, "a", **kw), "cpu")
+    moved = max(float((x - y).abs().max()) for x, y in zip(
+        s1.model.parameters(), init.model.parameters()))
+    assert moved > 100 * 2e-6, moved  # the tolerance is not the step size
+
+    # steps 5-8 from the step-4 checkpoint of the 8-step run, at K=1 and 2
+    resumed = []
+    for k in (1, 2):
+        sub = f"r{k}"
+        shutil.copytree(tmp_path / "a" / "ckpt", tmp_path / sub / "ckpt")
+        (tmp_path / sub / "ckpt" / "ckpt_8.pt").unlink()
+        state, _ = _run(_cfg(get_config, tmp_path, sub, resume=True,
+                             steps_per_dispatch=k, **kw), tmp_path, sub)
+        assert state.step == 8
+        resumed.append(state)
+    _params_close(resumed[0], resumed[1])
+    if b1:
+        assert all("momentum_buffer" in st
+                   for st in resumed[1].optimizer.state.values())
 
 
 def test_resume_continues_block_aligned(tmp_path):

@@ -5,7 +5,9 @@ underscore) of every module of ann3depth_tpu/ has a counterpart in the
 module of the same path in ann3depth_tpu_torch/, or under another name or
 in another module (RENAMED), or sits in EXCEPTIONS with the reason the
 port has none. Names are read from the source (ast), so no module is
-imported for it. The port's CLI has the JAX CLI's subcommands; the public
+imported for it. Every field of a flax module in ann3depth_tpu/models/ is
+an argument of the port class's constructor (FIELD_RENAMED,
+FIELD_EXCEPTIONS). The port's CLI has the JAX CLI's subcommands; the public
 names this slice adds behave as their JAX counterparts.
 """
 
@@ -63,9 +65,6 @@ EXCEPTIONS = {
     ("ops/pallas_preprocess.py", "*"):
         "the Pallas kernels' module: csrc/ and ops/fused_preprocess.py "
         "hold the CUDA kernels (RENAMED lists its public names)",
-    ("models/dpt.py", "FusedQKVSelfAttention"):
-        "no config reaches it (the registry's DPTs use the unfused "
-        "attention)",
     ("ops/quant.py", "dense_general_init"): "a flax DenseGeneral "
         "initializer (QLinear and QAttention are torch Linear layers)",
     ("parallel/mesh.py", "batch_sharding"): "a JAX global-array sharding; "
@@ -77,6 +76,24 @@ EXCEPTIONS = {
 }
 # Module loggers are not API.
 NOT_API = {"log"}
+
+# Fields of the flax modules in ann3depth_tpu/models/: (JAX module, class,
+# field) -> the port constructor's argument of another name, or the reason
+# the port class takes none. Every `dtype` field is carried by autocast
+# (the models' `compute_dtype`).
+FIELD_RENAMED = {
+    ("models/dpt.py", "FusedQKVSelfAttention", "num_heads"): "heads",
+    ("models/encdec.py", "Stage", "strides"): "stride",
+}
+FIELD_EXCEPTIONS = {
+    ("models/dpt.py", "DPTDepthNet", "patch"):
+        "the port's PATCH constant (the JAX model asserts patch == 16)",
+    ("models/dpt.py", "MLP", "quant"):
+        "Block passes the int8 QLinear in as the MLP's `linear`",
+}
+MODEL_MODULES = sorted(str(p.relative_to(ROOT / "ann3depth_tpu"))
+                       for p in (ROOT / "ann3depth_tpu" / "models").glob(
+                           "*.py"))
 
 
 def _public(path):
@@ -123,6 +140,47 @@ def test_renamed_and_exceptions_are_current():
             assert name in _public(ROOT / "ann3depth_tpu" / module)
         if (module, name) in EXCEPTIONS and name != "*":
             assert name not in _port_names(module), (module, name)
+
+
+def _flax_fields(module):
+    """{class name: [field names]} of the flax modules of a JAX file."""
+    tree = ast.parse((ROOT / "ann3depth_tpu" / module).read_text())
+    out = {}
+    for node in tree.body:
+        if isinstance(node, ast.ClassDef) and any(
+                ast.unparse(b) == "nn.Module" for b in node.bases):
+            out[node.name] = [s.target.id for s in node.body
+                              if isinstance(s, ast.AnnAssign)
+                              and isinstance(s.target, ast.Name)]
+    return out
+
+
+def _port_args(module, name):
+    import importlib
+    import inspect
+
+    mod = importlib.import_module("ann3depth_tpu_torch." + module[:-3]
+                                  .replace("/", "."))
+    return set(inspect.signature(getattr(mod, name)).parameters)
+
+
+@pytest.mark.parametrize("module,name", [
+    (m, c) for m in MODEL_MODULES for c in _flax_fields(m)])
+def test_every_model_field_is_a_port_argument(module, name):
+    args = _port_args(module, name)
+    for field in _flax_fields(module)[name]:
+        if field == "dtype" or (module, name, field) in FIELD_EXCEPTIONS:
+            continue
+        want = FIELD_RENAMED.get((module, name, field), field)
+        assert want in args, f"{module}: {name}.{field} is not an argument"
+
+
+def test_field_lists_are_current():
+    for (module, name, field) in list(FIELD_RENAMED) + list(
+            FIELD_EXCEPTIONS):
+        assert field in _flax_fields(module)[name], (module, name, field)
+        if (module, name, field) in FIELD_EXCEPTIONS:
+            assert field not in _port_args(module, name), (name, field)
 
 
 def _subcommands(parser):
