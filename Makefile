@@ -39,6 +39,22 @@ bench:
 bench-serving:
 	$(PY) -m ann3depth_tpu bench --serving --config $(CONFIG)
 
+# The PyTorch port on the card (add DEVICE=cpu to run on the CPU).
+DEVICE ?= cuda
+
+.PHONY: torch-train torch-bench torch-bench-serving
+
+torch-train:
+	$(PY) -m ann3depth_tpu_torch train --config $(CONFIG) --steps $(STEPS) \
+	    --data-dir $(DATA_DIR) --ckpt-dir $(CKPT_DIR) --device $(DEVICE)
+
+torch-bench:
+	$(PY) -m ann3depth_tpu_torch bench --config $(CONFIG) --device $(DEVICE)
+
+torch-bench-serving:
+	$(PY) -m ann3depth_tpu_torch bench --serving --config $(CONFIG) \
+	    --device $(DEVICE)
+
 # build the native ring buffer ahead of time (also built lazily on import)
 native:
 	mkdir -p native/build

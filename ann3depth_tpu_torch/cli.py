@@ -38,6 +38,8 @@ Counterpart of `ann3depth_tpu/cli.py`, with every one of its subcommands:
         --param train.learning_rate=1e-4,3e-4 --out-dir sweeps/lr
     python -m ann3depth_tpu_torch info --config dpt-384 --flops
     python -m ann3depth_tpu_torch download --dataset make3d --data-dir data
+    python -m ann3depth_tpu_torch bench --config make3d-encdec    # train
+    python -m ann3depth_tpu_torch bench --serving --batch-size 32 # serving
 
 Every subcommand but `prepare` and `download` takes the JAX CLI's shared
 flags (`_COMMON_FLAGS`, the JAX `_common_flags`) and its own, plus --device
@@ -46,8 +48,9 @@ given). `train` and `eval` join a process group with --multihost
 (torchrun's environment) or --coordinator/--num-processes/--process-id,
 one process per device (NCCL on the card, gloo with --device cpu;
 --dist-backend gloo also runs CUDA tensors, so several ranks can share a
-card). `bench` stops with a message: the benchmark suite (benchmarks/)
-drives the JAX package only.
+card). `bench` times the train step (bench/train.py) or, with --serving,
+the serving program (bench/infer.py) on a pool made on the device, as the
+JAX CLI's `bench` runs benchmarks/bench_train.py and bench_infer.py.
 """
 
 from __future__ import annotations
@@ -406,12 +409,15 @@ def build_parser() -> argparse.ArgumentParser:
                          "every later verify enforces them (first verified "
                          "staging becomes a hard integrity gate)")
 
-    pb = sub.add_parser("bench", help="run the benchmark suite (JAX "
-                        "package only; stops in the port)")
+    pb = sub.add_parser("bench", help="train (or --serving) throughput "
+                        "on a device pool: images/s, ms a step, MFU, peak "
+                        "memory; one JSON line")
     _common_flags(pb)
     pb.add_argument("--serving", action="store_true",
-                    help="measure inference throughput (bench_infer) "
-                         "instead of training")
+                    help="measure serving throughput (bench/infer.py: "
+                         "CUDA graphs of the serving fn, batch "
+                         "--batch-size or 32) instead of training "
+                         "(bench/train.py: K-step graph blocks)")
 
     pw = sub.add_parser(
         "sweep", help="hyperparameter grid search: sequential train+eval "
@@ -730,11 +736,25 @@ def download_main(args):
 
 
 def bench_main(args):
-    raise SystemExit(
-        "bench is not part of the PyTorch port: the benchmark suite "
-        "(benchmarks/bench_train.py, bench_infer.py) drives the JAX "
-        "package; run `python -m ann3depth_tpu bench` for it, and "
-        "chip_smoke.py for the port's measurements on the card")
+    """Train throughput (bench/train.py) or, with --serving, serving
+    throughput (bench/infer.py) on --device; prints one JSON line."""
+    if args.ckpt_step is not None:
+        raise SystemExit("bench runs random-init params; --ckpt-step "
+                         "has no checkpoint to pin")
+    cfg = resolve_config(args)
+    if cfg.model.quant == "int8" and not args.serving:
+        raise SystemExit(
+            "--quant int8 is serving-only; pass --serving for the "
+            "inference bench or drop --quant for the training bench")
+    from ann3depth_tpu_torch.bench import infer, train
+
+    if args.serving:
+        result = infer.run(cfg, batch=args.batch_size or 32,
+                           device=args.device)
+    else:
+        result = train.run(cfg, device=args.device)
+    print(json.dumps(result), flush=True)
+    return 0
 
 
 def sweep_main(args):

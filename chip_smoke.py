@@ -167,6 +167,20 @@ last line is printed:
    (305, 55, 4) orientation, TRUE_SCALE_SPLIT scenes) through `download`,
    TRUE_SCALE_STEPS train steps of make3d-encdec and `eval`.
 
+14. `bench` at full width: `cli bench --config make3d-encdec` (train,
+   b16, 100 steps: eager steps, then K=50 blocks of BlockRunner's CUDA
+   graph), `cli bench --serving --config make3d-encdec --batch-size 32`,
+   plain and at `--quant int8` (a CUDA graph of the serving fn a pool
+   entry), and bench/train.py and bench/infer.py on dpt-384 (50 steps;
+   serving b16). Each prints its JSON line with the card. Checks: every
+   loss finite; 0 < mfu <= 1; the v1 kernel's launches outside the graphs
+   exactly those of the eager calls, and its calls recorded into the
+   graphs (2 a captured step, 1 a serving graph); step_ms and batch_ms at
+   least BENCH_DEVICE_SHARE of the device time (device_profile of eager
+   steps on a fresh state; of one replay a pool entry, whose v1 resample
+   the trace must show); a serving graph's output against the eager
+   serving fn within EXPORT_RTOL.
+
 The last lines are one `{"kernels": [...]}` JSON line, the nvidia-smi line
 of the card, and `{"ok": true, "device": {...}}`.
 """
@@ -956,9 +970,11 @@ def device_profile(torch, fn, steps, step_ms):
         by_name[e.name] = by_name.get(e.name, 0.0) + (stop - start)
         count[e.name] = count.get(e.name, 0) + 1
     busy_ms = busy / steps / 1e3
+    resample = sum(n for k, n in count.items() if "band_resample_kernel" in k)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     most = sorted(count.items(), key=lambda kv: -kv[1])[:8]
     return dict(kernels_per_step=len(kernels) / steps,
+                v1_resample_per_step=resample / steps,
                 device_busy_ms_per_step=busy_ms,
                 busy_share=busy_ms / step_ms,
                 top_kernels_ms_per_step={k[:90]: v / steps / 1e3
@@ -4468,6 +4484,181 @@ def variants_phase(torch, np, fp, card, tmp, handoff):
     return launches
 
 
+# Phase 14. `bench` through the CLI on make3d-encdec (train, b16, the
+# default 100 steps; serving b32, plain and int8) and bench/train.py and
+# bench/infer.py on dpt-384 (DPT_BENCH_STEPS steps, serving b16). A timed
+# step or batch may not be shorter than BENCH_DEVICE_SHARE of its device
+# time: the replays do at least the work the card does eagerly.
+DPT_BENCH_STEPS, DPT_SERVING_BATCH = 50, 16
+BENCH_DEVICE_SHARE = 0.9
+BENCH_PROFILE_STEPS = 3
+
+
+@contextlib.contextmanager
+def _bench_graphs(train_bench, infer_bench):
+    """Within the block, the BlockRunner of each train bench and the replays
+    of each serving bench are kept in `made`."""
+    made = dict(runners=[], replays=[])
+    runner_cls, graphs = train_bench.BlockRunner, infer_bench.serving_graphs
+
+    class Kept(runner_cls):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made["runners"].append(self)
+
+    def kept(fn, pool):
+        made["replays"].append(graphs(fn, pool))
+        return made["replays"][-1]
+
+    train_bench.BlockRunner, infer_bench.serving_graphs = Kept, kept
+    try:
+        yield made
+    finally:
+        train_bench.BlockRunner = runner_cls
+        infer_bench.serving_graphs = graphs
+
+
+def _bench_train_device(torch, cfg, result):
+    """device_profile of BENCH_PROFILE_STEPS eager train steps of `cfg` on a
+    fresh state and the bench's pool entry 0, at the bench's step ms."""
+    from ann3depth_tpu_torch.bench import train as train_bench
+    from ann3depth_tpu_torch.train import loop
+    from ann3depth_tpu_torch.train import step as steplib
+
+    state = loop.create_state(cfg, "cuda")
+    img, dep = train_bench.make_pool(cfg.train.batch_size, (480, 640), "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    kw = train_bench.step_kwargs(cfg)
+
+    def step():
+        steplib.train_step(state, img[0], dep[0], gen, **kw)
+
+    step()
+    return device_profile(torch, step, BENCH_PROFILE_STEPS,
+                          result["step_ms"])
+
+
+def _bench_run(np, fp, label, fn, expect_eager, expect_captured, train_run):
+    """One bench run under `_recording` with the v1 count set to 0 just
+    before it: its JSON line, its v1 launches outside the captures (which
+    must be `expect_eager`), its v1 calls recorded into CUDA graphs (which
+    must be `expect_captured`: the graphs replay them) and, of a serving
+    run, its replays; the recorded losses finite and 0 < mfu <= 1."""
+    from ann3depth_tpu_torch.bench import infer as infer_bench
+    from ann3depth_tpu_torch.bench import train as train_bench
+    from ann3depth_tpu_torch.train import step as steplib
+
+    kernel = fp.fused_preprocess  # _recording counts on, and swaps, it
+    kernel.launches = 0
+    with _recording(fp, steplib) as seen, \
+            _bench_graphs(train_bench, infer_bench) as made:
+        result = fn()
+    launches = kernel.launches
+    captured = len(seen["calls"]) - launches
+    check(launches == expect_eager, f"bench {label}: {launches} v1 launches "
+          f"outside the graphs, {expect_eager} expected")
+    check(captured == expect_captured, f"bench {label}: {captured} v1 calls "
+          f"captured, {expect_captured} expected")
+    check(0 < result.get("mfu", 0) <= 1, f"bench {label}: mfu "
+          f"{result.get('mfu')} outside (0, 1]")
+    if train_run:
+        losses = [float(x) for x in seen["losses"]] + [result["final_loss"]]
+        check(bool(np.isfinite(losses).all()),
+              f"bench {label}: non-finite losses")
+        check(len(made["runners"]) == 1 and made["runners"][0].graph
+              is not None, f"bench {label}: the step was not captured")
+        return result, launches, captured, None
+    check(len(made["replays"]) == 1 and all(
+        r.graph is not None for r in made["replays"][0]),
+        f"bench {label}: the serving fn was not captured")
+    return result, launches, captured, made["replays"][0]
+
+
+def _bench_serving_checks(torch, label, result, replays):
+    """The replays of a serving bench: device_profile of one pass over the
+    pool entries (every replay but the profiler's first must show the v1
+    resample), `batch_ms` against that device time, and entry 0's replayed
+    output against the eager serving fn on the same frames (EXPORT_RTOL)."""
+    prof = device_profile(torch, lambda: [r() for r in replays], 1,
+                          result["batch_ms"] * len(replays))
+    check(prof is not None, f"bench {label}: the profiler saw no kernel")
+    per_batch = prof["device_busy_ms_per_step"] / len(replays)
+    check(prof["v1_resample_per_step"] >= len(replays) - 1,
+          f"bench {label}: {prof['v1_resample_per_step']} v1 resample "
+          f"launches in {len(replays)} replays")
+    check(result["batch_ms"] >= BENCH_DEVICE_SHARE * per_batch,
+          f"bench {label}: batch_ms {result['batch_ms']} below "
+          f"{BENCH_DEVICE_SHARE} x its device time {per_batch}")
+    first = replays[0]
+    got = first().clone()
+    want = first.fn(first.x)
+    rel = float(((got - want).abs() / want.abs()).max())
+    check(rel <= EXPORT_RTOL, f"bench {label}: the replay is {rel} from the "
+          "eager serving fn")
+    return dict(device_ms_per_batch=per_batch,
+                v1_resample_in_replays=prof["v1_resample_per_step"],
+                replay_vs_eager_rel=rel, replay_equals_eager=rel == 0.0)
+
+
+def bench_phase(torch, np, fp, card):
+    """Phase 14: `bench` (train and serving) on make3d-encdec through the
+    CLI and on dpt-384 through bench/train.py and bench/infer.py. Returns
+    the v1 launches outside the graphs of each run."""
+    from ann3depth_tpu_torch import cli
+    from ann3depth_tpu_torch.bench import infer as infer_bench
+    from ann3depth_tpu_torch.bench import train as train_bench
+    from ann3depth_tpu_torch.config import get_config
+
+    encdec, dpt = get_config("make3d-encdec"), get_config("dpt-384")
+
+    def train_launches(steps, warmup=10):
+        """2 a step outside the graph: warm-up (the FLOP-counted step
+        first), the eager steps and the first block, which runs eagerly."""
+        return 2 * (warmup + min(steps, 100) + max(20, min(steps, 50)))
+
+    serving_launches = 1 + infer_bench.POOL_ENTRIES  # FLOP count, warm-up
+    runs = (
+        ("encdec_train", encdec, True, 100,
+         lambda: _cli_json(cli, ["bench", "--config", "make3d-encdec"])),
+        ("encdec_serving", encdec, False, None,
+         lambda: _cli_json(cli, ["bench", "--serving", "--config",
+                                 "make3d-encdec", "--batch-size", "32"])),
+        ("encdec_serving_int8", encdec, False, None,
+         lambda: _cli_json(cli, ["bench", "--serving", "--config",
+                                 "make3d-encdec", "--batch-size", "32",
+                                 "--quant", "int8"])),
+        ("dpt384_train", dpt, True, DPT_BENCH_STEPS,
+         lambda: train_bench.run(dpt, steps=DPT_BENCH_STEPS, device="cuda")),
+        ("dpt384_serving", dpt, False, None,
+         lambda: infer_bench.run(dpt, batch=DPT_SERVING_BATCH,
+                                 device="cuda")))
+    launches = {}
+    for label, cfg, train_run, steps, fn in runs:
+        t0 = time.perf_counter()
+        result, n, captured, replays = _bench_run(
+            np, fp, label, fn,
+            train_launches(steps) if train_run else serving_launches,
+            2 if train_run else infer_bench.POOL_ENTRIES, train_run)
+        if train_run:
+            prof = _bench_train_device(torch, cfg, result)
+            check(prof is not None, f"bench {label}: no kernel profiled")
+            device_ms = prof["device_busy_ms_per_step"]
+            check(result["step_ms"] >= BENCH_DEVICE_SHARE * device_ms,
+                  f"bench {label}: step_ms {result['step_ms']} below "
+                  f"{BENCH_DEVICE_SHARE} x its device time {device_ms}")
+            extra = dict(device_ms_per_step=device_ms,
+                         kernels_per_step=prof["kernels_per_step"])
+        else:
+            extra = _bench_serving_checks(torch, label, result, replays)
+            del replays  # their graphs' memory
+        launches[label] = n
+        print(f"bench {label}: " + json.dumps(dict(
+            result, v1_launches_eager=n, v1_calls_captured=captured,
+            seconds=time.perf_counter() - t0, card=card, **extra)),
+            flush=True)
+    return launches
+
+
 def main():
     import torch
 
@@ -4532,6 +4723,9 @@ def main():
         t13 = time.perf_counter()
         phase13 = variants_phase(torch, np, fp, card, tmp, handoff)
         print(f"phase 13: {time.perf_counter() - t13:.1f} s", flush=True)
+        t14 = time.perf_counter()
+        phase14 = bench_phase(torch, np, fp, card)
+        print(f"phase 14: {time.perf_counter() - t14:.1f} s", flush=True)
 
     def entry(case, **kw):
         """One kernel's entry of the kernels line, from its train case."""
@@ -4558,7 +4752,7 @@ def main():
         quant_launches=phase10["quant_launches"],
         export_launches=phase10["export_launches"],
         parallel_cases=parallel, parallel_launches=phase11,
-        variant_launches=phase13, **phase12)
+        variant_launches=phase13, bench_launches=phase14, **phase12)
     v2 = entry(
         cases_v2[1],  # the train shape, b16 augment rows
         name="fused_preprocess_v2",

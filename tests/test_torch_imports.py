@@ -43,7 +43,7 @@ def test_port_files_found():
                    "parallel/shard_step.py", "parallel/zero1.py",
                    "parallel/sharding_rules.py", "sweep.py",
                    "data/download.py", "compat/tf_ckpt_import.py",
-                   "utils/flops.py"):
+                   "utils/flops.py", "bench/train.py", "bench/infer.py"):
         assert f"ann3depth_tpu_torch/{module}" in PORT_FILES
     assert len(PORT_FILES) > 10
 

@@ -125,8 +125,3 @@ def test_info_refusals_match_jax():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(["info", "--config", "smoke"])
-
-
-def test_bench_stops_with_its_message():
-    with pytest.raises(SystemExit, match="benchmarks/"):
-        cli.main(["bench", "--config", "smoke", "--device", "cpu"])
