@@ -1,8 +1,8 @@
 """Serving-throughput benchmark: raw uint8 frames -> linear depth.
 
 Counterpart of `benchmarks/bench_infer.py`: the batched serving program
-(`serving.make_serving_fn`: the v1 preprocess kernel, the model's forward,
-exp) on a pool of 4 batches made on the device.
+(`serving.serving_program`: the v1 preprocess kernel, the model's
+forward, exp) on a pool of 4 batches made on the device.
 
 The JAX bench times a scan of 30 batches in one program. Here each pool
 entry has a CUDA graph of the serving fn that reads that entry, and a rep
@@ -23,52 +23,29 @@ from ann3depth_tpu_torch.device import resolve_device
 from ann3depth_tpu_torch.models import registry
 from ann3depth_tpu_torch.train import step as steplib
 from ann3depth_tpu_torch.utils import flops as flopslib
+from ann3depth_tpu_torch.utils import graphs
 from ann3depth_tpu_torch.utils.tracing import device_sync
 
 K = 30
 POOL_ENTRIES = 4
 
 
-class Replay:
-    """`fn(x)` on one fixed input: the replay of a CUDA graph captured from
-    it on the card, the eager call on the CPU. `out` holds the last
-    output (on the card, the graph's static output)."""
-
-    def __init__(self, fn, x, pool=None):
-        self.fn, self.x = fn, x
-        self.graph = None
-        self.out = None
-        if x.device.type == "cuda":
-            self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph, pool=pool):
-                self.out = fn(x)
-
-    def __call__(self):
-        if self.graph is None:
-            self.out = self.fn(self.x)
-        else:
-            self.graph.replay()
-        return self.out
-
-
 def serving_graphs(fn, pool):
-    """One `Replay` of `fn` per entry of `pool` ([N, B, H, W, 3] uint8), its
-    graphs sharing one memory pool (they replay one after another). On the
-    card `fn` runs once a entry on a side stream first: a capture runs no
-    kernel, and the first calls load what a capture cannot (the kernel
-    library, cuDNN's and cuBLAS's handles and plans, the cached identity
-    rows)."""
+    """One `graphs.Replay` of `fn` per entry of `pool` ([N, B, H, W, 3]
+    uint8), its graphs sharing one memory pool (they replay one after
+    another; all are captured on the one capture stream). On the card `fn`
+    runs once a entry on a side stream first (`graphs.warm_up`)."""
     entries = [pool[i] for i in range(pool.shape[0])]
     if pool.device.type != "cuda":
-        return [Replay(fn, x) for x in entries]
-    side = torch.cuda.Stream(pool.device)
-    side.wait_stream(torch.cuda.current_stream(pool.device))
-    with torch.cuda.stream(side):
+        return [graphs.Replay(fn, x) for x in entries]
+
+    def warm():
         for x in entries:
             fn(x)
-    torch.cuda.current_stream(pool.device).wait_stream(side)
-    first = Replay(fn, entries[0])
-    return [first] + [Replay(fn, x, pool=first.graph.pool())
+
+    graphs.warm_up(warm, device=pool.device)
+    first = graphs.Replay(fn, entries[0])
+    return [first] + [graphs.Replay(fn, x, pool=first.graph.pool())
                       for x in entries[1:]]
 
 
@@ -84,7 +61,7 @@ def run(cfg, batch=32, steps=60, raw_hw=(480, 640), model=None, tag=None,
     model = model if model is not None else registry.build(cfg.model)
     model = serving.prepare_model(
         steplib.init_params(model, input_hw, seed=0), dev)
-    fn = serving.make_serving_fn(model, input_hw)
+    fn = serving.serving_program(model, input_hw)
     gen = torch.Generator(device=dev).manual_seed(0)
     pool = torch.randint(0, 256, (POOL_ENTRIES, batch, *raw_hw, 3),
                          dtype=torch.uint8, generator=gen, device=dev)

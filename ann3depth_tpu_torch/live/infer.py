@@ -17,8 +17,9 @@ which a bf16 model rounds to bf16 at its first op, so the two differ by
 where that one rounding falls. `LiveEngine` keeps one frame in flight: the frame goes H2D from a
 pinned host buffer, the rendered frame comes back D2H into another with
 `non_blocking=True`, and an event recorded after it is what `retrieve`
-waits on. Everything runs on the current stream, so the kernel, the model
-and both copies run in the order they were issued.
+waits on. On the card the engine's step is one CUDA graph, replayed for
+each frame. Everything runs on the current stream, so the copies and the
+step run in the order they were issued.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import torch
 
 from ann3depth_tpu_torch.ops.resize import resample_2d, upsample_matmul
 from ann3depth_tpu_torch.pipeline import preprocess
+from ann3depth_tpu_torch.utils import graphs
 
 # Colormaps as 16 anchor points each, interpolated to 256 LUT entries (the
 # per-frame render is one gather whatever the map). Anchors sampled from the
@@ -173,7 +175,16 @@ class LiveEngine:
     model: the depth net on its device (serving.prepare_model). The
     constructor runs one frame through the whole program, in the calling
     thread (cuDNN keeps its handles and plans per thread), and so builds
-    the kernel there."""
+    the kernel there. On the card it then captures the engine's step
+    (`_program`: `live_step` at the engine's frame shape, with the
+    engine's smoothing) in a CUDA graph (a `GraphCache` of one key, after
+    one warm call on a side stream), and every frame replays it: the
+    counterpart of the JAX engine's `jax.jit` of `live_step`. On the CPU
+    every frame runs the step eagerly.
+
+    With smoothing the step reads and writes the EMA carry in place
+    (`copy_` inside the step, `zero_` in `reset_smoothing`): a graph holds
+    the addresses it was captured with."""
 
     def __init__(self, model, frame_hw, input_hw, display_hw=None,
                  smooth=0.0, colormap="turbo"):
@@ -204,9 +215,13 @@ class LiveEngine:
         depth, _ = live_step(self.model, self._frame_dev,
                              **self._step_kw(smooth=0.0))
         if self.smooth > 0:
-            self._carry = torch.zeros_like(depth)
-            self._has_prev = torch.zeros((), device=self.device)
-            self._one = torch.ones((), device=self.device)
+            # normal tensors, which reset_smoothing zeroes in place
+            with torch.inference_mode(False):
+                self._carry = torch.zeros_like(depth)
+                self._has_prev = torch.zeros((), device=self.device)
+        self._graph = graphs.GraphCache(self._program, device=self.device)
+        self._step(self._frame_dev)  # the capture, on the card
+        self.reset_smoothing()  # the step moved the carry
         self._sync()
 
     def _step_kw(self, smooth):
@@ -224,19 +239,33 @@ class LiveEngine:
     def reset_smoothing(self):
         """Forget the temporal-EMA carry (stream restart / scene cut)."""
         if self.smooth > 0:
-            self._carry = torch.zeros_like(self._carry)
-            self._has_prev = torch.zeros((), device=self.device)
+            self._carry.zero_()
+            self._has_prev.zero_()
 
-    def _step(self, frame_dev):
+    @torch.inference_mode()
+    def _program(self, frame_dev):
+        """The engine's device step: `live_step` of one frame at the
+        engine's smoothing, the new carry written in place. The carry
+        stays on the device: the next frame depends on this one's output
+        without a host sync."""
         if self.smooth > 0:
             depth, rendered, logd = live_step(
                 self.model, frame_dev, prev_log=self._carry,
                 has_prev=self._has_prev, **self._step_kw(self.smooth))
-            # The carry stays on the device: the next frame depends on
-            # this one's output without a host sync.
-            self._carry, self._has_prev = logd, self._one
+            self._carry.copy_(logd)
+            self._has_prev.fill_(1.0)
             return depth, rendered
         return live_step(self.model, frame_dev, **self._step_kw(0.0))
+
+    def _step(self, frame_dev):
+        """(depth, rendered) of a frame on the device through the engine's
+        `GraphCache` of `_program`: on the card the frame is copied into
+        the graph's input and the graph replays, on the CPU the step runs
+        eagerly. depth is the caller's own copy; rendered is the graph's
+        output, which the next step overwrites: copy it out (a copy queued
+        before the next step) before stepping again."""
+        depth, rendered = self._graph(frame_dev)
+        return depth.clone(), rendered
 
     def infer(self, frame_u8: np.ndarray, fetch_depth: bool = False):
         """One frame -> (depth, rendered np [Hd,Wd,3], latency_s).

@@ -51,12 +51,22 @@ def render_batches(model, batches, *, input_hw, colormap="turbo", tta="",
     One batch stays in flight: batch k+1 is dispatched before batch k's
     results are read. Results leave the device by non-blocking copies into
     pinned host buffers, each followed by an event that the read waits on,
-    so reading batch k does not wait for batch k+1's compute."""
+    so reading batch k does not wait for batch k+1's compute.
+
+    `live_step` runs through a `GraphCache`: on the card one CUDA graph
+    for each batch shape (the full batch, and a short tail batch where
+    the caller gives one), each batch's frames copied from the host into
+    its static input; on the CPU eagerly. The results' copies are queued
+    before the next batch's replay, which then cannot overwrite them
+    first."""
     from ann3depth_tpu_torch.live.infer import live_step
+    from ann3depth_tpu_torch.utils import graphs
 
     dev = next(model.parameters()).device
     cuda = dev.type == "cuda"
     host = {}  # (slot, name) -> pinned host buffer
+    step = graphs.GraphCache(
+        lambda frames, **kw: live_step(model, frames, **kw), device=dev)
 
     def to_host(slot, name, t):
         key = (slot, name)
@@ -65,10 +75,10 @@ def render_batches(model, batches, *, input_hw, colormap="turbo", tta="",
         return host[key].copy_(t, non_blocking=True)
 
     def submit(slot, frames, n):
-        x = torch.from_numpy(np.ascontiguousarray(frames)).to(dev)
-        depth, rendered = live_step(model, x, input_hw=input_hw,
-                                    display_hw=frames.shape[1:3], tta=tta,
-                                    colormap=colormap)
+        x = torch.from_numpy(np.ascontiguousarray(frames))
+        depth, rendered = step(x, input_hw=tuple(input_hw),
+                               display_hw=frames.shape[1:3], tta=tta,
+                               colormap=colormap)
         out = (to_host(slot, "rendered", rendered),
                to_host(slot, "depth", depth) if with_depth else None)
         event = torch.cuda.Event() if cuda else None

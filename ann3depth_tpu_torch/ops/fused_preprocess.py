@@ -130,6 +130,17 @@ def _valid_depth(x):
         torch.float32)
 
 
+@functools.lru_cache(maxsize=8)
+def _rgb_stats(device):
+    """(mean, std) f32 [3] of the normalization on `device`, built once
+    for each device, so a call copies nothing from the host (a graph can
+    capture it). Shared: do not write to them. Built outside any
+    inference_mode, so that autograd may save them."""
+    with torch.inference_mode(False):
+        return (torch.tensor(ref.RGB_MEAN, dtype=torch.float32).to(device),
+                torch.tensor(ref.RGB_STD, dtype=torch.float32).to(device))
+
+
 def _photometric(n, g, dims):
     m = n.mean(dim=dims, keepdim=True)
     shape = (-1,) + (1,) * len(dims)
@@ -162,10 +173,7 @@ def plain_preprocess(frames, params, *, out_hw, norm=True, depth_mode=False):
         return torch.where(zv >= ref.DEPTH_VALID_RESAMPLE_THRESH,
                            d * out_scale, torch.zeros_like(d))
     if norm:
-        mean = torch.tensor(ref.RGB_MEAN, dtype=torch.float32,
-                            device=frames.device)
-        std = torch.tensor(ref.RGB_STD, dtype=torch.float32,
-                           device=frames.device)
+        mean, std = _rgb_stats(frames.device)
         n = (z / 255.0 - mean) / std
     else:
         n = z / 255.0
@@ -324,9 +332,7 @@ def plain_preprocess_s2d(frames, params, *, out_hw, factor=4,
                      x)
     z = torch.einsum("bpew,bqdwc->bqpdec",
                      ax.reshape(b, w_out // f, f, w_in), z)
-    mean = torch.tensor(ref.RGB_MEAN, dtype=torch.float32,
-                        device=frames.device)
-    std = torch.tensor(ref.RGB_STD, dtype=torch.float32, device=frames.device)
+    mean, std = _rgb_stats(frames.device)
     n = _photometric((z / 255.0 - mean) / std, g, (1, 2, 3, 4, 5))
     return n.reshape(b, h_out // f, w_out // f, f * f * c).to(out_dtype)
 

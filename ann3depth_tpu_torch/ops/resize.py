@@ -24,6 +24,9 @@ import torch
 def _f32(v, device=None):
     if isinstance(v, torch.Tensor):
         return v.to(dtype=torch.float32, device=device or v.device)
+    if isinstance(v, (int, float)):
+        # torch.full copies nothing from the host (a graph can capture it)
+        return torch.full((), v, dtype=torch.float32, device=device)
     return torch.tensor(v, dtype=torch.float32, device=device)
 
 

@@ -9,12 +9,16 @@ package's, unchanged:
 One dispatch thread coalesces concurrent requests into batches of at most
 `max_batch` frames within `max_delay_s`, padded up to a power-of-2 bucket.
 `warmup(service)` runs every bucket once in the dispatch thread before
-traffic (on the card that builds the kernel and lets cuDNN pick its
-algorithms for that thread). The wiring below builds the
-torch serving fn: `service_from_config` (random-init weights or a
-checkpoint's, on one device or, with dp > 1, replicated on several with
-each batch split across them) and `service_from_artifact` (the port's
-exported program, or the weights of a JAX artifact's params.npz).
+traffic. The wiring below builds the torch serving fn:
+`service_from_config` (random-init weights or a checkpoint's, on one
+device or, with dp > 1, replicated on several with each batch split across
+them) and `service_from_artifact` (the port's exported program, or the
+weights of a JAX artifact's params.npz). Each serves through a
+`utils.graphs.GraphCache`: on the card the first batch of each bucket
+captures a CUDA graph of the serving program (the JAX package's
+`jax.jit(serve_fn)` compiles one program a bucket), and every later batch
+of that size replays it; a warm-up therefore captures the whole ladder
+before traffic. On the CPU the program runs eagerly.
 """
 
 from __future__ import annotations
@@ -113,7 +117,10 @@ class BatchingService:
 
     def warmup(self):
         """Compile every batch bucket before taking traffic (the first
-        request at each bucket otherwise pays its XLA compile)."""
+        request at each bucket otherwise pays its compile), in the
+        caller's thread: with the port's serving fn on the card, this
+        captures each bucket's CUDA graph, which the dispatch thread then
+        replays."""
         zero = np.zeros((*self.raw_hw, 3), np.uint8)
         for b in self._buckets:
             self._fn(np.broadcast_to(zero, (b, *zero.shape)).copy())
@@ -265,7 +272,10 @@ def split_predictor(fns, devices):
     """numpy u8 [B,H,W,3] -> numpy f32 [B,h,w] over several replicas: the
     batch is cut into len(fns) equal parts, part i runs fns[i] on
     devices[i] (on a stream of its own on the card; every part is launched
-    before any is read back), and the answers are concatenated in order."""
+    before any is read back), and the answers are concatenated in order.
+    Each fn is a `GraphCache` on its device (`make_serving_fn` of that
+    device's replica): it takes its part from the host, and captures and
+    replays its graphs on that device's stream."""
     import torch
 
     streams = [torch.cuda.Stream(d) if d.type == "cuda" else None
@@ -285,11 +295,11 @@ def split_predictor(fns, devices):
         outs = []
         for fn, d, stream, x in zip(fns, devices, streams, parts):
             with on(d, stream):
-                outs.append(fn(torch.from_numpy(x).to(d)))
+                outs.append(fn(torch.from_numpy(x)))
         answers = []
         for out, d, stream in zip(outs, devices, streams):
             with on(d, stream):
-                answers.append(out.cpu().numpy())
+                answers.append(out.to("cpu", copy=True).numpy())
         return np.concatenate(answers)
 
     return predict
@@ -321,8 +331,7 @@ def service_from_config(cfg, *, ckpt_dir=None, init=False, raw_hw=(480, 640),
         device=devices[0], init=init)
     if n_dp == 1:
         fn = serving.make_serving_fn(model, cfg.data.input_hw)
-        return BatchingService(serving.numpy_predictor(fn, devices[0]),
-                               raw_hw, **kw)
+        return BatchingService(serving.numpy_predictor(fn), raw_hw, **kw)
     replicas = [model] + [serving.prepare_model(copy.deepcopy(model), d)
                           for d in devices[1:n_dp]]
     fns = [serving.make_serving_fn(m, cfg.data.input_hw) for m in replicas]

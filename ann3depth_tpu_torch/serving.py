@@ -3,7 +3,10 @@
 Counterpart of `ann3depth_tpu/serving.py`. `ServingProgram` is the served
 program: raw uint8 frames -> preprocess (the registered op
 `torch.ops.ann3depth.fused_preprocess`: the fused CUDA kernel on the card)
--> model -> exp to linear depth; `make_serving_fn` runs it eagerly.
+-> model -> exp to linear depth. `make_serving_fn` serves it through a
+`utils.graphs.GraphCache`: on the card one CUDA graph for each batch size
+(the counterpart of the JAX package's `jax.jit(serve_fn)`, one program a
+bucket), on the CPU the eager call.
 
 `export_serving` writes it as a `torch.export` artifact directory:
 
@@ -12,8 +15,9 @@ program: raw uint8 frames -> preprocess (the registered op
                   platforms, param count, torch version, format
 
 `load_serving` serves such a directory through `torch.export.load` on the
-device type it was exported on, with no model code: the op it calls is
-registered by importing `ops.fused_preprocess` (which this module does).
+device type it was exported on, with no model code (the op it calls is
+registered by importing `ops.fused_preprocess`, which this module does),
+through the same cache.
 It also serves the weights of a directory written by the JAX package's
 `export_serving` (`meta.json` and `params.npz`; its StableHLO program cannot
 run here and is not read) in the port's model code.
@@ -36,6 +40,7 @@ from ann3depth_tpu_torch.config import PRESETS, ModelConfig
 from ann3depth_tpu_torch.device import resolve_device
 from ann3depth_tpu_torch.models import registry
 from ann3depth_tpu_torch.pipeline import preprocess
+from ann3depth_tpu_torch.utils import graphs
 
 log = logging.getLogger(__name__)
 
@@ -58,10 +63,21 @@ class ServingProgram(nn.Module):
         return torch.exp(self.model(images)[..., 0])
 
 
-def make_serving_fn(model, input_hw):
-    """fn(img_u8 [B,H,W,3] tensor) -> linear depth [B,h,w] f32 tensor:
-    `ServingProgram` run eagerly, in inference mode."""
+def serving_program(model, input_hw):
+    """`ServingProgram` as an eager fn, in inference mode."""
     return torch.inference_mode()(ServingProgram(model, input_hw))
+
+
+def make_serving_fn(model, input_hw):
+    """fn(img_u8 [B,H,W,3] tensor) -> linear depth [B,h,w] f32 tensor on
+    the model's device: `serving_program` through a `GraphCache` there,
+    one CUDA graph for each batch size on the card (the input may lie on
+    the host: it is copied into the graph's static input), the eager call
+    on the CPU. The answer is the graph's static output, valid until the
+    next call; `fn.fn` is the eager program."""
+    device = next(model.parameters()).device
+    return graphs.GraphCache(serving_program(model, input_hw),
+                             device=device)
 
 
 def prepare_model(model, device):
@@ -69,23 +85,30 @@ def prepare_model(model, device):
     return model.to(device=device, memory_format=torch.channels_last).eval()
 
 
-def numpy_predictor(fn, device):
-    """Wrap a serving fn as numpy u8 [B,H,W,3] -> numpy f32 [B,h,w]."""
+def numpy_predictor(fn):
+    """Wrap a serving fn (a `GraphCache` on its device, as
+    `make_serving_fn` gives) as numpy u8 [B,H,W,3] -> numpy f32 [B,h,w]:
+    the host frames are copied straight into its static input, and the
+    answer is copied to the host before the next call can overwrite it.
+    `predict.fn` is `fn`."""
     def predict(img_u8):
         x = torch.from_numpy(np.ascontiguousarray(img_u8, dtype=np.uint8))
-        return fn(x.to(device)).cpu().numpy()
+        return fn(x).to("cpu", copy=True).numpy()
+
+    predict.fn = fn
     return predict
 
 
 class ServingModel:
     """A loaded artifact: `predict` maps numpy uint8 frames [B,H,W,3] to
-    linear depth [B,h,w] through `fn`. `model` is the depth model that
+    linear depth [B,h,w] through `fn` (a `GraphCache`). `model` is the depth model that
     serves a JAX artifact's weights, or the port's exported program."""
 
-    def __init__(self, model, meta, device, fn):
+    def __init__(self, model, meta, fn):
         self.model = model
         self.meta = meta
-        self.predict = numpy_predictor(fn, device)
+        self.fn = fn
+        self.predict = numpy_predictor(fn)
 
 
 def model_from_artifact(meta, state_dict):
@@ -201,9 +224,9 @@ def load_serving(artifact_dir, *, device=None):
                 f"cannot run on {device}: export it again there")
         program = torch.export.load(
             os.path.join(artifact_dir, ARTIFACT_FILE)).module()
-        return ServingModel(program, meta, device,
-                            torch.inference_mode()(program))
+        return ServingModel(program, meta, graphs.GraphCache(
+            torch.inference_mode()(program), device=device))
     meta, state_dict = convert.read_artifact(artifact_dir)
     model = prepare_model(model_from_artifact(meta, state_dict), device)
-    return ServingModel(model, meta, device,
+    return ServingModel(model, meta,
                         make_serving_fn(model, meta["input_hw"]))

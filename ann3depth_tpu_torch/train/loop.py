@@ -60,7 +60,7 @@ from ann3depth_tpu_torch.pipeline import device_cache
 from ann3depth_tpu_torch.train import losses
 from ann3depth_tpu_torch.train import step as steplib
 from ann3depth_tpu_torch.train.checkpoint import CheckpointManager
-from ann3depth_tpu_torch.utils import tracing
+from ann3depth_tpu_torch.utils import graphs, tracing
 from ann3depth_tpu_torch.utils.metrics_writer import MetricsWriter
 
 log = logging.getLogger(__name__)
@@ -528,6 +528,11 @@ def train(cfg: Config, *, workdir: Optional[str] = None, dataset=None,
     teacher = restore_teacher(cfg, dev) if t.distill_from else None
     ckpt = CheckpointManager(t.ckpt_dir)
     state, start_step = _restore_for_resume(cfg, state, ckpt)
+    # One cache for every in-loop eval: the steps, the restores and an
+    # early stop write the params in place, so its graphs stay valid. Made
+    # here, so that a run whose eval cannot be captured is refused before
+    # its first step.
+    eval_graphs = eval_stats_graphs(state, dev) if t.eval_every else None
     n_steps = t.steps - start_step
     if spd > 1 and n_steps % spd:
         # t.steps % spd == 0 is validated up top, so this only trips on a
@@ -656,6 +661,7 @@ def train(cfg: Config, *, workdir: Optional[str] = None, dataset=None,
                 em = evaluate(cfg, state=state, dataset=eval_ds,
                               max_batches=EVAL_SAMPLE_BATCHES,
                               stage_pool=False, mesh=mesh,
+                              stats_graphs=eval_graphs,
                               device_batches=(eval_pool.fixed_batches(
                                   EVAL_SAMPLE_BATCHES)
                                   if eval_pool else None))
@@ -749,10 +755,36 @@ def _eval_pool(dataset, batch_size, dev, max_batches=None, need=1,
     return pool, n if max_batches is None else min(n, max_batches)
 
 
+def eval_stats_graphs(state, device):
+    """`train.step.eval_stats_step` on `state` as a `GraphCache` on
+    `device`: on the card one CUDA graph for each batch shape and set of
+    eval options, captured at its first batch. The graphs hold the
+    addresses of state's params, so they stay valid while the params are
+    written in place (as every train step, restore and early stop does).
+
+    Refused on the card when state's model axis reduces over gloo (a
+    tensor-parallel run on the gloo backend): those all-reduces run on the
+    host and cannot be captured."""
+    mesh = state.mesh
+    if (device.type == "cuda" and mesh is not None
+            and mesh.active(meshlib.MODEL_AXIS)
+            and multihost.backend() == "gloo"):
+        raise ValueError(
+            "eval captures its step in a CUDA graph, and the gloo backend's "
+            "model-axis all-reduces (tensor_parallel) cannot be captured; "
+            "run nccl (one process per card) or eval_every 0")
+
+    def eval_stats(img_u8, depth, **kw):
+        return steplib.eval_stats_step(state, img_u8, depth, **kw)
+
+    return graphs.GraphCache(eval_stats, device=device)
+
+
 def evaluate(cfg: Config, state=None, dataset=None, max_batches=None,
              device=None, use_ema=False, report_dir=None, report_worst=8,
              ckpt_step=None, tta="", avg_last=None, align="", crop="",
-             device_batches=None, stage_pool=True, mesh=None):
+             device_batches=None, stage_pool=True, mesh=None,
+             stats_graphs=None):
     """Eval loop: sum the sufficient statistics of every batch of the test
     split (as device scalars, one host read at the end) and finalize once,
     so the dataset RMSE is over all valid pixels of the split.
@@ -763,7 +795,12 @@ def evaluate(cfg: Config, state=None, dataset=None, max_batches=None,
     with use_ema).
 
     tta="flip", align="median" and crop="eigen"|"garg" as in
-    `train.step.eval_stats_step`.
+    `train.step.eval_stats_step`, which runs through `stats_graphs`, an
+    `eval_stats_graphs(state, ...)` cache (the training loop keeps one for
+    all its evals; None makes one for this call): on the card one CUDA
+    graph for each batch shape, captured at the first batch of that shape
+    and replayed for the rest; on the CPU eagerly. Report mode runs
+    `eval_report_step` eagerly.
 
     report_dir: also write per-image error attribution: per_image.jsonl
     (one metrics row per test image, split order), worst.png (a rgb|gt|pred
@@ -834,21 +871,23 @@ def evaluate(cfg: Config, state=None, dataset=None, max_batches=None,
                 device_batches = own_pool.fixed_batches(n_b)
     if device_batches is not None:
         batch_iter = iter(device_batches)
-    else:
-        batch_iter = ((torch.from_numpy(img_np).to(dev),
-                       torch.from_numpy(dep_np).to(dev))
+    else:  # host tensors: the graph's static inputs are their H2D copies
+        batch_iter = ((torch.from_numpy(img_np), torch.from_numpy(dep_np))
                       for img_np, dep_np in dataset.batches(
                           batch_size, steps=max_batches, shuffle=False))
+    if stats_graphs is None and report_dir is None:
+        stats_graphs = eval_stats_graphs(state, dev)
     totals = {}
     rows, worst = [], []  # report mode: per-image rows + worst-K heap
     for b, (img_u8, depth) in enumerate(batch_iter):
         if report_dir is None:
-            stats = steplib.eval_stats_step(state, img_u8, depth, **step_kw)
+            stats = stats_graphs(img_u8, depth, **step_kw)
+            # the sums are new tensors: the next replay overwrites `stats`
             for k, v in stats.items():
-                totals[k] = totals[k] + v if k in totals else v
+                totals[k] = totals[k] + v if k in totals else v.clone()
         else:
             per, images, depths, pred_log = steplib.eval_report_step(
-                state, img_u8, depth, **step_kw)
+                state, img_u8.to(dev), depth.to(dev), **step_kw)
             per = {k: v.cpu().numpy() for k, v in per.items()}
             bsz = per["n_valid"].shape[0]
             batch_tot = {k: float(v.sum()) for k, v in per.items()

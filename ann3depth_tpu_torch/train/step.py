@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import weakref
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -38,6 +39,7 @@ from ann3depth_tpu_torch.ops import fused_preprocess as fp
 from ann3depth_tpu_torch.ops import resize
 from ann3depth_tpu_torch.pipeline import preprocess
 from ann3depth_tpu_torch.train import losses
+from ann3depth_tpu_torch.utils import graphs
 
 
 def init_params(model, input_hw, seed=0, *, device=None):
@@ -682,11 +684,31 @@ def infer_step(model, img_u8, *, input_hw, tta=""):
     return torch.exp(apply_with_tta(model, images, tta)[..., 0])
 
 
+# `infer_image`'s graphs of `infer_step`: one GraphCache a model, weakly
+# keyed, so that a model's graphs go with it.
+_INFER_GRAPHS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def infer_graphs(model):
+    """The `GraphCache` of `infer_step` on `model`, on its device (made at
+    first use, kept while the model lives): one CUDA graph for each frame
+    shape and tta on the card, the eager step on the CPU."""
+    cache = _INFER_GRAPHS.get(model)
+    if cache is None:
+        ref = weakref.ref(model)
+
+        def infer(img_u8, **kw):
+            return infer_step(ref(), img_u8, **kw)
+
+        cache = _INFER_GRAPHS[model] = graphs.GraphCache(
+            infer, device=next(model.parameters()).device)
+    return cache
+
+
 def infer_image(model, img_u8, *, input_hw, tta=""):
     """One decoded uint8 numpy frame [H,W,3] -> linear depth, numpy f32
-    [h,w]: `infer_step` on the model's device (the device half of
-    `cli infer --image`)."""
-    dev = next(model.parameters()).device
+    [h,w]: `infer_step` on the model's device through `infer_graphs` (the
+    device half of `cli infer --image`)."""
     x = torch.from_numpy(np.array(img_u8, dtype=np.uint8))
-    return infer_step(model, x[None].to(dev), input_hw=input_hw,
-                      tta=tta)[0].cpu().numpy()
+    return infer_graphs(model)(x[None], input_hw=tuple(input_hw),
+                               tta=tta)[0].to("cpu", copy=True).numpy()

@@ -118,9 +118,12 @@ last line is printed:
    dpt-384 b16 at --tp 2 on two ranks against the tp=1 run that computes
    each block as tp=2 does (`sharding_rules.tp_twin`), held to twice the
    largest gap of four plain tp=1 runs (the gap to a plain run reported),
-   with the model-axis all-reduces a step and their time; `serve --dp 0`
-   against --dp 1 (and --dp 2 refused on one card); `eval` on two ranks
-   (b8 each) against one process at b8 within EVAL_METRIC_RTOL. Each rank times a gradient all-reduce of its model's
+   with the model-axis all-reduces a step and their time, and the same
+   run with an in-loop eval refused before its first step (gloo's
+   model-axis all-reduces cannot be captured in the eval step's graph);
+   `serve --dp 0` against --dp 1 (and --dp 2 refused on one card); `eval`
+   on two ranks (b8 each) against one process at b8 within
+   EVAL_METRIC_RTOL. Each rank times a gradient all-reduce of its model's
    size on gloo. Phase 2 holds v1 at the per-rank shapes.
 
 12. The tools, through the port's CLI at full width: `info --flops` of
@@ -180,6 +183,32 @@ last line is printed:
    steps on a fresh state; of one replay a pool entry, whose v1 resample
    the trace must show); a serving graph's output against the eager
    serving fn within EXPORT_RTOL.
+
+15. The compiled programs (utils/graphs.py: the serve, live, transcode,
+   eval and infer steps as CUDA graphs, one capture a key), at full
+   width: the serve ladder (1...32) of phase 4's make3d-encdec and phase
+   7's dpt-384 checkpoints, captured by `BatchingService.warmup` in this
+   thread and replayed by the dispatch thread, its peak memory; phase
+   10's exported program (`serve --artifact`) at b1, b8 and b32; the live
+   engine without and with smoothing, its frames also replayed from
+   another thread; the transcode loop at b8 with a tail of 3; the eval
+   step plain and at tta+align+crop; `infer_image`, plain and at tta
+   "flip". Each graph equal to its eager call bit for bit, the v1 kernel
+   recorded into each (one call a graph, two an eval batch; traced in
+   the exported program's replay); the served, live and eval graphs
+   against plain-fed twins built inside `fed_by`, each shifted-window
+   control failing the same tolerance. Each path prints eager against
+   graph: wall and device ms a call, busy share, device kernels and host
+   launches a call; also a serving burst's requests/s, the live
+   `device_step_latency` and phase 6's viewer p50/p99 at 30 fps, eval
+   images/s.
+
+The serve, live, transcode, eval and infer paths of every phase run
+graphs on the card: the v1 wrapper counts only the launches
+outside them (each capture's warm call, eager steps), and `graph_runs`
+counts the calls recorded into the graphs and their replays, so each
+path's check holds its v1 runs (`v1_runs`: the eager launches and a
+graph's recorded calls at each replay) to what it held before.
 
 The last lines are one `{"kernels": [...]}` JSON line, the nvidia-smi line
 of the card, and `{"ok": true, "device": {...}}`.
@@ -831,33 +860,39 @@ def serve_slice(torch, np, fp, card):
     cfg = get_config("make3d-encdec")
     raw_hw = (480, 640)
     t0 = time.perf_counter()
-    svc = server.service_from_config(cfg, init=True, raw_hw=raw_hw,
-                                     max_batch=32, max_delay_s=0.005,
-                                     device="cuda")
     srv = None
-    try:
-        server.warmup(svc)
-        warm_s = time.perf_counter() - t0
-        srv = server.DepthServer(svc, host="127.0.0.1", port=0)
-        srv.serve_background()
-        url = f"http://127.0.0.1:{srv.port}/v1/depth"
-        frames = np.random.default_rng(1).integers(
-            0, 256, (12, *raw_hw, 3), dtype=np.uint8)
-        bodies = request_bodies(frames)
-        # The process's first HTTP traffic pays a host-side cost of its
-        # own (ann3depth_tpu_torch/probe_serving.py); it is reported apart,
-        # and the measured round is the second.
-        cold, cold_s = http_round(url, bodies)
-        hist0 = svc.stats()["batch_size_hist"]
-        fp.fused_preprocess.launches = 0
-        results, elapsed = http_round(url, bodies)
-        launches = fp.fused_preprocess.launches
-        check(launches > 0, "the served path never launched fused_preprocess")
-    finally:
-        if srv is not None:
-            srv.close()
-        else:
-            svc.close()
+    with graph_runs(torch, fp) as seen:
+        svc = server.service_from_config(cfg, init=True, raw_hw=raw_hw,
+                                         max_batch=32, max_delay_s=0.005,
+                                         device="cuda")
+        try:
+            server.warmup(svc)
+            warm_s = time.perf_counter() - t0
+            srv = server.DepthServer(svc, host="127.0.0.1", port=0)
+            srv.serve_background()
+            url = f"http://127.0.0.1:{srv.port}/v1/depth"
+            frames = np.random.default_rng(1).integers(
+                0, 256, (12, *raw_hw, 3), dtype=np.uint8)
+            bodies = request_bodies(frames)
+            # The process's first HTTP traffic pays a host-side cost of
+            # its own (ann3depth_tpu_torch/probe_serving.py); it is
+            # reported apart, and the measured round is the second.
+            cold, cold_s = http_round(url, bodies)
+            hist0 = svc.stats()["batch_size_hist"]
+            results, elapsed = http_round(url, bodies)
+            batches = svc.stats()["batches"]
+        finally:
+            if srv is not None:
+                srv.close()
+            else:
+                svc.close()
+    # Every bucket captured in the warm-up (its warm call the only
+    # launches), every batch a replay of a graph holding one v1 call.
+    launches = seen["launches"]
+    runs = v1_runs(seen, 1, "serve")
+    check(launches == seen["captures"] == len(svc._buckets) and runs
+          == batches, f"the served path: {seen}, {batches} batches of "
+          f"buckets {svc._buckets}")
 
     answers = [np.load(io.BytesIO(r[0])) for r in results[:8]]
     answers += list(np.load(io.BytesIO(results[8][0])))
@@ -898,7 +933,8 @@ def serve_slice(torch, np, fp, card):
         **round_stats(results, elapsed), batch_size_hist=hist,
         first_round=round_stats(cold, cold_s),
         max_log_depth_err_vs_plain=err, tol=SERVE_LOG_TOL,
-        fused_preprocess_launches=launches, warmup_s=warm_s,
+        fused_preprocess_launches=launches, graphs=seen, v1_runs=runs,
+        warmup_s=warm_s,
         bf16_log_depth_spread_by_bucket=spread, card=card)
     print("slice: " + json.dumps(out), flush=True)
     return launches
@@ -1017,16 +1053,16 @@ def train_slice(torch, np, fp, card, tmp, cfg=None,
         cfg.train, steps=resume_steps, resume=True))
     steplib.train_step = recording_step
     try:
-        fp.fused_preprocess.launches = 0
         fp.fused_preprocess_v2.launches = 0
         t0 = time.perf_counter()
-        state, _ = loop.train(cfg, workdir=tmp, progress=False)
+        with graph_runs(torch, fp) as graphed:
+            state, _ = loop.train(cfg, workdir=tmp, progress=False)
         first_s = time.perf_counter() - t0
-        launches = fp.fused_preprocess.launches
+        launches = graphed["launches"]
         v2_in_loop = fp.fused_preprocess_v2.launches
-        fp.fused_preprocess.launches = 0
-        state2, last = loop.train(resumed, workdir=tmp, progress=False)
-        resume_launches = fp.fused_preprocess.launches
+        with graph_runs(torch, fp) as resume_graphed:
+            state2, last = loop.train(resumed, workdir=tmp, progress=False)
+        resume_launches = resume_graphed["launches"]
     finally:
         steplib.train_step = inner
     with open(f"{tmp}/metrics.jsonl") as f:
@@ -1063,15 +1099,19 @@ def train_slice(torch, np, fp, card, tmp, cfg=None,
     check(saved == want, f"checkpoints at {saved}, not {want}")
     want = [f"triples_step{s:07d}.png" for s in eval_steps]
     check(grids == want, f"eval grids {grids}, not {want}")
-    # Each in-loop eval also renders its rgb|gt|pred grid: one more batch.
-    per_eval = loop.EVAL_SAMPLE_BATCHES + 1
-    eval_batches = per_eval * len([s for s in eval_steps if s <= steps])
-    check(launches == 2 * steps + 2 * eval_batches,
-          f"fused_preprocess launched {launches} times in {steps} "
-          f"steps and {eval_batches} eval and grid batches")
-    resume_evals = per_eval * len([s for s in eval_steps if s > steps])
-    check(resume_launches == 2 * (resume_steps - steps + resume_evals),
-          f"fused_preprocess launched {resume_launches} times on resume")
+    # Each in-loop eval replays its eval step's graph once a batch (a
+    # capture for each batch shape, its warm call eager) and renders its
+    # rgb|gt|pred grid eagerly: one more batch.
+    for label, run, n_steps, n_evals in (
+            ("run", graphed, steps,
+             len([s for s in eval_steps if s <= steps])),
+            ("resume", resume_graphed, resume_steps - steps,
+             len([s for s in eval_steps if s > steps]))):
+        v1_runs(run, 2, f"train {label}")
+        check(run["launches"] == 2 * (n_steps + n_evals + run["captures"])
+              and run["replays"] == loop.EVAL_SAMPLE_BATCHES * n_evals,
+              f"train {label}: fused_preprocess launched {run['launches']} "
+              f"times in {n_steps} steps and {n_evals} evals: {run}")
     check(v2_in_loop == 0, "the loop ran the v2 kernel")
 
     # Steady step time on one device-resident batch (the loop above also
@@ -1131,7 +1171,8 @@ def train_slice(torch, np, fp, card, tmp, cfg=None,
         losses_first10_mean=first10, losses_last10_mean=last10,
         losses=[float(x) for x in losses], eval_rmse=evals,
         fused_preprocess_launches=launches,
-        resume_launches=resume_launches, first_run_s=first_s,
+        resume_launches=resume_launches, eval_graphs=dict(
+            run=graphed, resume=resume_graphed), first_run_s=first_s,
         loop_images_per_s=[r["images_per_sec"] for r in records
                            if "images_per_sec" in r],
         step_ms=step_ms, images_per_s=batch / step_ms * 1e3,
@@ -1244,13 +1285,83 @@ def fed_by(fp, preprocess_fn):
     """Within the block every path's v1 preprocess (the pipeline calls
     `fp.fused_preprocess` through the module) runs `preprocess_fn`, a
     function of its signature: `fp.plain_preprocess` gives the plain-fed
-    path that a kernel-fed one is held against."""
+    path that a kernel-fed one is held against.
+
+    A CUDA graph captured before the block keeps the kernel: a twin that
+    replayed one would hold the kernel against itself. So no GraphCache
+    that existed before the block may replay within it (the twin's must
+    be built inside, and capture `preprocess_fn`), and those built inside
+    are emptied when it ends."""
+    from ann3depth_tpu_torch.utils import graphs
+
     kernel = fp.fused_preprocess
+    before = {c: c.replays for c in graphs.caches()}
     fp.fused_preprocess = preprocess_fn
     try:
         yield
     finally:
         fp.fused_preprocess = kernel
+        stale = [c.fn for c, n in before.items() if c.replays != n]
+        for c in graphs.caches():
+            if c not in before:
+                c.clear()
+    check(not stale, f"graphs captured before a fed_by block replayed in "
+          f"it: {stale}")
+
+
+@contextlib.contextmanager
+def graph_runs(torch, fp):
+    """Within the block: the v1 wrapper's launches (its count set to 0),
+    and the GraphCaches' captures and replays, and the v1 calls recorded
+    into their captures (which the wrapper does not count: a recorded
+    call runs at every replay, where no Python runs). Yields a dict that
+    is filled when the block ends."""
+    from ann3depth_tpu_torch.utils import graphs
+
+    seen = dict(launches=0, recorded=0, captures=0, replays=0)
+    kernel = fp.fused_preprocess
+    before = {c: (c.captures, c.replays) for c in graphs.caches()}
+    made = []
+    init = graphs.GraphCache.__init__
+
+    def kept(self, *a, **kw):
+        init(self, *a, **kw)
+        made.append(self)
+
+    def recorded(*a, **kw):
+        if torch.cuda.is_current_stream_capturing():
+            seen["recorded"] += 1
+        return kernel(*a, **kw)
+
+    kernel.launches = 0
+    graphs.GraphCache.__init__ = kept
+    fp.fused_preprocess = recorded
+    try:
+        yield seen
+    finally:
+        fp.fused_preprocess = kernel
+        graphs.GraphCache.__init__ = init
+        seen["launches"] = kernel.launches
+        for c in set(made) | set(before):
+            c0, r0 = before.get(c, (0, 0))
+            seen["captures"] += c.captures - c0
+            seen["replays"] += c.replays - r0
+        made.clear()
+
+
+def v1_runs(seen, calls, label, recorded=True):
+    """The v1 runs of a `graph_runs` block whose graphs each hold `calls`
+    v1 calls: the eager launches (the wrapper's count less the warm call
+    before each capture, which runs the step once) plus `calls` a replay.
+    recorded: check that each capture recorded `calls` v1 calls (an
+    exported program calls the op directly, where no recorder sees it)."""
+    warm = calls * seen["captures"]
+    check(not recorded or seen["recorded"] == warm,
+          f"{label}: {seen['recorded']} v1 calls recorded into "
+          f"{seen['captures']} graphs, {calls} a graph expected")
+    eager = seen["launches"] - warm
+    check(eager >= 0, f"{label}: {seen}")
+    return eager + calls * seen["replays"]
 
 
 def _shifted_window(fp):
@@ -1271,16 +1382,21 @@ def _jittered(torch, fp, seed):
     """plain_preprocess with its images moved by uniform noise of JITTER
     drawn from `seed`, depth as it is: how far the model's metrics move
     when its inputs move as far as the kernel's and the plain
-    preprocess's differ."""
+    preprocess's differ. The noise of each shape is drawn once, at its
+    first call, so that a CUDA graph of the eval step (captured after a
+    warm call) holds no draw: every batch of a shape gets that noise."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
+    noise = {}
 
     def jittered(frames, params, *, out_hw, norm=True, depth_mode=False):
         out = fp.plain_preprocess(frames, params, out_hw=out_hw, norm=norm,
                                   depth_mode=depth_mode)
         if depth_mode:
             return out
-        return out + JITTER * (2 * torch.rand(
-            out.shape, device=out.device, generator=gen) - 1)
+        if out.shape not in noise:
+            noise[out.shape] = JITTER * (2 * torch.rand(
+                out.shape, device=out.device, generator=gen) - 1)
+        return out + noise[out.shape]
     return jittered
 
 
@@ -1314,17 +1430,21 @@ def eval_phase(torch, np, fp, cfg, tmp, card, preset="make3d-encdec",
             ("report_tta", ["--report-dir", report, "--tta", "flip"], 1),
             ("protocols", ["--protocols", "plain,tta+align+crop"], 2),
     )[:3 if full else 1]:
-        fp.fused_preprocess.launches = 0
         t0 = time.perf_counter()
-        metrics = _cli_json(cli, ["eval"] + flags + extra)
+        with graph_runs(torch, fp) as seen:
+            metrics = _cli_json(cli, ["eval"] + flags + extra)
         seconds = time.perf_counter() - t0
-        launches = fp.fused_preprocess.launches
+        launches = seen["launches"]
         check(_all_finite(np, metrics), f"eval {name}: {metrics}")
-        check(launches == 2 * EVAL_BATCHES * n_protocols,
-              f"eval {name} launched the kernel {launches} times in "
-              f"{EVAL_BATCHES * n_protocols} batches")
+        # eval_stats_step: a graph a protocol; the report step: eager
+        runs_v1 = v1_runs(seen, 2, f"eval {name}")
+        graphed = "report" not in name
+        check(runs_v1 == 2 * EVAL_BATCHES * n_protocols and seen[
+            "captures"] == (n_protocols if graphed else 0),
+              f"eval {name} ran the kernel {runs_v1} times in "
+              f"{EVAL_BATCHES * n_protocols} batches: {seen}")
         runs[name] = dict(metrics=metrics, seconds=seconds,
-                          launches=launches)
+                          launches=launches, graphs=seen, v1_runs=runs_v1)
     if full:
         with open(f"{report}/per_image.jsonl") as f:
             rows = len(f.readlines())
@@ -1455,8 +1575,6 @@ def serve_checkpoint(torch, np, fp, cfg, card, label="serve_ckpt"):
     from ann3depth_tpu_torch.train import loop
 
     raw_hw = (480, 640)
-    svc = server.service_from_config(cfg, raw_hw=raw_hw, max_batch=32,
-                                     max_delay_s=0.005, device="cuda")
     model = serving.model_from_checkpoint(cfg, device="cuda")
     dispatched = []
 
@@ -1466,23 +1584,30 @@ def serve_checkpoint(torch, np, fp, cfg, card, label="serve_ckpt"):
         return out
 
     srv = None
-    try:
-        server.warmup(svc)
-        served, svc._fn = svc._fn, recorded
-        srv = server.DepthServer(svc, host="127.0.0.1", port=0)
-        srv.serve_background()
-        frames = np.random.default_rng(2).integers(
-            0, 256, (12, *raw_hw, 3), dtype=np.uint8)
-        fp.fused_preprocess.launches = 0
-        results, elapsed = http_round(
-            f"http://127.0.0.1:{srv.port}/v1/depth", request_bodies(frames))
-        launches = fp.fused_preprocess.launches
-    finally:
-        if srv is not None:
-            srv.close()
-        else:
-            svc.close()
-    check(launches > 0, "the served checkpoint never launched the kernel")
+    with graph_runs(torch, fp) as seen:
+        svc = server.service_from_config(cfg, raw_hw=raw_hw, max_batch=32,
+                                         max_delay_s=0.005, device="cuda")
+        try:
+            server.warmup(svc)
+            served, svc._fn = svc._fn, recorded
+            srv = server.DepthServer(svc, host="127.0.0.1", port=0)
+            srv.serve_background()
+            frames = np.random.default_rng(2).integers(
+                0, 256, (12, *raw_hw, 3), dtype=np.uint8)
+            results, elapsed = http_round(
+                f"http://127.0.0.1:{srv.port}/v1/depth",
+                request_bodies(frames))
+            batches = svc.stats()["batches"]
+        finally:
+            if srv is not None:
+                srv.close()
+            else:
+                svc.close()
+    launches = seen["launches"]
+    runs = v1_runs(seen, 1, label)
+    check(launches == seen["captures"] == len(svc._buckets)
+          and runs == batches, f"the served checkpoint: {seen}, "
+          f"{batches} batches")
     answers = [np.load(io.BytesIO(r[0])) for r in results[:8]]
     answers += list(np.load(io.BytesIO(results[8][0])))
     answers = np.stack(answers)
@@ -1500,8 +1625,9 @@ def serve_checkpoint(torch, np, fp, cfg, card, label="serve_ckpt"):
                               f"served checkpoint, batch {i}")
         batches.append(dict(size=len(batch), err=err, tol=tol,
                             jitter_control=control))
-    out = dict(frames=12, out_hw=out_hw, launches=launches,
-               frames_per_s=12 / elapsed, **round_stats(results, elapsed),
+    out = dict(frames=12, out_hw=out_hw, launches=launches, graphs=seen,
+               v1_runs=runs, frames_per_s=12 / elapsed,
+               **round_stats(results, elapsed),
                log_depth_vs_plain_same_batch=batches, card=card)
     print(f"{label}: " + json.dumps(out), flush=True)
     return out
@@ -1528,6 +1654,18 @@ def _live_close(np, live, got, want, name, tol=None):
                 index_differ_share=float((d > 0).mean()))
 
 
+def live_runs(seen, frames, label):
+    """The v1 runs of a live engine's `graph_runs` block that showed
+    `frames` frames: the engine's eager warm-up frame and its one capture
+    (a warm call before it), then a replay for the constructor's step,
+    every frame shown, and at most one frame in flight."""
+    runs = v1_runs(seen, 1, label)
+    check(seen["launches"] == 2 and seen["captures"] == 1
+          and frames + 1 <= seen["replays"] <= frames + 2,
+          f"{label}: {seen} for {frames} frames")
+    return runs
+
+
 def live_phase(torch, np, fp, cfg, card):
     """Phase 6, live: the headless viewer on the `live` config at 640x480,
     30 fps, without and with smoothing; the engine's device-program latency
@@ -1550,19 +1688,17 @@ def live_phase(torch, np, fp, cfg, card):
     for smooth in (0.0, 0.8):
         c = dataclasses.replace(live_cfg, live=dataclasses.replace(
             live_cfg.live, smooth=smooth))
-        fp.fused_preprocess.launches = 0
-        stats = viewer.run(c, display=False, max_frames=LIVE_FRAMES,
-                           source=SyntheticSource(frame_hw,
-                                                  fps=c.live.target_fps),
-                           model=model)
-        n = fp.fused_preprocess.launches
+        with graph_runs(torch, fp) as seen:
+            stats = viewer.run(c, display=False, max_frames=LIVE_FRAMES,
+                               source=SyntheticSource(
+                                   frame_hw, fps=c.live.target_fps),
+                               model=model)
         check(stats["frames"] == LIVE_FRAMES and stats["ring_native"],
               f"live (smooth {smooth}): {stats}")
-        # the warmup frame, every frame shown, and at most one in flight
-        check(LIVE_FRAMES + 1 <= n <= LIVE_FRAMES + 2,
-              f"live launched the kernel {n} times for {LIVE_FRAMES} frames")
-        runs[f"smooth_{smooth}"] = dict(stats, launches=n)
-        launches += n
+        n = live_runs(seen, LIVE_FRAMES, f"live (smooth {smooth})")
+        runs[f"smooth_{smooth}"] = dict(stats, launches=seen["launches"],
+                                        graphs=seen, v1_runs=n)
+        launches += seen["launches"]
 
     engine = live.LiveEngine(model, frame_hw, input_hw)
     # The engine alone, one frame at a time from the host, no capture
@@ -1642,14 +1778,15 @@ def infer_phase(torch, np, fp, model_cfg, card, transcode=True,
     frames[:4] = np.random.default_rng(3).integers(0, 256, frames[:4].shape,
                                                    dtype=np.uint8)
 
-    steplib.infer_image(model, frames[0], input_hw=input_hw)  # warm
-    fp.fused_preprocess.launches = 0
+    steplib.infer_image(model, frames[0], input_hw=input_hw)  # capture
     t0 = time.perf_counter()
-    depths = [steplib.infer_image(model, f, input_hw=input_hw)
-              for f in frames[:4]]
+    with graph_runs(torch, fp) as seen:
+        depths = [steplib.infer_image(model, f, input_hw=input_hw)
+                  for f in frames[:4]]
     image_ms = (time.perf_counter() - t0) / 4 * 1e3
-    image_launches = fp.fused_preprocess.launches
-    check(image_launches == 4, f"infer launched {image_launches} times")
+    image_launches = v1_runs(seen, 1, "infer")
+    check(image_launches == seen["replays"] == 4 and not seen["launches"],
+          f"infer ran the kernel {image_launches} times: {seen}")
     got = np.stack(depths)
     check(got.shape == (4, *out_hw) and bool(np.isfinite(got).all()),
           f"infer depths {got.shape}")
@@ -1670,14 +1807,17 @@ def infer_phase(torch, np, fp, model_cfg, card, transcode=True,
     batches = [(frames[i:i + TRANSCODE_BATCH], TRANSCODE_BATCH)
                for i in range(0, TRANSCODE_FRAMES, TRANSCODE_BATCH)]
     list(render_batches(model, iter(batches[:1]), input_hw=input_hw))
-    fp.fused_preprocess.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = list(render_batches(model, iter(batches), input_hw=input_hw))
+    with graph_runs(torch, fp) as seen:
+        out = list(render_batches(model, iter(batches), input_hw=input_hw))
     loop_s = time.perf_counter() - t0
-    loop_launches = fp.fused_preprocess.launches
-    check(loop_launches == len(batches),
-          f"the transcode loop launched {loop_launches} times")
+    # one graph of the batch's shape (its capture in the timed loop)
+    loop_launches = v1_runs(seen, 1, "transcode")
+    check(loop_launches == seen["replays"] == len(batches)
+          and seen["captures"] == 1,
+          f"the transcode loop ran the kernel {loop_launches} times: "
+          f"{seen}")
     check(sum(r.shape[0] for _, r, _ in out) == TRANSCODE_FRAMES,
           "transcode frames")
     # batch 0: four uniform-noise frames and four synthetic ones
@@ -1713,17 +1853,15 @@ def live_cli(torch, np, fp, cfg, preset, tmp, card, label="live"):
         base, model=dataclasses.replace(base.model, quant=cfg.model.quant),
         train=dataclasses.replace(base.train, ckpt_dir=cfg.train.ckpt_dir))
     n_frames = FAMILY_LIVE_FRAMES
-    fp.fused_preprocess.launches = 0
-    stats = _cli_json(cli, [
-        "live", "--config", preset, "--ckpt-dir", cfg.train.ckpt_dir,
-        "--quant", cfg.model.quant, "--no-display", "--max-frames",
-        str(n_frames), "--video", f"{tmp}/no-camera.avi"])
-    launches = fp.fused_preprocess.launches
+    with graph_runs(torch, fp) as seen:
+        stats = _cli_json(cli, [
+            "live", "--config", preset, "--ckpt-dir", cfg.train.ckpt_dir,
+            "--quant", cfg.model.quant, "--no-display", "--max-frames",
+            str(n_frames), "--video", f"{tmp}/no-camera.avi"])
+    launches = seen["launches"]
     check(stats["frames"] == n_frames and stats["ring_native"],
           f"{label}: {stats}")
-    check(n_frames + 1 <= launches <= n_frames + 2,
-          f"{label} launched the kernel {launches} times for {n_frames} "
-          f"frames")
+    n_runs = live_runs(seen, n_frames, label)
 
     frame_hw, input_hw = live_cfg.live.frame_hw, live_cfg.data.input_hw
     model = serving.model_from_checkpoint(live_cfg, device="cuda")
@@ -1742,7 +1880,8 @@ def live_cli(torch, np, fp, cfg, preset, tmp, card, label="live"):
                          (wd[0].cpu().numpy(), wr[0].cpu().numpy()),
                          f"{label} noise frame", tol)
     parity.update(tol=tol, jitter_control=control)
-    out = dict(stats, launches=launches, display_hw=list(frame_hw),
+    out = dict(stats, launches=launches, graphs=seen, v1_runs=n_runs,
+               display_hw=list(frame_hw),
                depth_hw=list(d.shape),
                device_step_latency_ms=engine.device_step_latency(50) * 1e3,
                parity_vs_plain_fed=parity, card=card)
@@ -2071,13 +2210,12 @@ def slice6_phase(torch, np, fp, card, tmp, encdec_ckpt, phase4_loop_ips):
             "--log-every", every, "--checkpoint-every", every,
             "--eval-every", every, "--early-stop-patience",
             str(SLICE6_PATIENCE), "--save-best"]
-    kernel.launches = 0
     t0 = time.perf_counter()
-    with _recording(fp, steplib) as seen:
+    with graph_runs(torch, fp) as graphed, _recording(fp, steplib) as seen:
         _cli_json(cli, base + ["--steps", str(SLICE6_STEPS), "--tensorboard",
                                "--profile", prof, "--profile-steps", "3"])
     train_s = time.perf_counter() - t0
-    n_train = kernel.launches
+    n_train = graphed["launches"]
     steps_run = len(seen["losses"])
     first, last = _losses_fall(np, seen["losses"], 10, "slice6 train")
     with open(f"{wd}/metrics.jsonl") as f:
@@ -2087,10 +2225,14 @@ def slice6_phase(torch, np, fp, card, tmp, encdec_ckpt, phase4_loop_ips):
     check(steps_run == SLICE6_STEPS or (stopped_early and evals
                                         and evals[-1] == steps_run),
           f"slice6 train ran {steps_run} steps; evals at {evals}")
-    per_eval = 2 * (loop.EVAL_SAMPLE_BATCHES + 1)
-    check(n_train == 2 * ACCUM * steps_run + per_eval * len(evals),
+    # Each in-loop eval: the eval step's graphs (a capture for each batch
+    # shape, its warm call eager), a replay a batch, and viz's forward.
+    v1_runs(graphed, 2, "slice6 train")
+    check(n_train == 2 * ACCUM * steps_run + 2 * len(evals)
+          + 2 * graphed["captures"] and graphed["replays"]
+          == loop.EVAL_SAMPLE_BATCHES * len(evals),
           f"slice6 train launched v1 {n_train} times in {steps_run} steps "
-          f"and {len(evals)} evals")
+          f"and {len(evals)} evals: {graphed}")
     cli_batch = get_config("nyu-encdec-aug").train.batch_size
     micro = cli_batch // ACCUM
     depth_shapes = {s for s, d in seen["calls"] if d and s[0] == micro}
@@ -2130,13 +2272,15 @@ def slice6_phase(torch, np, fp, card, tmp, encdec_ckpt, phase4_loop_ips):
           f"{len(rolled['losses'])} steps")
 
     # Per-dataset eval of the rolled-back checkpoint.
-    kernel.launches = 0
-    metrics = _cli_json(cli, ["eval", "--config", "nyu-encdec-aug",
-                              "--datasets", "nyu", "make3d", "--data-dir",
-                              data, "--ckpt-dir", ck, "--max-batches", "1"])
-    n_eval = kernel.launches
+    with graph_runs(torch, fp) as graphed:
+        metrics = _cli_json(cli, ["eval", "--config", "nyu-encdec-aug",
+                                  "--datasets", "nyu", "make3d",
+                                  "--data-dir", data, "--ckpt-dir", ck,
+                                  "--max-batches", "1"])
+    n_eval = v1_runs(graphed, 2, "slice6 eval")
     check(sorted(metrics) == ["make3d", "nyu"] and _all_finite(np, metrics)
-          and n_eval == 4, f"slice6 eval: {n_eval} launches, {metrics}")
+          and n_eval == 4, f"slice6 eval: {n_eval} v1 runs, {graphed}, "
+          f"{metrics}")
     train_out = dict(
         nyu_route=route, data_s=data_s, steps=steps_run,
         stopped_early=stopped_early, batch=cli_batch, grad_accum=ACCUM,
@@ -2738,11 +2882,12 @@ def pipeline_phase(torch, np, fp, card, tmp, encdec_cfg, handoff):
              "--ckpt-dir", encdec_cfg.train.ckpt_dir]
     evals = {}
     for name, extra in (("host", []), ("cache_device", ["--cache-device"])):
-        fp.fused_preprocess.launches = 0
         t0 = time.perf_counter()
-        metrics = _cli_json(cli, flags + extra)
+        with graph_runs(torch, fp) as seen:
+            metrics = _cli_json(cli, flags + extra)
         evals[name] = dict(metrics=metrics, seconds=time.perf_counter() - t0,
-                           v1_calls=fp.fused_preprocess.launches)
+                           v1_calls=v1_runs(seen, 2, f"eval {name}"),
+                           graphs=seen)
     host, pooled = evals["host"]["metrics"], evals["cache_device"]["metrics"]
     rel = max(abs(pooled[k] - host[k]) / max(abs(host[k]), 1e-12)
               for k in host)
@@ -3106,28 +3251,34 @@ def export_phase(torch, np, fp, cfg, tmp, card):
                                "--ckpt-dir", cfg.train.ckpt_dir,
                                "--out-dir", art] + extra)
         export_s = time.perf_counter() - t0
-        svc = cli.make_service(cli.build_parser().parse_args(
-            ["serve", "--artifact", art, "--max-batch", "32"]))
         srv = None
-        try:
-            server.warmup(svc)
-            srv = server.DepthServer(svc, host="127.0.0.1", port=0)
-            srv.serve_background()
-            fp.fused_preprocess.launches = 0
-            before = svc.stats()["batches"]
-            results, elapsed = http_round(
-                f"http://127.0.0.1:{srv.port}/v1/depth",
-                request_bodies(frames))
-            n = fp.fused_preprocess.launches
-            batches = svc.stats()["batches"] - before
-            buckets = list(svc._buckets)
-        finally:
-            if srv is not None:
-                srv.close()
-            else:
-                svc.close()
-        check(n == batches > 0, f"artifact {name}: {n} launches in "
-              f"{batches} batches")
+        with graph_runs(torch, fp) as seen:
+            svc = cli.make_service(cli.build_parser().parse_args(
+                ["serve", "--artifact", art, "--max-batch", "32"]))
+            try:
+                server.warmup(svc)
+                srv = server.DepthServer(svc, host="127.0.0.1", port=0)
+                srv.serve_background()
+                before = svc.stats()["batches"]
+                results, elapsed = http_round(
+                    f"http://127.0.0.1:{srv.port}/v1/depth",
+                    request_bodies(frames))
+                batches = svc.stats()["batches"] - before
+                all_batches = svc.stats()["batches"]
+                buckets = list(svc._buckets)
+            finally:
+                if srv is not None:
+                    srv.close()
+                else:
+                    svc.close()
+        # The exported program calls the registered op itself: a capture
+        # records it unseen, so a graph holding it is taken on trust here
+        # and shown by phase 15's trace of a replay.
+        n = v1_runs(seen, 1, f"artifact {name}", recorded=False)
+        check(n == all_batches > batches > 0 and seen["launches"]
+              == seen["captures"] == len(buckets),
+              f"artifact {name}: {n} v1 runs in {all_batches} batches: "
+              f"{seen}")
         answers = [np.load(io.BytesIO(r[0])) for r in results]
         check(all(np.isfinite(a).all() and (a > 0).all() for a in answers),
               f"artifact {name}: answers not finite and positive")
@@ -3144,12 +3295,13 @@ def export_phase(torch, np, fp, cfg, tmp, card):
               f"artifact {name} against the eager fn: {rel}")
         res = dict(meta=meta, export_s=export_s, buckets=buckets,
                    round_s=elapsed, round_batches=batches, launches=n,
+                   graphs=seen,
                    rel_err_vs_eager=rel)
         if meta["batch"] is None:
             timed = {"exported": [], "eager": []}
             with torch.inference_mode():
                 for k in ("exported", "eager", "eager", "exported"):
-                    fn = loaded.model if k == "exported" else eager
+                    fn = loaded.model if k == "exported" else eager.fn
                     timed[k].append(dict(
                         device_ms=device_ms(torch, lambda: fn(x32),
                                             iters=5)[0],
@@ -3224,6 +3376,7 @@ from ann3depth_tpu_torch import cli
 from ann3depth_tpu_torch.ops import fused_preprocess as fp
 from ann3depth_tpu_torch.parallel import multihost, sharding_rules
 from ann3depth_tpu_torch.train import loop
+from ann3depth_tpu_torch.utils import graphs
 
 argv, sizes = json.loads(sys.argv[1]), json.loads(sys.argv[2])
 args = cli.build_parser().parse_args(argv)
@@ -3263,6 +3416,14 @@ def kept(*a, **kw):
     out["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
     return state, metrics
 
+made = []
+init = graphs.GraphCache.__init__
+
+def made_cache(self, *a, **kw):
+    init(self, *a, **kw)
+    made.append(self)
+
+graphs.GraphCache.__init__ = made_cache
 fp.fused_preprocess, loop.train = recorded, kept
 sharding_rules.collectives.update(forward=0, backward=0, update=0)
 kernel.launches = 0
@@ -3271,6 +3432,8 @@ rc = cli.main(argv)
 torch.cuda.synchronize(dev)
 out.update(rc=rc, seconds=time.perf_counter() - t0,
            v1_launches=kernel.launches, v1_calls=len(calls),
+           graph_captures=sum(c.captures for c in made),
+           graph_replays=sum(c.replays for c in made),
            v1_shapes=sorted({f"{list(s)}:{d}" for s, d in calls}),
            tp_collectives=dict(sharding_rules.collectives))
 print("RANK " + json.dumps(out), flush=True)
@@ -3285,11 +3448,13 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def rank_runs(argv, sizes=(), world=2, timeout=400):
+def rank_runs(argv, sizes=(), world=2, timeout=400, refused=None):
     """The port's CLI on `world` ranks of one process group (child
     processes on this card, each through _RANK_MAIN); every child is
     stopped when this returns. Returns the ranks' records, each with the
-    lines its run printed."""
+    lines its run printed. With `refused` (an error's text), every rank
+    must instead fail with that error; returns each rank's line of
+    standard error that holds it."""
     root = os.path.dirname(os.path.abspath(__file__))
     port = str(_free_port())
     procs = [subprocess.Popen(
@@ -3305,6 +3470,15 @@ def rank_runs(argv, sizes=(), world=2, timeout=400):
     finally:
         for p in procs:
             p.kill()
+    if refused is not None:
+        said = [[x for x in stderr.splitlines() if refused in x]
+                for _, stderr in outs]
+        check(all(p.returncode not in (0, None) and lines
+                  for p, lines in zip(procs, said)),
+              f"{argv[:3]} on {world} ranks: exits "
+              f"{[p.returncode for p in procs]}, not refused with "
+              f"{refused!r}:\n{outs[0][1][-2000:]}")
+        return [lines[-1] for lines in said]
     records = []
     for r, (p, (stdout, stderr)) in enumerate(zip(procs, outs)):
         check(p.returncode == 0, f"rank {r} of {argv[:3]} exited "
@@ -3546,6 +3720,15 @@ def _tensor_parallel(torch, np, fp, tmp, data):
     gaps.update(tp2_vs_twin=gap("tp2", "twin"),
                 tp2_vs_tp1=gap("tp2", "tp1_0"),
                 twin_vs_tp1=gap("twin", "tp1_0"))
+    # With an in-loop eval, the gloo run is refused before its first step:
+    # the eval step's model-axis all-reduces would run on the host, where a
+    # CUDA graph cannot capture them (loop.eval_stats_graphs).
+    eval_refusal = rank_runs(
+        tpf[:-1] + [str(TP_STEPS), "--tp", "2", "--ckpt-dir",
+                    f"{work}/tp2_eval", "--workdir", f"{work}/tp2_eval_wd",
+                    "--dist-backend", "gloo"],
+        refused="ValueError: eval captures its step in a CUDA graph, and "
+        "the gloo backend's model-axis all-reduces")
     worst, loss_gap = gaps["tp2_vs_twin"]
     check(worst <= param_tol and loss_gap <= loss_tol,
           f"tp=2 against its tp=1 twin: params {worst} (tol {param_tol}), "
@@ -3564,6 +3747,7 @@ def _tensor_parallel(torch, np, fp, tmp, data):
         losses={k: v[1] for k, v in runs.items()},
         model_axis_all_reduces_per_step=per_step,
         rank0_step_ms=_steady_ms(rows, cfg.train.batch_size, 2),
+        gloo_in_loop_eval_refused=eval_refusal,
         activation_all_reduce=[r["all_reduce"][1] for r in tp],
         grad_all_reduce_dpt=[r["all_reduce"][0] for r in tp],
         rank_seconds=[r["seconds"] for r in tp],
@@ -3586,14 +3770,15 @@ def _serve_dp(torch, np, fp):
             ["serve", "--config", "make3d-encdec", "--init", "--dp", dp,
              "--max-batch", "8", "--no-warmup"]))
         try:
-            fp.fused_preprocess.launches = 0
-            futs = [svc.submit(f) for f in frames]
-            answers[dp] = np.stack([f.result(timeout=120) for f in futs])
-            launches[f"serve_dp{dp}"] = fp.fused_preprocess.launches
+            with graph_runs(torch, fp) as seen:
+                futs = [svc.submit(f) for f in frames]
+                answers[dp] = np.stack([f.result(timeout=120) for f in futs])
+            # one batch of 8: its bucket's capture (--no-warmup), a replay
+            launches[f"serve_dp{dp}"] = v1_runs(seen, 1, f"serve --dp {dp}")
         finally:
             svc.close()
     gap = float(np.abs(np.log(answers["0"]) - np.log(answers["1"])).max())
-    check(gap <= SERVE_LOG_TOL and launches["serve_dp0"] > 0,
+    check(gap <= SERVE_LOG_TOL and launches["serve_dp0"] == 1,
           f"serve --dp 0 against --dp 1: {gap} in log-depth")
     try:
         cli.make_service(cli.build_parser().parse_args(
@@ -3607,7 +3792,7 @@ def _serve_dp(torch, np, fp):
                 tol=SERVE_LOG_TOL, dp2_refusal=refused), launches
 
 
-def _eval_ranks(fp, data, encdec_cfg):
+def _eval_ranks(torch, fp, data, encdec_cfg):
     """`eval` on two ranks (each its strided half of the Make3D test
     records at b8, the statistics summed) against one process on phase
     4's checkpoint, within EVAL_METRIC_RTOL: one process at b8, whose
@@ -3619,23 +3804,28 @@ def _eval_ranks(fp, data, encdec_cfg):
 
     ev = ["eval", "--config", "make3d-encdec", "--datasets", "make3d",
           "--data-dir", data, "--ckpt-dir", encdec_cfg.train.ckpt_dir]
-    fp.fused_preprocess.launches = 0
-    one = _cli_json(cli, ev)
-    one_launches = fp.fused_preprocess.launches
+    with graph_runs(torch, fp) as seen:
+        one = _cli_json(cli, ev)
+    one_launches = v1_runs(seen, 2, "eval at b16")
     at8 = _cli_json(cli, ev + ["--batch-size", "8"])
     ranks = rank_runs(ev + ["--dist-backend", "gloo"])
     two = json.loads(ranks[0]["printed"][-1])
     tol = EVAL_METRIC_RTOL["make3d-encdec"]
     gaps = {k: _rel(two[k], at8[k]) for k in at8}
+    # each rank: its eval step's graph (2 v1 calls a capture, a warm call
+    # before it) replayed as many times as the one process's
+    rank_runs_v1 = [r["v1_launches"] + 2 * (r["graph_replays"]
+                                            - r["graph_captures"])
+                    for r in ranks]
     check(sorted(two) == sorted(at8) and max(gaps.values()) <= tol
-          and all(r["v1_launches"] == one_launches > 0 for r in ranks),
+          and all(r["v1_calls"] == 4 * r["graph_captures"] for r in ranks)
+          and all(n == one_launches > 0 for n in rank_runs_v1),
           f"eval on two ranks against one process at b8: {gaps} (rtol "
-          f"{tol}); v1 {[r['v1_launches'] for r in ranks]} against "
-          f"{one_launches}")
+          f"{tol}); v1 runs {rank_runs_v1} against {one_launches}")
     return (dict(rel_gaps_to_one_process_b8=gaps, rtol=tol, metrics=two,
                  rel_gaps_to_one_process_b16={
                      k: _rel(two[k], one[k]) for k in one}),
-            dict(eval_per_rank=[r["v1_launches"] for r in ranks]))
+            dict(eval_per_rank=rank_runs_v1))
 
 
 def parallel_phase(torch, np, fp, card, tmp, encdec_cfg, handoff):
@@ -3662,7 +3852,7 @@ def parallel_phase(torch, np, fp, card, tmp, encdec_cfg, handoff):
     for name, fn, args in (
             ("tensor_parallel", _tensor_parallel, (torch, np, fp, tmp, data)),
             ("serve_dp", _serve_dp, (torch, np, fp)),
-            ("eval", _eval_ranks, (fp, data, encdec_cfg))):
+            ("eval", _eval_ranks, (torch, fp, data, encdec_cfg))):
         t0 = time.perf_counter()
         out[name], n = fn(*args)
         launches.update(n)
@@ -3757,10 +3947,11 @@ def sweep_run(torch, np, fp, cli, tmp):
         return result
 
     def evaluate(cfg, **kw):
-        fp.fused_preprocess.launches = 0
-        result = inner_eval(cfg, **kw)
+        with graph_runs(torch, fp) as seen:
+            result = inner_eval(cfg, **kw)
         torch.cuda.synchronize()
-        trials[-1].update(eval_launches=fp.fused_preprocess.launches,
+        trials[-1].update(eval_launches=seen["launches"], eval_graphs=seen,
+                          eval_v1_runs=v1_runs(seen, 2, "sweep eval"),
                           peak_bytes=torch.cuda.max_memory_allocated())
         return result
 
@@ -3786,9 +3977,9 @@ def sweep_run(torch, np, fp, cli, tmp):
           f"sweep: best {first['best']['trial']}, argmin {best['trial']}")
     for i, rec in enumerate(trials):
         check(rec["train_launches"] == 2 * SWEEP_STEPS
-              and rec["eval_launches"] == 2 * SWEEP_EVAL_BATCHES,
+              and rec["eval_v1_runs"] == 2 * SWEEP_EVAL_BATCHES,
               f"sweep trial {i}: v1 launched {rec['train_launches']} times "
-              f"in {SWEEP_STEPS} steps, {rec['eval_launches']} in "
+              f"in {SWEEP_STEPS} steps, ran {rec['eval_v1_runs']} times in "
               f"{SWEEP_EVAL_BATCHES} eval batches")
         check(abs(rec["peak_bytes"] - trials[0]["peak_bytes"])
               <= SWEEP_PEAK_RTOL * trials[0]["peak_bytes"],
@@ -3921,12 +4112,12 @@ def download_run(torch, np, fp, cli, steplib, tmp, train):
     with open(f"{ckpt}/metrics.jsonl") as f:
         ips = [r["images_per_sec"] for r in map(json.loads, f)
                if "images_per_sec" in r]
-    fp.fused_preprocess.launches = 0
-    ev = _cli_json(cli, ["eval", *argv])
-    eval_launches = fp.fused_preprocess.launches
+    with graph_runs(torch, fp) as seen:
+        ev = _cli_json(cli, ["eval", *argv])
+    eval_launches = v1_runs(seen, 2, "make3d tree eval")
     n_batches = TREE_SPLIT[1] // 16
     check(_all_finite(np, ev) and eval_launches == 2 * n_batches,
-          f"make3d tree eval: {eval_launches} v1 launches, {ev}")
+          f"make3d tree eval: {eval_launches} v1 runs, {seen}, {ev}")
     return dict(scenes=TREE_SPLIT, stage_s=stage_s, download_s=download_s,
                 nyu_route=nyu_route, steps=TREE_STEPS, train_s=train_s,
                 losses=losses, last=last, loop_images_per_s=ips,
@@ -4289,10 +4480,9 @@ def variant_attention(torch, np, fp, tmp, card):
     for impl, model in models.items():
         got = _plain_log_depth(torch, fp, model, input_hw, img)
         fn = serving.make_serving_fn(model, input_hw)
-        fp.fused_preprocess.launches = 0
-        with torch.inference_mode():
-            fn(x)
-        launches = fp.fused_preprocess.launches
+        with graph_runs(torch, fp) as seen, torch.inference_mode():
+            fn(x)  # the capture
+        launches = v1_runs(seen, 1, f"attention {impl}")
         ms, kernels = _call_stats(torch, lambda: fn(x))
         runs[impl] = dict(
             log_depth_vs_flax=check_log_close(np, got, want, tol,
@@ -4447,12 +4637,13 @@ def true_scale_make3d(torch, np, fp, tmp, card, handoff):
     with open(f"{ckpt}/metrics.jsonl") as f:
         ips = [r["images_per_sec"] for r in map(json.loads, f)
                if "images_per_sec" in r]
-    fp.fused_preprocess.launches = 0
-    ev = _cli_json(cli, ["eval", *argv])
-    eval_launches = fp.fused_preprocess.launches
+    with graph_runs(torch, fp) as graphed:
+        ev = _cli_json(cli, ["eval", *argv])
+    eval_launches = v1_runs(graphed, 2, "true-scale make3d eval")
     check(_all_finite(np, ev)
           and eval_launches == 2 * (TRUE_SCALE_SPLIT[1] // 16),
-          f"true-scale make3d eval: {eval_launches} v1 launches, {ev}")
+          f"true-scale make3d eval: {eval_launches} v1 runs, {graphed}, "
+          f"{ev}")
     out = dict(scenes=TRUE_SCALE_SPLIT, image_wh=list(tool.MAKE3D_IMG_WH),
                archives_mb=archive_mb, write_s=write_s,
                download_s=download_s, train_s=train_s,
@@ -4659,6 +4850,480 @@ def bench_phase(torch, np, fp, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the compiled programs, as CUDA graphs.
+# ---------------------------------------------------------------------------
+
+PROGRAM_ITERS = 10       # calls a timing reads (one profiled pass, one timed)
+PROGRAM_FRAMES = 4       # live and infer frames held bit for bit
+PROGRAM_BURST = 96       # single-frame requests of a serving burst
+TRANSCODE_TAIL = 3       # frames in the transcode loop's short last batch
+HOST_LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
+                 "cudaMemcpy", "cudaMemset")
+
+
+def call_profile(torch, fn, iters=PROGRAM_ITERS):
+    """A call of `fn` on the card: its wall time (host clock, synchronized,
+    PROGRAM_ITERS calls), and from torch.profiler over as many calls the
+    device busy time (the union of the kernels' intervals), the busy share
+    of the wall time, the kernels and the v1 resamples on the device, and
+    the launches the host made (CUDA runtime kernel, graph, copy and set
+    calls)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / iters * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA
+                      and not getattr(e, "is_user_annotation", False)),
+                     key=lambda e: e.time_range.start)
+    check(kernels, "the profiler recorded no kernel")
+    busy, end = 0.0, float("-inf")
+    for e in kernels:
+        busy += max(0.0, e.time_range.end - max(e.time_range.start, end))
+        end = max(end, e.time_range.end)
+    device_ms = busy / iters / 1e3
+    return dict(
+        wall_ms=wall_ms, device_ms=device_ms, busy_share=device_ms / wall_ms,
+        kernels=len(kernels) / iters,
+        v1_resample=sum("band_resample_kernel" in e.name
+                        for e in kernels) / iters,
+        host_launches=sum(e.device_type == DeviceType.CPU
+                          and e.name.startswith(HOST_LAUNCHES)
+                          for e in events) / iters)
+
+
+def eager_vs_graph(torch, eager, graph):
+    """`call_profile` of a path's eager call and of its graph's replay on
+    the same inputs, in turns."""
+    return {"eager": call_profile(torch, eager),
+            "graph": call_profile(torch, graph)}
+
+
+def _equal(torch, np, got, want, label):
+    """Graph and eager outputs (tensors or numpy arrays, or dicts or tuples
+    of them) equal bit for bit."""
+    if isinstance(got, dict):
+        for k in want:
+            _equal(torch, np, got[k], want[k], f"{label} {k}")
+        return
+    if isinstance(got, (tuple, list)):
+        for i, (g, w) in enumerate(zip(got, want)):
+            _equal(torch, np, g, w, f"{label} [{i}]")
+        return
+    got, want = (t.cpu().numpy() if isinstance(t, torch.Tensor) else t
+                 for t in (got, want))
+    check(got.shape == want.shape and np.array_equal(got, want),
+          f"{label}: the graph's output differs from the eager call's")
+
+
+def _control_fails(np, got, want, tol, label):
+    """The off-by-one-pixel control's log-depth `got` against the
+    plain-fed `want`: it must fail `tol` (log_depth_tol), in max or mean;
+    returns its errors."""
+    diff = np.abs(got - want)
+    err = dict(max=float(diff.max()), mean=float(diff.mean()))
+    check(err["max"] > tol["max"] or err["mean"] > tol["mean"],
+          f"{label}: the shifted-window control passes {tol}: {err}")
+    return err
+
+
+def program_ladder(torch, np, fp, cfg):
+    """The serve ladder of cfg's checkpoint: `BatchingService.warmup` in
+    this thread captures every bucket (1...32) and the peak memory of the
+    ladder is read; a burst of single frames, replayed by the dispatch
+    thread, equals the eager program on each dispatched batch; every
+    bucket's graph equals the eager program; a plain-fed twin built
+    inside `fed_by` holds b16, the shifted-window control fails; requests/s
+    of a burst, graph against a warmed eager service; eager against graph
+    at b32."""
+    from ann3depth_tpu_torch import server, serving
+
+    input_hw = tuple(cfg.data.input_hw)
+    model = serving.model_from_checkpoint(cfg, device="cuda")
+    frames = np.random.default_rng(15).integers(
+        0, 256, (32, *RAW_HW, 3), dtype=np.uint8)
+    x = torch.from_numpy(frames).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    dispatched = []
+    with graph_runs(torch, fp) as seen:
+        fn = serving.make_serving_fn(model, input_hw)
+        predict = serving.numpy_predictor(fn)
+
+        def recorded(batch):
+            out = predict(batch)
+            dispatched.append((batch, out))
+            return out
+
+        svc = server.BatchingService(recorded, RAW_HW, max_batch=32)
+        try:
+            svc.warmup()
+            torch.cuda.synchronize()
+            ladder_peak = torch.cuda.max_memory_allocated() - held
+            dispatched.clear()
+            futs = [svc.submit(f) for f in frames[:12]]
+            for f in futs:
+                f.result(timeout=120)
+            buckets = list(svc._buckets)
+        finally:
+            svc.close()
+    v1_runs(seen, 1, f"ladder {cfg.model.name}")
+    check(seen["captures"] == len(buckets) == 6 and dispatched,
+          f"ladder {cfg.model.name}: {seen}, buckets {buckets}")
+    with torch.inference_mode():
+        for batch, out in dispatched:  # replayed by the dispatch thread
+            _equal(torch, np, out, fn.fn(torch.from_numpy(batch).cuda()),
+                   f"ladder {cfg.model.name} dispatched b{len(batch)}")
+        for b in buckets:
+            _equal(torch, np, fn(x[:b]), fn.fn(x[:b]),
+                   f"ladder {cfg.model.name} b{b}")
+        got = np.log(fn(x[:16]).cpu().numpy())
+        with fed_by(fp, fp.plain_preprocess):
+            want = np.log(serving.make_serving_fn(model, input_hw)(
+                x[:16]).cpu().numpy())
+        with fed_by(fp, _shifted_window(fp)):
+            shifted = np.log(serving.make_serving_fn(model, input_hw)(
+                x[:16]).cpu().numpy())
+    tol, control = log_depth_tol(torch, np, fp, model, cfg.model, input_hw,
+                                 frames[:16], want)
+    err = check_log_close(np, got, want, tol,
+                          f"ladder {cfg.model.name} b16 vs plain-fed")
+    ctrl = _control_fails(np, shifted, want, tol,
+                          f"ladder {cfg.model.name} b16")
+
+    def eager_predict(batch):
+        with torch.inference_mode():
+            return fn.fn(torch.from_numpy(batch).cuda()).cpu().numpy()
+
+    rates = {}
+    for kind, serve_fn in (("graph", predict), ("eager", eager_predict)):
+        svc = server.BatchingService(serve_fn, RAW_HW, max_batch=32)
+        try:
+            server.warmup(svc)
+            t0 = time.perf_counter()
+            futs = [svc.submit(frames[i % 32])
+                    for i in range(PROGRAM_BURST)]
+            for f in futs:
+                f.result(timeout=120)
+            rates[kind] = dict(requests_per_s=PROGRAM_BURST / (
+                time.perf_counter() - t0), **svc.stats())
+        finally:
+            svc.close()
+    with torch.inference_mode():
+        timing = eager_vs_graph(torch, lambda: fn.fn(x), lambda: fn(x))
+    check(timing["graph"]["v1_resample"] >= 0.9,
+          f"ladder {cfg.model.name}: no v1 resample in the b32 replay")
+    return dict(model=cfg.model.name, buckets=buckets, graphs=seen,
+                ladder_peak_bytes=ladder_peak, held_bytes=held,
+                dispatched=[len(b) for b, _ in dispatched],
+                log_depth_vs_plain_b16=err, tol=tol, jitter_control=control,
+                shifted_control=ctrl, burst=rates, b32=timing)
+
+
+def program_artifact(torch, np, fp, tmp):
+    """`serve --artifact`'s program: phase 10's exported make3d-encdec (any
+    batch) through `load_serving`'s GraphCache at b1, b8 and b32, each
+    graph equal to the exported program run eagerly; the v1 resample in a
+    traced replay; eager against graph at b32."""
+    from ann3depth_tpu_torch import serving
+
+    loaded = serving.load_serving(f"{tmp}/artifact_any")
+    frames = np.random.default_rng(16).integers(
+        0, 256, (32, *RAW_HW, 3), dtype=np.uint8)
+    x = torch.from_numpy(frames).cuda()
+    with graph_runs(torch, fp) as seen, torch.inference_mode():
+        for b in (1, 8, 32):
+            _equal(torch, np, loaded.fn(x[:b]), loaded.fn.fn(x[:b]),
+                   f"artifact b{b}")
+    # the program calls the op itself; the warm calls and the eager
+    # references launch it, a capture records it unseen
+    check(seen["captures"] == 3 and seen["launches"] == 6,
+          f"artifact graphs: {seen}")
+    with torch.inference_mode():
+        timing = eager_vs_graph(torch, lambda: loaded.fn.fn(x),
+                                lambda: loaded.fn(x))
+    check(timing["graph"]["v1_resample"] >= 0.9,
+          "artifact: no v1 resample in the b32 replay")
+    return dict(graphs=seen, b32=timing)
+
+
+def program_live(torch, np, fp, cfg, lives):
+    """`LiveEngine` on the `live` config and phase 4's checkpoint, without
+    and with smoothing: one capture (one v1 call recorded) in the
+    constructor; PROGRAM_FRAMES frames (one of uniform noise) equal to
+    eager `live_step` with the carry passed by hand, bit for bit; the same
+    frames replayed from another thread after `reset_smoothing`, equal
+    again; a plain-fed twin engine built inside `fed_by` within
+    `_live_close`, the shifted-window engine failing SERVE_LOG_TOL; eager
+    against graph a frame, `device_step_latency`, and phase 6's viewer
+    percentiles at 30 fps."""
+    import dataclasses
+    import threading
+
+    from ann3depth_tpu_torch import serving
+    from ann3depth_tpu_torch.config import get_config
+    from ann3depth_tpu_torch.live import infer as live
+    from ann3depth_tpu_torch.live.capture import SyntheticSource
+
+    base = get_config("live")
+    live_cfg = dataclasses.replace(base, train=dataclasses.replace(
+        base.train, ckpt_dir=cfg.train.ckpt_dir))
+    frame_hw, input_hw = live_cfg.live.frame_hw, live_cfg.data.input_hw
+    model = serving.model_from_checkpoint(live_cfg, device="cuda")
+    src = SyntheticSource(frame_hw, seed=15)
+    frames = [np.random.default_rng(17).integers(
+        0, 256, (*frame_hw, 3), dtype=np.uint8)]
+    frames += [src.read() for _ in range(PROGRAM_FRAMES - 1)]
+    kw = dict(input_hw=input_hw, display_hw=frame_hw)
+    out = {}
+    for smooth in (0.0, 0.8):
+        label = f"live smooth {smooth}"
+        with graph_runs(torch, fp) as seen:
+            engine = live.LiveEngine(model, frame_hw, input_hw, smooth=smooth)
+        v1_runs(seen, 1, label)
+        check(seen["captures"] == 1, f"{label}: {seen}")
+        got = [engine.infer(f, fetch_depth=True)[:2] for f in frames]
+        carry = None
+        for i, f in enumerate(frames):
+            xf = torch.from_numpy(f)[None].cuda()
+            if smooth:
+                if carry is None:
+                    carry = torch.zeros((1, *got[0][0].shape), device="cuda")
+                d, r, carry = live.live_step(
+                    model, xf, smooth=smooth, prev_log=carry,
+                    has_prev=torch.tensor(float(i > 0), device="cuda"), **kw)
+            else:
+                d, r = live.live_step(model, xf, **kw)
+            _equal(torch, np, got[i], (d[0], r[0]), f"{label} frame {i}")
+        engine.reset_smoothing()
+        other = []
+        worker = threading.Thread(target=lambda: other.extend(
+            engine.infer(f, fetch_depth=True)[:2] for f in frames))
+        worker.start()
+        worker.join(timeout=120)
+        check(len(other) == len(frames), f"{label}: the other thread hung")
+        _equal(torch, np, other, got, f"{label} from another thread")
+        twins = {}
+        for name, pre in (("plain", fp.plain_preprocess),
+                          ("shifted", _shifted_window(fp))):
+            with fed_by(fp, pre):
+                twin = live.LiveEngine(model, frame_hw, input_hw,
+                                       smooth=smooth)
+                twins[name] = [twin.infer(f, fetch_depth=True)[:2]
+                               for f in frames]
+                del twin
+        parity = [_live_close(np, live, g, w, f"{label} frame {i} vs "
+                              "plain-fed") for i, (g, w) in enumerate(
+                                  zip(got, twins["plain"]))]
+        ctrl = _control_fails(
+            np, np.log(np.stack([d for d, _ in twins["shifted"]])),
+            np.log(np.stack([d for d, _ in twins["plain"]])),
+            dict(max=SERVE_LOG_TOL, mean=SERVE_LOG_TOL), f"{label}")
+        noise = torch.from_numpy(frames[0])[None].cuda()
+        engine.reset_smoothing()
+        smoothed = dict(smooth=smooth, prev_log=torch.zeros(
+            (1, *got[0][0].shape), device="cuda"), has_prev=torch.ones(
+                (), device="cuda")) if smooth else {}
+        timing = eager_vs_graph(
+            torch, lambda: live.live_step(model, noise, **kw, **smoothed),
+            lambda: engine._step(noise))
+        check(timing["graph"]["v1_resample"] >= 0.9,
+              f"{label}: no v1 resample in the replay")
+        viewer = lives["runs"][f"smooth_{smooth}"]
+        out[f"live_smooth_{smooth}"] = dict(
+            graphs=seen, parity_vs_plain_fed=parity, shifted_control=ctrl,
+            frame=timing,
+            device_step_latency_ms=engine.device_step_latency(100) * 1e3,
+            viewer_30fps=dict(frames=viewer["frames"], fps=viewer["fps"],
+                              p50_ms=viewer["latency_p50_ms"],
+                              p99_ms=viewer["latency_p99_ms"]))
+    return out
+
+
+def program_transcode(torch, np, fp, cfg):
+    """The transcode loop at batch TRANSCODE_BATCH with a tail of
+    TRANSCODE_TAIL frames: one graph for each shape, every batch equal to
+    eager `live_step`; eager against graph a full batch."""
+    from ann3depth_tpu_torch import serving
+    from ann3depth_tpu_torch.live import infer as live
+    from ann3depth_tpu_torch.live.transcode import render_batches
+    from ann3depth_tpu_torch.utils import graphs
+
+    model = serving.model_from_checkpoint(cfg, device="cuda")
+    input_hw = tuple(cfg.data.input_hw)
+    n = 2 * TRANSCODE_BATCH + TRANSCODE_TAIL
+    frames = np.random.default_rng(18).integers(0, 256, (n, *RAW_HW, 3),
+                                                dtype=np.uint8)
+    batches = [(frames[i:i + TRANSCODE_BATCH], min(TRANSCODE_BATCH, n - i))
+               for i in range(0, n, TRANSCODE_BATCH)]
+    with graph_runs(torch, fp) as seen:
+        out = list(render_batches(model, iter(batches), input_hw=input_hw))
+    v1_runs(seen, 1, "transcode")
+    check(seen["captures"] == 2 and seen["replays"] == len(batches),
+          f"transcode graphs: {seen}")
+    kw = dict(input_hw=input_hw, display_hw=RAW_HW)
+    for i, ((x, k), (_, rendered, depth)) in enumerate(zip(batches, out)):
+        d, r = live.live_step(model, torch.from_numpy(x).cuda(), **kw)
+        _equal(torch, np, (depth, rendered),
+               (d[:k].cpu().numpy(), r[:k].cpu().numpy()),
+               f"transcode batch {i}")
+    x = torch.from_numpy(frames[:TRANSCODE_BATCH]).cuda()
+    step = graphs.GraphCache(
+        lambda f, **k: live.live_step(model, f, **k), device="cuda")
+    timing = eager_vs_graph(torch, lambda: live.live_step(model, x, **kw),
+                            lambda: step(x, **kw))
+    return dict(batches=[k for _, k in batches], graphs=seen,
+                batch=timing)
+
+
+def program_eval(torch, np, fp, cfg):
+    """The eval step on phase 4's checkpoint at b16: a graph of each
+    protocol's `eval_stats_step` equal to the eager step on every batch,
+    `evaluate`'s metrics equal to the eager step's summed; a plain-fed
+    `evaluate` inside `fed_by` within EVAL_METRIC_RTOL, the shifted-window
+    control failing it; eager against graph a batch, and images/s."""
+    from ann3depth_tpu_torch.train import loop
+    from ann3depth_tpu_torch.train import step as steplib
+    from ann3depth_tpu_torch.utils import graphs
+
+    state = loop.restore_state_for_eval(cfg)
+    batch = cfg.train.batch_size
+    data = [tuple(torch.from_numpy(a).cuda() for a in pair)
+            for pair in loop.build_dataset(cfg, "test").batches(
+                batch, steps=EVAL_BATCHES, shuffle=False)]
+    kw = dict(input_hw=tuple(cfg.data.input_hw),
+              target_hw=loop.resolved_target_hw(cfg),
+              si_lambda=cfg.train.si_lambda, loss_kind=cfg.train.loss)
+    out = {}
+    for name, extra in (("plain", {}), ("tta+align+crop", dict(
+            tta="flip", align="median", crop="eigen"))):
+        with graph_runs(torch, fp) as seen:
+            cache = graphs.GraphCache(
+                lambda i, d, **k: steplib.eval_stats_step(state, i, d, **k),
+                device="cuda")
+            totals = {}
+            for img, dep in data:
+                got = cache(img, dep, **kw, **extra)
+                want = steplib.eval_stats_step(state, img, dep, **kw, **extra)
+                _equal(torch, np, got, want, f"eval {name}")
+                for k, v in want.items():
+                    totals[k] = totals[k] + v if k in totals else v
+        v1_runs(seen, 2, f"eval {name}")
+        check(seen["captures"] == 1, f"eval {name}: {seen}")
+        eager = loop.losses.finalize_depth_metrics(
+            {k: float(v) for k, v in totals.items()})
+        metrics = loop.evaluate(cfg, state=state, max_batches=EVAL_BATCHES,
+                                **extra)
+        check(metrics == eager, f"eval {name}: evaluate {metrics}, the "
+              f"eager step's sums {eager}")
+        img, dep = data[0]
+        timing = eager_vs_graph(
+            torch, lambda: steplib.eval_stats_step(state, img, dep, **kw,
+                                                   **extra),
+            lambda: cache(img, dep, **kw, **extra))
+        for t in timing.values():
+            t["images_per_s"] = batch / t["wall_ms"] * 1e3
+        out[name] = dict(graphs=seen, metrics=metrics, batch=timing)
+    fed = {}
+    for name, pre in (("plain_fed", fp.plain_preprocess),
+                      ("shifted_window_control", _shifted_window(fp))):
+        with fed_by(fp, pre):
+            fed[name] = loop.evaluate(cfg, state=state,
+                                      max_batches=EVAL_BATCHES)
+    rel = {name: _rel_metrics(out["plain"]["metrics"], m)
+           for name, m in fed.items()}
+    worst = {name: max(r.values()) for name, r in rel.items()}
+    rtol = EVAL_METRIC_RTOL["make3d-encdec"]
+    check(worst["plain_fed"] <= rtol < worst["shifted_window_control"],
+          f"eval graphs against plain-fed: {worst} (rtol {rtol})")
+    out.update(largest_rel=worst, rtol=rtol)
+    return out
+
+
+def program_infer(torch, np, fp, cfg):
+    """`infer_image`'s graphs of `infer_step` on phase 4's checkpoint: one
+    capture, PROGRAM_FRAMES frames equal to the eager step, and a frame at
+    tta "flip" (its own graph); eager against graph a frame."""
+    from ann3depth_tpu_torch import serving
+    from ann3depth_tpu_torch.train import step as steplib
+
+    model = serving.model_from_checkpoint(cfg, device="cuda")
+    input_hw = tuple(cfg.data.input_hw)
+    frames = np.random.default_rng(19).integers(
+        0, 256, (PROGRAM_FRAMES, *RAW_HW, 3), dtype=np.uint8)
+    with graph_runs(torch, fp) as seen:
+        got = [steplib.infer_image(model, f, input_hw=input_hw)
+               for f in frames]
+        flip = steplib.infer_image(model, frames[0], input_hw=input_hw,
+                                   tta="flip")
+    v1_runs(seen, 1, "infer")
+    check(seen["captures"] == 2 and seen["replays"] == PROGRAM_FRAMES + 1,
+          f"infer graphs: {seen}")
+    for i, f in enumerate(frames):
+        _equal(torch, np, got[i], steplib.infer_step(
+            model, torch.from_numpy(f)[None].cuda(), input_hw=input_hw)[0],
+            f"infer frame {i}")
+    _equal(torch, np, flip, steplib.infer_step(
+        model, torch.from_numpy(frames[0])[None].cuda(), input_hw=input_hw,
+        tta="flip")[0], "infer tta flip")
+    x = torch.from_numpy(frames[:1]).cuda()
+    cache = steplib.infer_graphs(model)
+    timing = eager_vs_graph(
+        torch, lambda: steplib.infer_step(model, x, input_hw=input_hw),
+        lambda: cache(x, input_hw=input_hw, tta=""))
+    return dict(graphs=seen, frame=timing)
+
+
+def programs_phase(torch, np, fp, card, tmp, encdec_cfg, lives):
+    """Phase 15: the serve, live, transcode, eval and infer paths as CUDA
+    graphs (utils/graphs.py), each held bit for bit against its eager
+    call, with the v1 kernel recorded into every graph; the served, live
+    and eval graphs against plain-fed twins built inside `fed_by`, whose
+    shifted-window controls fail. Returns the v1 runs of each path."""
+    preset, depth_hw, steps, _, every, warmup = FAMILIES[0]
+    dpt_cfg = _train_config(f"{tmp}/{preset}", preset, depth_hw, steps=steps,
+                            every=every, warmup=warmup)
+    seconds, launches = {}, {}
+
+    def run(name, fn, *args):
+        t0 = time.perf_counter()
+        res = fn(torch, np, fp, *args)
+        seconds[name] = time.perf_counter() - t0
+        print(f"programs {name}: " + json.dumps(dict(res, card=card)),
+              flush=True)
+        return res
+
+    for cfg in (encdec_cfg, dpt_cfg):
+        name = f"serve_{cfg.model.name}"
+        launches[name] = run(name, program_ladder, cfg)["graphs"]
+    launches["serve_artifact"] = run("serve_artifact", program_artifact,
+                                     tmp)["graphs"]
+    for name, res in run("live", program_live, encdec_cfg, lives).items():
+        launches[name] = res["graphs"]
+    for name, fn in (("transcode", program_transcode),
+                     ("eval", program_eval), ("infer", program_infer)):
+        res = run(name, fn, encdec_cfg)
+        launches[name] = res.get("graphs") or {
+            k: v["graphs"] for k, v in res.items() if isinstance(v, dict)
+            and "graphs" in v}
+    print("phase 15 seconds: " + json.dumps(dict(seconds, card=card)),
+          flush=True)
+    return launches
+
+
 def main():
     import torch
 
@@ -4726,6 +5391,9 @@ def main():
         t14 = time.perf_counter()
         phase14 = bench_phase(torch, np, fp, card)
         print(f"phase 14: {time.perf_counter() - t14:.1f} s", flush=True)
+        t15 = time.perf_counter()
+        phase15 = programs_phase(torch, np, fp, card, tmp, cfg, lives)
+        print(f"phase 15: {time.perf_counter() - t15:.1f} s", flush=True)
 
     def entry(case, **kw):
         """One kernel's entry of the kernels line, from its train case."""
@@ -4752,7 +5420,8 @@ def main():
         quant_launches=phase10["quant_launches"],
         export_launches=phase10["export_launches"],
         parallel_cases=parallel, parallel_launches=phase11,
-        variant_launches=phase13, bench_launches=phase14, **phase12)
+        variant_launches=phase13, bench_launches=phase14,
+        program_graphs=phase15, **phase12)
     v2 = entry(
         cases_v2[1],  # the train shape, b16 augment rows
         name="fused_preprocess_v2",

@@ -493,7 +493,8 @@ def test_live_step_with_kernel_matches_plain_at_batch_one(cuda, tta,
 def test_live_engine_with_smoothing_matches_plain_fed_steps(cuda,
                                                             monkeypatch):
     """LiveEngine (pinned copies, one frame in flight, EMA carry on the
-    card) against a chain of plain-fed live_step calls."""
+    card, the step a CUDA graph replayed a frame) against a chain of
+    plain-fed live_step calls."""
     from ann3depth_tpu_torch.live import infer as live
 
     model = _live_model(cuda)
@@ -502,13 +503,17 @@ def test_live_engine_with_smoothing_matches_plain_fed_steps(cuda,
     frames = torch.randint(0, 256, (4, 96, 128, 3), generator=gen,
                            device=cuda).to(torch.uint8)
     before = fp.fused_preprocess.launches
+    replays = engine._graph.replays
     tokens = [engine.submit(frames[0].cpu().numpy())]
     got = []
     for f in frames[1:]:
         tokens.append(engine.submit(f.cpu().numpy()))
         got.append(engine.retrieve(tokens[-2], fetch_depth=True))
     got.append(engine.retrieve(tokens[-1], fetch_depth=True))
-    assert fp.fused_preprocess.launches == before + 4
+    # the kernel runs inside the captured step: no launch from Python
+    assert fp.fused_preprocess.launches == before
+    assert engine._graph.captures == 1
+    assert engine._graph.replays == replays + 4
     monkeypatch.setattr(fp, "fused_preprocess", fp.plain_preprocess)
     carry, has_prev = torch.zeros((1, 16, 24), device=cuda), 0.0
     for i, (depth, rendered, _) in enumerate(got):
@@ -520,6 +525,27 @@ def test_live_engine_with_smoothing_matches_plain_fed_steps(cuda,
         _assert_live_close((torch.from_numpy(depth)[None],
                             torch.from_numpy(rendered)[None]),
                            (d.cpu(), r.cpu()))
+
+
+def test_serving_graphs_equal_the_eager_program(cuda):
+    """`make_serving_fn` on the card: a CUDA graph for each batch size
+    (the v1 kernel recorded in it, launched only by the warm call before
+    the capture), each replay equal to the eager program bit for bit, and
+    a host input copied straight into the graph's static input."""
+    from ann3depth_tpu_torch import serving
+
+    model = _live_model(cuda)
+    fn = serving.make_serving_fn(model, IN_HW)
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    x = torch.randint(0, 256, (4, 48, 64, 3), generator=gen,
+                      device=cuda).to(torch.uint8)
+    before = fp.fused_preprocess.launches
+    for b in (4, 2, 4, 2):
+        got = fn(x[:b]).clone()
+        assert torch.equal(got, fn.fn(x[:b]))
+    assert fp.fused_preprocess.launches == before + 2 + 4  # warm + eager
+    assert fn.captures == len(fn) == 2 and fn.replays == 4
+    assert torch.equal(fn(x[:2].cpu()), fn.fn(x[:2]))
 
 
 # Determinism of the encdec, multiscale and matmul-upsample DPT train steps.
@@ -813,7 +839,9 @@ def test_qmatmul_on_the_card_equals_the_cpu_and_refuses_small_shapes(cuda):
 
 def test_exported_program_on_the_card_matches_eager(cuda, tmp_path):
     """A polymorphic and an int8 export of a small encdec, served on the
-    card: equal to the eager serving fn, with one kernel launch a call."""
+    card through a CUDA graph of the exported program: equal to the eager
+    serving fn, its first call launching the kernel once (the warm call
+    before the capture) and replaying the graph once."""
     import dataclasses
 
     from ann3depth_tpu_torch import serving
@@ -836,6 +864,7 @@ def test_exported_program_on_the_card_matches_eager(cuda, tmp_path):
         before = fp.fused_preprocess.launches
         got = loaded.predict(x.numpy())
         assert fp.fused_preprocess.launches == before + 1
+        assert loaded.fn.captures == loaded.fn.replays == 1
         want = eager(x.to(cuda)).cpu().numpy()
         assert got.shape == want.shape == (3, 32, 48)
         np.testing.assert_allclose(got, want, rtol=EXPORT_RTOL, atol=0,
