@@ -100,9 +100,13 @@ def calibrate_window_epochs(dataset, batch_size, device=None, *,
     return `pick_window_epochs` of the two (the `--window-epochs auto`
     implementation; train/loop.py wires it).
 
-    `run_pass(batches)` must drain the iterable of (img_u8, depth) device
-    batches through the caller's real train step and SYNC before
-    returning. It runs twice: once to warm up, once timed. The probe stages
+    `run_pass(probe, blocks)` must drain one pass over the probe's active
+    window, the iterable of [1, per_dev] int64 device index blocks
+    `blocks` (`probe.gather(block[0])` is a block's batch), through the
+    step program the run will replay (train/loop.py: the run's
+    `BlockRunner` on the probe, or the eager step where the run steps
+    eagerly) and SYNC before returning. It runs twice: once to warm up
+    (and capture), once timed. The probe stages
     two windows (the first measured, the second overlapping the passes as
     steady state does) and drops them; the real sampler restages from
     scratch. close() waits out the second window's staging.
@@ -127,13 +131,13 @@ def calibrate_window_epochs(dataset, batch_size, device=None, *,
          g_dep.reshape(g_dep.shape[0], -1)[:, 0].cpu())
         t_stage = time.perf_counter() - t0
 
-        def batches():
+        def blocks():
             for idx in probe._window_local_indices():
-                yield probe.gather(to_index(idx, probe.device))
+                yield to_index(idx[None], probe.device)
 
-        run_pass(batches())  # warm-up
+        run_pass(probe, blocks())  # warm-up
         t0 = time.perf_counter()
-        run_pass(batches())  # timed
+        run_pass(probe, blocks())  # timed
         t_train = time.perf_counter() - t0
     finally:
         probe.close()

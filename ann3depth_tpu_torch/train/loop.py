@@ -15,8 +15,10 @@ is one of
   (pipeline/feed.py);
 
 then `train_step` (with gradient accumulation) or `distill_train_step`,
-or, from a pool with `steps_per_dispatch` K > 1, K-step blocks that the
-card runs as replays of a CUDA graph of the step (train/dispatch.py).
+which the card runs as replays of a CUDA graph of the step on every feed
+(train/dispatch.py: a step a replay, from a pool K = `steps_per_dispatch`
+replays a dispatch), and which runs eagerly on the CPU and over gloo on
+the card (decided before the first step, and logged).
 Metrics are read and logged every `log_every` steps (also to TensorBoard
 with `tensorboard`), checkpoints written every `checkpoint_every`, a
 4-batch eval sample scored (and an rgb|gt|pred grid of it written to the
@@ -57,7 +59,7 @@ from ann3depth_tpu_torch.models import registry
 from ann3depth_tpu_torch.parallel import mesh as meshlib
 from ann3depth_tpu_torch.parallel import multihost
 from ann3depth_tpu_torch.pipeline import device_cache
-from ann3depth_tpu_torch.train import losses
+from ann3depth_tpu_torch.train import dispatch, losses
 from ann3depth_tpu_torch.train import step as steplib
 from ann3depth_tpu_torch.train.checkpoint import CheckpointManager
 from ann3depth_tpu_torch.utils import graphs, tracing
@@ -400,17 +402,30 @@ def _window_epochs(cfg: Config, dataset, dev, start_step, step_kwargs):
                 "size; the resumed sampling stream changes either way "
                 "when the window changes)", epochs_path,
                 persisted.get("cache_window_mb"), cfg.data.cache_window_mb)
-        # Calibrate with the plain train step (a distilled run's step costs
-        # a few percent more: E is then under-picked) on a throwaway state.
+        # Calibrate with the program the run replays: the plain train step
+        # (a distilled run's step costs a few percent more: E is then
+        # under-picked) on a throwaway state, through a BlockRunner on the
+        # probe window (a K-step block replays that captured step K
+        # times), or eagerly where the run steps eagerly.
         cal = create_state(cfg, dev)
         kw = {k: v for k, v in step_kwargs.items() if k != "distill_alpha"}
         generator = torch.Generator(device=dev)
+        runner = None
 
-        def cal_pass(batches):
+        def cal_pass(probe, blocks):
+            nonlocal runner
+            if runner is None and dispatch.eager_reason(cal, dev) is None:
+                runner = dispatch.BlockRunner(
+                    cal, probe, 1, step_kwargs=kw,
+                    draw_seed=lambda s: step_seed(t.seed, s))
             metrics = None
-            for img, dep in batches:
-                _, metrics = steplib.train_step(cal, img, dep, generator,
-                                                **kw)
+            for block in blocks:
+                if runner is not None:
+                    metrics = runner.run(block)
+                else:
+                    img, dep = probe.gather(block[0])
+                    _, metrics = steplib.train_step(cal, img, dep, generator,
+                                                    **kw)
             float(metrics["loss"])  # sync
 
         from ann3depth_tpu_torch.pipeline import streaming_pool
@@ -418,7 +433,7 @@ def _window_epochs(cfg: Config, dataset, dev, start_step, step_kwargs):
             dataset, t.batch_size, dev,
             window_bytes=cfg.data.cache_window_mb << 20, run_pass=cal_pass,
             steps_per_dispatch=t.steps_per_dispatch, seed=t.seed)
-        del cal
+        del cal, runner
         with open(epochs_path, "w") as f:
             json.dump({"window_epochs": window_epochs,
                        "cache_window_mb": cfg.data.cache_window_mb,
@@ -553,16 +568,23 @@ def train(cfg: Config, *, workdir: Optional[str] = None, dataset=None,
     generator = multihost.replicated_key(t.seed, dev)
     feed = _make_feed(cfg, dataset, extra_datasets, dev, start_step,
                       n_steps, step_kwargs, mesh)
+    # The step: replays of a CUDA graph of it (train/dispatch.py) wherever
+    # it can be captured, eagerly elsewhere; decided before step 1.
+    eager = dispatch.eager_reason(state, dev)
     runner = None
-    if spd > 1:
-        from ann3depth_tpu_torch.train.dispatch import BlockRunner
+    if spd > 1 or eager is None:
         try:
-            runner = BlockRunner(state, feed, spd, step_kwargs=step_kwargs,
-                                 draw_seed=lambda s: step_seed(t.seed, s),
-                                 teacher=teacher)
+            runner = dispatch.BlockRunner(
+                state, feed if cfg.data.cache_device else None, spd,
+                step_kwargs=step_kwargs, device=dev, teacher=teacher,
+                draw_seed=lambda s: step_seed(t.seed, s))
         except BaseException:
             feed.close()
             raise
+    if eager is None:
+        log.info("train step: CUDA graph replays, %d a dispatch", spd)
+    else:
+        log.info("train step: eager (%s)", eager)
     # Profiler window: skip a few warm steps, then trace profile_steps.
     # Units are DISPATCHES: with steps_per_dispatch > 1 each traced unit is
     # one K-step block (the first block is the eager warm-up and the
@@ -587,7 +609,8 @@ def train(cfg: Config, *, workdir: Optional[str] = None, dataset=None,
     metrics = {}
     t0, imgs_since = time.perf_counter(), 0
     try:
-        iterator = feed.index_blocks(spd) if runner is not None else feed
+        pooled = runner is not None and runner.sampler is not None
+        iterator = feed.index_blocks(spd) if pooled else feed
         for i, item in enumerate(iterator):
             if i == prof_start:
                 tracing.device_sync(dev)  # drain the warm steps
@@ -595,7 +618,8 @@ def train(cfg: Config, *, workdir: Optional[str] = None, dataset=None,
             if runner is not None:
                 metrics = runner.run(item, more=i + 1 < n_iters)
                 step_no = start_step + (i + 1) * spd - 1
-                imgs_since += spd * t.batch_size
+                imgs_since += (spd * t.batch_size if pooled else
+                               int(item[0].shape[0]) * mesh.n_data)
             else:
                 img_u8, depth = item
                 step_no = start_step + i
@@ -780,6 +804,18 @@ def eval_stats_graphs(state, device):
     return graphs.GraphCache(eval_stats, device=device)
 
 
+def eval_report_graphs(state, device):
+    """`train.step.eval_report_step` on `state` as a `GraphCache` on
+    `device`: on the card one CUDA graph for each batch shape (a split's
+    ragged last batch gets its own) and set of eval options. Its outputs
+    (per-image stats, images, depths, pred_log) are static: the caller
+    copies what it keeps before the next call."""
+    def eval_report(img_u8, depth, **kw):
+        return steplib.eval_report_step(state, img_u8, depth, **kw)
+
+    return graphs.GraphCache(eval_report, device=device)
+
+
 def evaluate(cfg: Config, state=None, dataset=None, max_batches=None,
              device=None, use_ema=False, report_dir=None, report_worst=8,
              ckpt_step=None, tta="", avg_last=None, align="", crop="",
@@ -800,7 +836,8 @@ def evaluate(cfg: Config, state=None, dataset=None, max_batches=None,
     all its evals; None makes one for this call): on the card one CUDA
     graph for each batch shape, captured at the first batch of that shape
     and replayed for the rest; on the CPU eagerly. Report mode runs
-    `eval_report_step` eagerly.
+    `eval_report_step` alike, through an `eval_report_graphs` cache of its
+    own.
 
     report_dir: also write per-image error attribution: per_image.jsonl
     (one metrics row per test image, split order), worst.png (a rgb|gt|pred
@@ -875,7 +912,9 @@ def evaluate(cfg: Config, state=None, dataset=None, max_batches=None,
         batch_iter = ((torch.from_numpy(img_np), torch.from_numpy(dep_np))
                       for img_np, dep_np in dataset.batches(
                           batch_size, steps=max_batches, shuffle=False))
-    if stats_graphs is None and report_dir is None:
+    if report_dir is not None:
+        report_graphs = eval_report_graphs(state, dev)
+    elif stats_graphs is None:
         stats_graphs = eval_stats_graphs(state, dev)
     totals = {}
     rows, worst = [], []  # report mode: per-image rows + worst-K heap
@@ -886,8 +925,10 @@ def evaluate(cfg: Config, state=None, dataset=None, max_batches=None,
             for k, v in stats.items():
                 totals[k] = totals[k] + v if k in totals else v.clone()
         else:
-            per, images, depths, pred_log = steplib.eval_report_step(
-                state, img_u8.to(dev), depth.to(dev), **step_kw)
+            # the static outputs: every read below copies them to the host
+            # before the next replay
+            per, images, depths, pred_log = report_graphs(img_u8, depth,
+                                                          **step_kw)
             per = {k: v.cpu().numpy() for k, v in per.items()}
             bsz = per["n_valid"].shape[0]
             batch_tot = {k: float(v.sum()) for k, v in per.items()

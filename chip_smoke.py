@@ -26,9 +26,12 @@ last line is printed:
    kernel.
 4. Train make3d-encdec at full width, b16, on synthetic scenes at Make3D's
    raw shapes (RGB 480x640, laser grid 305x55) with augmentation, through
-   `train.loop.train`: 40 steps, then a resume to 50. Check that the losses
-   are finite and fall, that the resume continues the step counter and
-   that every step launched the v1 kernel twice; time the train step and
+   `train.loop.train`: 40 steps, then a resume to 50, each run's first
+   step eager and the rest replays of a CUDA graph of the step (phase
+   16). Check that the losses are finite and fall, that the resume
+   continues the step counter and that every step ran the v1 kernel twice
+   (launched in the eager step, recorded twice into the graph and run at
+   each replay); time the eager train step and
    its preprocess on a fixed device batch; hold one step fed by the kernel
    against one fed by the plain preprocess.
 5. The v2 kernel inside the train step: from one state and one raw batch,
@@ -74,7 +77,8 @@ last line is printed:
    phase 4's. Phase 2 holds and times v1 at this path's new shapes.
 9. The input pipeline and the K-step CUDA graph: make3d-encdec (b16, full
    width) from a device pool of 64 Make3D-shaped scenes, 40 steps at K=1
-   (eager) and at K=10 (replays of a CUDA graph of the step), plain and at
+   (the eager twin, `eager_twin`) and at K=10 (replays of a CUDA graph of
+   the step), plain and at
    grad_accum 2, and nyu-encdec-aug from phase 8's NYU records, each K=10
    run held against its K=1 twin (params within the JAX scan test's rtol
    2e-5 / atol 2e-6, loss within 2e-4); the v1 kernel's launches in the
@@ -82,8 +86,9 @@ last line is printed:
    NYU records at K=1 four times and K=5, held to twice the largest gap
    between its K=1 runs; a window pool (96 scenes, windows of 32) with
    echo 2 and K=4, every example seen twice a pass, then `--window-epochs
-   auto` (its factor, staging and pass times, the sidecar); the host feed
-   (DeviceFeed) and `--use-grain --num-workers 2` through the CLI, the
+   auto` (its factor, staging and pass times, the sidecar; calibrated on
+   the replayed step); the host feed (DeviceFeed) and `--use-grain
+   --num-workers 2` through the CLI at K=1 (step graph replays), the
    losses falling; `eval --cache-device` on phase 4's checkpoint against
    the host-fed eval; and each feed's step ms, images/s, busy share,
    launches a step and peak memory.
@@ -203,12 +208,38 @@ last line is printed:
    `device_step_latency` and phase 6's viewer p50/p99 at 30 fps, eval
    images/s.
 
-The serve, live, transcode, eval and infer paths of every phase run
-graphs on the card: the v1 wrapper counts only the launches
+The serve, live, transcode, eval, infer and train paths of every phase
+run graphs on the card: the v1 wrapper counts only the launches
 outside them (each capture's warm call, eager steps), and `graph_runs`
 counts the calls recorded into the graphs and their replays, so each
 path's check holds its v1 runs (`v1_runs`: the eager launches and a
 graph's recorded calls at each replay) to what it held before.
+
+16. The train step and the report eval as CUDA graphs (train/dispatch.py,
+   `loop.eval_report_graphs`): each K=1 loop replaying its step graph held
+   bit for bit against its eager twin (`eager_twin`: the same loop with
+   the step eager) from one seed, feed and draws: make3d-encdec b16 from
+   phase 8's Make3D records on the host feed at the preset's own flags
+   (no augmentation: `train`'s defaults), and augmented from the device
+   pool, at grad_accum 2 and distilled from phase 4's checkpoint, and
+   nyu-encdec-aug on the NYU and Make3D records (a graph of each raw
+   shape); dpt-384 at K=1: under torch's deterministic mode at upsample
+   "matmul" (phase 13's child) equal to its eager K=1 run bit for bit,
+   and from phase 9's pool in the default mode, timed against phase 9's
+   eager runs (its gap to them reported: those runs part);
+   `evaluate` with a report (tta "flip") on phase 4's checkpoint, graph
+   against eager bit for bit (metrics and files). Each run's step ms,
+   busy share, host launches a step and peak memory, eager against graph,
+   its v1 calls recorded into each step graph (2 a microbatch) and the
+   resamples in each traced replay.
+
+The K=1 references that phases 9, 10, 11 and 13 hold K-step graphs (and
+the parallel ranks) against are eager runs: `pool_run` at K=1 and the
+one-process runs of phase 11 run the loop's step eagerly (`eager_twin`).
+Every other train run replays its step graph; `graph_runs` counts the
+step graphs' captures, replays and recorded v1 calls apart from the
+GraphCaches', and `train_v1` holds a run's v1 runs to 2 a microbatch a
+step.
 
 The last lines are one `{"kernels": [...]}` JSON line, the nvidia-smi line
 of the card, and `{"ok": true, "device": {...}}`.
@@ -1040,19 +1071,11 @@ def train_slice(torch, np, fp, card, tmp, cfg=None,
 
     dev = torch.device("cuda")
     seen = []  # every step's loss, as device scalars (no extra host sync)
-    inner = steplib.train_step
-
-    def recording_step(*args, **kw):
-        state, metrics = inner(*args, **kw)
-        seen.append(metrics["loss"])
-        return state, metrics
-
     cfg = cfg or _train_config(tmp)
     steps, batch = cfg.train.steps, cfg.train.batch_size
     resumed = dataclasses.replace(cfg, train=dataclasses.replace(
         cfg.train, steps=resume_steps, resume=True))
-    steplib.train_step = recording_step
-    try:
+    with step_losses(steplib, seen):
         fp.fused_preprocess_v2.launches = 0
         t0 = time.perf_counter()
         with graph_runs(torch, fp) as graphed:
@@ -1063,8 +1086,6 @@ def train_slice(torch, np, fp, card, tmp, cfg=None,
         with graph_runs(torch, fp) as resume_graphed:
             state2, last = loop.train(resumed, workdir=tmp, progress=False)
         resume_launches = resume_graphed["launches"]
-    finally:
-        steplib.train_step = inner
     with open(f"{tmp}/metrics.jsonl") as f:
         records = [json.loads(line) for line in f]
     saved = CheckpointManager(cfg.train.ckpt_dir).all_steps()
@@ -1099,19 +1120,20 @@ def train_slice(torch, np, fp, card, tmp, cfg=None,
     check(saved == want, f"checkpoints at {saved}, not {want}")
     want = [f"triples_step{s:07d}.png" for s in eval_steps]
     check(grids == want, f"eval grids {grids}, not {want}")
-    # Each in-loop eval replays its eval step's graph once a batch (a
-    # capture for each batch shape, its warm call eager) and renders its
-    # rgb|gt|pred grid eagerly: one more batch.
+    # Each run: its first step eager, then one capture of the step and a
+    # replay a step; each in-loop eval replays its eval step's graph once
+    # a batch (a capture for each batch shape, its warm call eager) and
+    # renders its rgb|gt|pred grid eagerly: one more batch.
     for label, run, n_steps, n_evals in (
             ("run", graphed, steps,
              len([s for s in eval_steps if s <= steps])),
             ("resume", resume_graphed, resume_steps - steps,
              len([s for s in eval_steps if s > steps]))):
-        v1_runs(run, 2, f"train {label}")
-        check(run["launches"] == 2 * (n_steps + n_evals + run["captures"])
-              and run["replays"] == loop.EVAL_SAMPLE_BATCHES * n_evals,
-              f"train {label}: fused_preprocess launched {run['launches']} "
-              f"times in {n_steps} steps and {n_evals} evals: {run}")
+        train_v1(run, n_steps, 2, f"train {label}", evals=n_evals)
+        check(run["steps_captured"] == 1
+              and run["steps_replayed"] == n_steps - 1,
+              f"train {label}: the step was not replayed from one graph: "
+              f"{run}")
     check(v2_in_loop == 0, "the loop ran the v2 kernel")
 
     # Steady step time on one device-resident batch (the loop above also
@@ -1314,39 +1336,98 @@ def graph_runs(torch, fp):
     """Within the block: the v1 wrapper's launches (its count set to 0),
     and the GraphCaches' captures and replays, and the v1 calls recorded
     into their captures (which the wrapper does not count: a recorded
-    call runs at every replay, where no Python runs). Yields a dict that
-    is filled when the block ends."""
+    call runs at every replay, where no Python runs); and apart, the
+    train loop's step graphs (train/dispatch.BlockRunner made in the
+    block): `steps_captured`, `steps_replayed` (a step a replay) and
+    `steps_recorded` (the v1 calls recorded into them). Yields a dict
+    that is filled when the block ends."""
+    from ann3depth_tpu_torch.train import dispatch
     from ann3depth_tpu_torch.utils import graphs
 
-    seen = dict(launches=0, recorded=0, captures=0, replays=0)
+    seen = dict(launches=0, recorded=0, captures=0, replays=0,
+                steps_captured=0, steps_replayed=0, steps_recorded=0)
     kernel = fp.fused_preprocess
     before = {c: (c.captures, c.replays) for c in graphs.caches()}
-    made = []
+    made, runners, in_step = [], [], [False]
     init = graphs.GraphCache.__init__
+    runner_init, runner_capture = (dispatch.BlockRunner.__init__,
+                                   dispatch.BlockRunner._capture)
 
     def kept(self, *a, **kw):
         init(self, *a, **kw)
         made.append(self)
 
+    def kept_runner(self, *a, **kw):
+        runner_init(self, *a, **kw)
+        runners.append(self)
+
+    def capture_step(self, entry):
+        in_step[0] = True
+        try:
+            return runner_capture(self, entry)
+        finally:
+            in_step[0] = False
+
     def recorded(*a, **kw):
         if torch.cuda.is_current_stream_capturing():
-            seen["recorded"] += 1
+            seen["steps_recorded" if in_step[0] else "recorded"] += 1
         return kernel(*a, **kw)
 
     kernel.launches = 0
     graphs.GraphCache.__init__ = kept
+    dispatch.BlockRunner.__init__ = kept_runner
+    dispatch.BlockRunner._capture = capture_step
     fp.fused_preprocess = recorded
     try:
         yield seen
     finally:
         fp.fused_preprocess = kernel
         graphs.GraphCache.__init__ = init
+        dispatch.BlockRunner.__init__ = runner_init
+        dispatch.BlockRunner._capture = runner_capture
         seen["launches"] = kernel.launches
         for c in set(made) | set(before):
             c0, r0 = before.get(c, (0, 0))
             seen["captures"] += c.captures - c0
             seen["replays"] += c.replays - r0
+        for r in runners:
+            seen["steps_captured"] += r.captures
+            seen["steps_replayed"] += r.replays
         made.clear()
+        runners.clear()
+
+
+def step_v1(seen, per_step, label):
+    """The v1 runs of the replayed train steps of a `graph_runs` block
+    whose step graphs each record `per_step` v1 calls (2 a microbatch):
+    checks what each capture recorded, returns per_step a replayed step."""
+    check(seen["steps_recorded"] == per_step * seen["steps_captured"],
+          f"{label}: {seen['steps_recorded']} v1 calls recorded into "
+          f"{seen['steps_captured']} step graphs, {per_step} a graph "
+          "expected")
+    return per_step * seen["steps_replayed"]
+
+
+def train_v1(seen, steps, per_step, label, evals=0):
+    """The v1 runs of `steps` K=1 train steps and `evals` in-loop evals in
+    a `graph_runs` block. An eager step (a key's first, or every step
+    where the loop steps eagerly) launches `per_step`, a replayed one
+    runs the `per_step` calls its graph recorded; an eval renders its
+    grid (2 launches) and runs EVAL_SAMPLE_BATCHES batches of its eval
+    graphs (2 each; each capture's warm call launches 2). Checks all of
+    that, and that every step graph followed an eager step of its key;
+    returns the v1 runs."""
+    from ann3depth_tpu_torch.train import loop
+
+    replayed = step_v1(seen, per_step, label)
+    eager_steps = steps - seen["steps_replayed"]
+    check(seen["launches"] - 2 * seen["captures"]
+          == per_step * eager_steps + 2 * evals
+          and seen["replays"] == loop.EVAL_SAMPLE_BATCHES * evals
+          and eager_steps >= max(seen["steps_captured"], 1),
+          f"{label}: v1 launched {seen['launches']} times in {steps} steps "
+          f"({eager_steps} eager) and {evals} evals: {seen}")
+    return v1_runs(seen, 2, label) + replayed
 
 
 def v1_runs(seen, calls, label, recorded=True):
@@ -1436,11 +1517,10 @@ def eval_phase(torch, np, fp, cfg, tmp, card, preset="make3d-encdec",
         seconds = time.perf_counter() - t0
         launches = seen["launches"]
         check(_all_finite(np, metrics), f"eval {name}: {metrics}")
-        # eval_stats_step: a graph a protocol; the report step: eager
+        # eval_stats_step: a graph a protocol; eval_report_step: a graph
         runs_v1 = v1_runs(seen, 2, f"eval {name}")
-        graphed = "report" not in name
-        check(runs_v1 == 2 * EVAL_BATCHES * n_protocols and seen[
-            "captures"] == (n_protocols if graphed else 0),
+        check(runs_v1 == 2 * EVAL_BATCHES * n_protocols
+              and seen["captures"] == n_protocols,
               f"eval {name} ran the kernel {runs_v1} times in "
               f"{EVAL_BATCHES * n_protocols} batches: {seen}")
         runs[name] = dict(metrics=metrics, seconds=seconds,
@@ -2050,26 +2130,73 @@ def slice6_data(torch, np, cli, data_dir):
 
 
 @contextlib.contextmanager
-def _recording(fp, steplib):
-    """Within the block: every loss of a train or distill step (device
-    scalars), the shape and mode of every v1 call, and the loop's log
-    messages at WARNING and above."""
-    import logging
+def step_losses(steplib, losses):
+    """Within the block: every train or distill step's loss (device
+    scalars) appended to `losses`: an eager step's from the step, a
+    replayed K=1 step's from its `BlockRunner` call (a replay runs no
+    Python; a K-step block's replays are not seen)."""
+    from ann3depth_tpu_torch.train import dispatch
 
-    seen = dict(losses=[], calls=[], warnings=[])
-    kernel = fp.fused_preprocess
     inner = steplib.train_step, steplib.distill_train_step
-
-    def recorded(x, params, *, out_hw, depth_mode=False, **kw):
-        seen["calls"].append((tuple(x.shape), depth_mode))
-        return kernel(x, params, out_hw=out_hw, depth_mode=depth_mode, **kw)
+    run, in_call = dispatch.BlockRunner.run, [False]
 
     def wrap(fn):
         def step(*args, **kw):
             state, metrics = fn(*args, **kw)
-            seen["losses"].append(metrics["loss"])
+            if not in_call[0]:
+                losses.append(metrics["loss"])
             return state, metrics
         return step
+
+    def call(self, item, more=True):
+        if self.k != 1:
+            return run(self, item, more)
+        in_call[0] = True
+        try:
+            metrics = run(self, item, more)
+        finally:
+            in_call[0] = False
+        losses.append(metrics["loss"])
+        return metrics
+
+    steplib.train_step, steplib.distill_train_step = map(wrap, inner)
+    dispatch.BlockRunner.run = call
+    try:
+        yield losses
+    finally:
+        steplib.train_step, steplib.distill_train_step = inner
+        dispatch.BlockRunner.run = run
+
+
+@contextlib.contextmanager
+def eager_twin():
+    """Within the block the train loop runs its K=1 steps eagerly on the
+    card, as the twin that a step graph is held against (a K-step block
+    still replays its graph)."""
+    from ann3depth_tpu_torch.train import dispatch
+
+    real = dispatch.eager_reason
+    dispatch.eager_reason = lambda state, device: "held as the eager twin"
+    try:
+        yield
+    finally:
+        dispatch.eager_reason = real
+
+
+@contextlib.contextmanager
+def _recording(fp, steplib):
+    """Within the block: every loss of a train or distill step (device
+    scalars, `step_losses`), the shape and mode of every v1 call run in
+    Python (eager, or recorded into a graph), and the loop's log messages
+    at WARNING and above."""
+    import logging
+
+    seen = dict(losses=[], calls=[], warnings=[])
+    kernel = fp.fused_preprocess
+
+    def recorded(x, params, *, out_hw, depth_mode=False, **kw):
+        seen["calls"].append((tuple(x.shape), depth_mode))
+        return kernel(x, params, out_hw=out_hw, depth_mode=depth_mode, **kw)
 
     class Handler(logging.Handler):
         def emit(self, record):
@@ -2077,12 +2204,10 @@ def _recording(fp, steplib):
 
     handler = Handler(logging.WARNING)
     logging.getLogger("ann3depth_tpu_torch").addHandler(handler)
-    steplib.train_step, steplib.distill_train_step = map(wrap, inner)
     try:
-        with fed_by(fp, recorded):
+        with step_losses(steplib, seen["losses"]), fed_by(fp, recorded):
             yield seen
     finally:
-        steplib.train_step, steplib.distill_train_step = inner
         logging.getLogger("ann3depth_tpu_torch").removeHandler(handler)
 
 
@@ -2197,7 +2322,6 @@ def slice6_phase(torch, np, fp, card, tmp, encdec_ckpt, phase4_loop_ips):
 
     data = f"{tmp}/data"
     route, data_s = slice6_data(torch, np, cli, data)
-    kernel = fp.fused_preprocess
     launches = {}
 
     # nyu-encdec-aug at full width, b16 in microbatches of 8, on NYU and
@@ -2225,14 +2349,15 @@ def slice6_phase(torch, np, fp, card, tmp, encdec_ckpt, phase4_loop_ips):
     check(steps_run == SLICE6_STEPS or (stopped_early and evals
                                         and evals[-1] == steps_run),
           f"slice6 train ran {steps_run} steps; evals at {evals}")
-    # Each in-loop eval: the eval step's graphs (a capture for each batch
-    # shape, its warm call eager), a replay a batch, and viz's forward.
-    v1_runs(graphed, 2, "slice6 train")
-    check(n_train == 2 * ACCUM * steps_run + 2 * len(evals)
-          + 2 * graphed["captures"] and graphed["replays"]
-          == loop.EVAL_SAMPLE_BATCHES * len(evals),
-          f"slice6 train launched v1 {n_train} times in {steps_run} steps "
-          f"and {len(evals)} evals: {graphed}")
+    # The step: eager at each dataset's first batch, then a graph of each
+    # raw shape (NYU's, Make3D's) replayed; each in-loop eval: the eval
+    # step's graphs (a capture for each batch shape, its warm call eager),
+    # a replay a batch, and viz's forward.
+    v1_train = train_v1(graphed, steps_run, 2 * ACCUM, "slice6 train",
+                        evals=len(evals))
+    check(graphed["steps_captured"] == 2
+          and graphed["steps_replayed"] == steps_run - 2,
+          f"slice6 train: not a graph of each raw shape: {graphed}")
     cli_batch = get_config("nyu-encdec-aug").train.batch_size
     micro = cli_batch // ACCUM
     depth_shapes = {s for s, d in seen["calls"] if d and s[0] == micro}
@@ -2256,11 +2381,17 @@ def slice6_phase(torch, np, fp, card, tmp, encdec_ckpt, phase4_loop_ips):
     before = CheckpointManager(ck).all_steps()
 
     # Roll back to ROLLBACK_TO and run on to ROLLBACK_STEPS.
-    kernel.launches = 0
-    with _recording(fp, steplib) as rolled:
+    with graph_runs(torch, fp) as rolled_graphs, \
+            _recording(fp, steplib) as rolled:
         _cli_json(cli, base + ["--steps", str(ROLLBACK_STEPS),
                                "--resume-step", str(ROLLBACK_TO)])
-    n_rollback = kernel.launches
+    n_rollback = rolled_graphs["launches"]
+    rolled_evals = len([s for s in range(ROLLBACK_TO + 1,
+                                         ROLLBACK_STEPS + 1)
+                        if s % SLICE6_EVERY == 0])
+    v1_rollback = train_v1(rolled_graphs, ROLLBACK_STEPS - ROLLBACK_TO,
+                           2 * ACCUM, "slice6 rollback",
+                           evals=rolled_evals)
     after = CheckpointManager(ck).all_steps()
     deleted = sorted(int(m.rsplit(" ", 1)[1]) for m in rolled["warnings"]
                      if m.startswith("rollback resume: deleting"))
@@ -2290,12 +2421,13 @@ def slice6_phase(torch, np, fp, card, tmp, encdec_ckpt, phase4_loop_ips):
                    if "eval_rmse" in r],
         loop_images_per_s=[r["images_per_sec"] for r in records
                            if "images_per_sec" in r],
-        launches=n_train, depth_microbatches=sorted(depth_shapes),
+        launches=n_train, v1_runs=v1_train, step_graphs=graphed,
+        depth_microbatches=sorted(depth_shapes),
         best=best, tensorboard_present=tb_present, event_files=len(events),
         trace_file_bytes=len(trace_text),
         trace_has_kernel="band_resample_kernel" in trace_text,
         rollback=dict(before=before, after=after, deleted=deleted,
-                      launches=n_rollback),
+                      launches=n_rollback, v1_runs=v1_rollback),
         eval=dict(metrics=metrics, launches=n_eval), card=card)
     print("slice6 train: " + json.dumps(train_out), flush=True)
     launches.update(nyu_encdec_train=n_train, rollback=n_rollback,
@@ -2315,25 +2447,25 @@ def slice6_phase(torch, np, fp, card, tmp, encdec_ckpt, phase4_loop_ips):
                                   grad_accum=ACCUM, log_every=5,
                                   checkpoint_every=0, eval_every=0,
                                   ckpt_dir=f"{tmp}/s6_dpt"))
-    kernel.launches = 0
-    with _recording(fp, steplib) as seen:
+    with graph_runs(torch, fp) as dpt_graphs, \
+            _recording(fp, steplib) as seen:
         loop.train(dpt, workdir=f"{tmp}/s6_dpt", progress=False)
-    n_dpt = kernel.launches
+    n_dpt = dpt_graphs["launches"]
     dpt_losses = [float(x) for x in seen["losses"]]
+    v1_dpt = train_v1(dpt_graphs, DPT_ACCUM_STEPS, 2 * ACCUM, "slice6 dpt")
     check(len(dpt_losses) == DPT_ACCUM_STEPS
-          and bool(np.isfinite(dpt_losses).all())
-          and n_dpt == 2 * ACCUM * DPT_ACCUM_STEPS,
-          f"slice6 dpt: {len(dpt_losses)} steps, {n_dpt} launches, "
-          f"losses {dpt_losses}")
+          and bool(np.isfinite(dpt_losses).all()),
+          f"slice6 dpt: {len(dpt_losses)} steps, losses {dpt_losses}")
     print("slice6 dpt: " + json.dumps(dict(
         steps=DPT_ACCUM_STEPS, losses=dpt_losses, launches=n_dpt,
+        v1_runs=v1_dpt, step_graphs=dpt_graphs,
         cost=accum_costs(torch, dpt), card=card)), flush=True)
     launches["dpt_train"] = n_dpt
 
     # make3d-small (b1) distilled from phase 4's encdec checkpoint.
     dwd = f"{tmp}/s6_distill"
-    kernel.launches = 0
-    with _recording(fp, steplib) as seen:
+    with graph_runs(torch, fp) as distill_graphs, \
+            _recording(fp, steplib) as seen:
         _cli_json(cli, ["train", "--config", "make3d-small", "--datasets",
                         "make3d", "--data-dir", data, "--ckpt-dir", dwd,
                         "--workdir", dwd, "--steps", str(DISTILL_STEPS),
@@ -2341,7 +2473,8 @@ def slice6_phase(torch, np, fp, card, tmp, encdec_ckpt, phase4_loop_ips):
                         "--log-every", "1", "--checkpoint-every", "0",
                         "--eval-every", "0", "--distill-from", encdec_ckpt,
                         "--distill-model", "encdec"])
-    n_distill = kernel.launches
+    n_distill = distill_graphs["launches"]
+    v1_distill = train_v1(distill_graphs, DISTILL_STEPS, 2, "slice6 distill")
     with open(f"{dwd}/metrics.jsonl") as f:
         rows = [json.loads(line) for line in f]
     check(len(rows) == DISTILL_STEPS and all(
@@ -2349,12 +2482,11 @@ def slice6_phase(torch, np, fp, card, tmp, encdec_ckpt, phase4_loop_ips):
         f"slice6 distill: {rows[-1:]}")
     d_first, d_last = _losses_fall(np, [r["loss"] for r in rows], 5,
                                    "slice6 distill")
-    check(n_distill == 2 * DISTILL_STEPS,
-          f"slice6 distill launched v1 {n_distill} times")
     print("slice6 distill: " + json.dumps(dict(
         steps=DISTILL_STEPS, teacher=encdec_ckpt, loss_first5_mean=d_first,
         loss_last5_mean=d_last, gt_loss=[r["gt_loss"] for r in rows],
         distill=[r["distill"] for r in rows], launches=n_distill,
+        v1_runs=v1_distill, step_graphs=distill_graphs,
         card=card)), flush=True)
     launches["distill"] = n_distill
 
@@ -2366,15 +2498,15 @@ def slice6_phase(torch, np, fp, card, tmp, encdec_ckpt, phase4_loop_ips):
                                   warmup_steps=10, log_every=10,
                                   checkpoint_every=0, eval_every=0,
                                   ckpt_dir=f"{tmp}/s6_rate"))
-    kernel.launches = 0
-    loop.train(enc, workdir=f"{tmp}/s6_rate", progress=False)
-    n_rate = kernel.launches
+    with graph_runs(torch, fp) as rate_graphs:
+        loop.train(enc, workdir=f"{tmp}/s6_rate", progress=False)
+    n_rate = rate_graphs["launches"]
     with open(f"{tmp}/s6_rate/metrics.jsonl") as f:
         rates = [json.loads(line)["images_per_sec"] for line in f]
-    check(n_rate == 2 * RECORDS_LOOP_STEPS,
-          f"records loop launched v1 {n_rate} times")
+    v1_rate = train_v1(rate_graphs, RECORDS_LOOP_STEPS, 2, "records loop")
     print("slice6 loop rate: " + json.dumps(dict(
         records_images_per_s=rates, host_scenes_images_per_s=phase4_loop_ips,
+        v1_runs=v1_rate,
         batch=enc.train.batch_size, card=card)), flush=True)
     launches["records_loop"] = n_rate
     return launches
@@ -2479,8 +2611,11 @@ def _steady_ms(rows, batch, after):
     return batch / (sum(ips) / len(ips)) * 1e3
 
 
-def pool_run(torch, fp, cfg, tmp, name, dataset=None, profile=True):
-    """One `train.loop.train` run of phase 9 in its own directory: its
+def pool_run(torch, fp, cfg, tmp, name, dataset=None, profile=True,
+             eager=True):
+    """One `train.loop.train` run of phase 9 in its own directory (at K=1
+    the eager twin, `eager_twin`, unless `eager` is False: the reference a
+    K-step graph is held against, in phases 9, 10, 11 and 13): its
     state and last metrics, seconds, v1 calls counted in Python, peak
     memory above what was allocated when it started, logged losses and
     images/s, the step time of the unprofiled log intervals past the
@@ -2496,18 +2631,19 @@ def pool_run(torch, fp, cfg, tmp, name, dataset=None, profile=True):
         cfg.train, ckpt_dir=f"{work}/ckpt",
         profile_dir=f"{work}/trace" if profile else "",
         profile_steps=PROFILE_STEPS))
+    k = cfg.train.steps_per_dispatch
     fp.fused_preprocess.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()  # earlier runs' states, kept
     t0 = time.perf_counter()
-    state, last = loop.train(cfg, workdir=work, dataset=dataset,
-                             progress=False)
+    with eager_twin() if k == 1 and eager else contextlib.nullcontext():
+        state, last = loop.train(cfg, workdir=work, dataset=dataset,
+                                 progress=False)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     with open(f"{work}/metrics.jsonl") as f:
         rows = [json.loads(line) for line in f]
-    k = cfg.train.steps_per_dispatch
     first, end = _traced_steps(cfg.train.steps, k, PROFILE_STEPS)
     out = dict(
         steps=cfg.train.steps, k=k, seconds=seconds,
@@ -2692,17 +2828,15 @@ def _cli_feed_run(torch, np, fp, cli, steplib, data, tmp, name, extra):
             "--augment", "--profile", f"{work}/trace", "--profile-steps",
             str(PROFILE_STEPS), "--ckpt-dir", f"{work}/ckpt", "--workdir",
             work, *extra]
-    fp.fused_preprocess.launches = 0
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    with _recording(fp, steplib) as seen:
+    with graph_runs(torch, fp) as graphed, _recording(fp, steplib) as seen:
         last = _cli_json(cli, argv)
     seconds = time.perf_counter() - t0
-    check(len(seen["losses"]) == FEED_STEPS
-          and fp.fused_preprocess.launches == 2 * FEED_STEPS,
-          f"{name}: {len(seen['losses'])} steps, "
-          f"{fp.fused_preprocess.launches} v1 calls")
+    v1 = train_v1(graphed, FEED_STEPS, 2, name)
+    check(len(seen["losses"]) == FEED_STEPS and graphed["steps_captured"]
+          == 1, f"{name}: {len(seen['losses'])} steps, {graphed}")
     first, last10 = _losses_fall(np, seen["losses"], 10, name)
     with open(f"{work}/metrics.jsonl") as f:
         rows = [json.loads(line) for line in f]
@@ -2710,6 +2844,7 @@ def _cli_feed_run(torch, np, fp, cli, steplib, data, tmp, name, extra):
     check(len(traces) == 1, f"{name}: trace files {traces}")
     traced, end = _traced_steps(FEED_STEPS, 1, PROFILE_STEPS)
     return dict(flags=extra, seconds=seconds, loss=last["loss"],
+                v1_runs=v1, step_graphs=graphed,
                 losses_first10_mean=first, losses_last10_mean=last10,
                 loop_images_per_s=[r["images_per_sec"] for r in rows],
                 step_ms=_steady_ms(rows, 16, end),
@@ -2813,7 +2948,9 @@ def pipeline_phase(torch, np, fp, card, tmp, encdec_cfg, handoff):
     out["dpt"], eager, graph = dpt_graph_control(
         torch, fp, dpt_pool_config(data), tmp, "dpt", card)
     print("graph dpt: " + json.dumps(out["dpt"]), flush=True)
-    handoff.update(dpt=out["dpt"], encdec=out["encdec"])
+    handoff.update(dpt=out["dpt"], encdec=out["encdec"], dpt_k1=(
+        {n: v.detach().cpu() for n, v in eager[0][0].model.state_dict()
+         .items()}, eager[0][1]))
     del eager, graph
     torch.cuda.empty_cache()
 
@@ -2933,7 +3070,8 @@ def pipeline_phase(torch, np, fp, card, tmp, encdec_cfg, handoff):
         window=window["v1_calls_counted"],
         window_replayed_resample_per_step=window["trace"][
             "v1_resample_per_step"],
-        host_feed=2 * FEED_STEPS, worker_loader=2 * FEED_STEPS,
+        host_feed=feeds["host_feed"]["v1_runs"],
+        worker_loader=feeds["worker_loader"]["v1_runs"],
         eval_pool=evals["cache_device"]["v1_calls"],
         method=("eager calls counted by the wrapper; a replayed graph runs "
                 "no Python, so its launches are the band_resample_kernel "
@@ -3145,19 +3283,19 @@ def qat_phase(torch, np, fp, card, tmp):
     from ann3depth_tpu_torch.data.synthetic import SyntheticDepthDataset
 
     d = f"{tmp}/qat"
-    fp.fused_preprocess.launches = 0
     t0 = time.perf_counter()
-    _cli_json(cli, [
-        "train", "--config", "make3d-encdec", "--quant", "int8-qat",
-        "--datasets", "synthetic", "--synth-hw", *map(str, RAW_HW),
-        "--synth-depth-hw", *map(str, MAKE3D_DEPTH_HW), "--synth-n", "64",
-        "--augment", "--steps", str(QAT_STEPS), "--warmup-steps", "10", "--log-every",
-        "1", "--checkpoint-every", str(QAT_STEPS), "--eval-every", "0",
-        "--ckpt-dir", f"{d}/ckpt", "--workdir", f"{d}/work"])
+    with graph_runs(torch, fp) as qat_graphs:
+        _cli_json(cli, [
+            "train", "--config", "make3d-encdec", "--quant", "int8-qat",
+            "--datasets", "synthetic", "--synth-hw", *map(str, RAW_HW),
+            "--synth-depth-hw", *map(str, MAKE3D_DEPTH_HW), "--synth-n",
+            "64", "--augment", "--steps", str(QAT_STEPS), "--warmup-steps",
+            "10", "--log-every", "1", "--checkpoint-every", str(QAT_STEPS),
+            "--eval-every", "0", "--ckpt-dir", f"{d}/ckpt", "--workdir",
+            f"{d}/work"])
     seconds = time.perf_counter() - t0
-    launches = fp.fused_preprocess.launches
-    check(launches == 2 * QAT_STEPS,
-          f"qat: v1 called {launches} times in {QAT_STEPS} steps")
+    launches = qat_graphs["launches"]
+    qat_v1 = train_v1(qat_graphs, QAT_STEPS, 2, "qat")
     with open(f"{d}/work/metrics.jsonl") as f:
         rows = [json.loads(line) for line in f]
     cli_losses = [r["loss"] for r in rows if "loss" in r]
@@ -3204,6 +3342,7 @@ def qat_phase(torch, np, fp, card, tmp):
         return dict(max=float(diff.max()), mean=float(diff.mean()))
 
     out = dict(cli=dict(steps=QAT_STEPS, seconds=seconds, v1_calls=launches,
+                        v1_runs=qat_v1, step_graphs=qat_graphs,
                         loss_first_last=cli_fall),
                pool=dict(steps=QAT_POOL_STEPS, k=QAT_K,
                          cudnn_deterministic=True,
@@ -3937,12 +4076,14 @@ def sweep_run(torch, np, fp, cli, tmp):
         rec = dict(allocated_before_bytes=torch.cuda.memory_allocated(),
                    steps=cfg.train.steps, batch=cfg.train.batch_size)
         torch.cuda.reset_peak_memory_stats()
-        fp.fused_preprocess.launches = 0
         t0 = time.perf_counter()
-        result = inner_train(cfg, **kw)
+        with graph_runs(torch, fp) as seen:
+            result = inner_train(cfg, **kw)
         torch.cuda.synchronize()
         rec["train_s"] = time.perf_counter() - t0
-        rec["train_launches"] = fp.fused_preprocess.launches
+        rec.update(train_launches=seen["launches"], train_graphs=seen,
+                   train_v1_runs=train_v1(seen, cfg.train.steps, 2,
+                                          "sweep train"))
         trials.append(rec)
         return result
 
@@ -3976,10 +4117,10 @@ def sweep_run(torch, np, fp, cli, tmp):
     check(summary["best"] == best == first["best"],
           f"sweep: best {first['best']['trial']}, argmin {best['trial']}")
     for i, rec in enumerate(trials):
-        check(rec["train_launches"] == 2 * SWEEP_STEPS
+        check(rec["train_v1_runs"] == 2 * SWEEP_STEPS
               and rec["eval_v1_runs"] == 2 * SWEEP_EVAL_BATCHES,
-              f"sweep trial {i}: v1 launched {rec['train_launches']} times "
-              f"in {SWEEP_STEPS} steps, ran {rec['eval_v1_runs']} times in "
+              f"sweep trial {i}: v1 ran {rec['train_v1_runs']} times "
+              f"in {SWEEP_STEPS} steps, {rec['eval_v1_runs']} times in "
               f"{SWEEP_EVAL_BATCHES} eval batches")
         check(abs(rec["peak_bytes"] - trials[0]["peak_bytes"])
               <= SWEEP_PEAK_RTOL * trials[0]["peak_bytes"],
@@ -4094,16 +4235,16 @@ def download_run(torch, np, fp, cli, steplib, tmp, train):
     ckpt = f"{tmp}/tree_ckpt"
     argv = ["--config", "make3d-encdec", "--datasets", "make3d",
             "--data-dir", root, "--ckpt-dir", ckpt]
-    fp.fused_preprocess.launches = 0
     t0 = time.perf_counter()
-    with _recording(fp, steplib) as seen:
+    with graph_runs(torch, fp) as tree_graphs, \
+            _recording(fp, steplib) as seen:
         last = _cli_json(cli, ["train", *argv, "--steps", str(TREE_STEPS),
                                "--log-every", "5"])
     train_s = time.perf_counter() - t0
-    launches = fp.fused_preprocess.launches
+    launches = tree_graphs["launches"]
     losses = [float(x) for x in seen["losses"]]
-    check(len(losses) == TREE_STEPS and launches == 2 * TREE_STEPS
-          and bool(np.isfinite(losses).all()),
+    tree_v1 = train_v1(tree_graphs, TREE_STEPS, 2, "make3d tree")
+    check(len(losses) == TREE_STEPS and bool(np.isfinite(losses).all()),
           f"make3d tree: {len(losses)} steps, {launches} v1 launches, "
           f"losses {losses}")
     check(all(c == ((16, *RAW_HW, 3), False) or c == (
@@ -4122,7 +4263,8 @@ def download_run(torch, np, fp, cli, steplib, tmp, train):
                 nyu_route=nyu_route, steps=TREE_STEPS, train_s=train_s,
                 losses=losses, last=last, loop_images_per_s=ips,
                 phase4_loop_images_per_s=train["loop_images_per_s"],
-                launches=launches, eval=ev, eval_launches=eval_launches)
+                launches=launches, v1_runs=tree_v1, step_graphs=tree_graphs,
+                eval=ev, eval_launches=eval_launches)
 
 
 def impl_runs(torch, np, fp, cli, steplib, tmp):
@@ -4132,15 +4274,16 @@ def impl_runs(torch, np, fp, cli, steplib, tmp):
     out, params = {}, []
     for impl in ("xla", "pallas"):
         ckpt = f"{tmp}/impl_{impl}"
-        fp.fused_preprocess.launches = 0
-        with _recording(fp, steplib) as seen:
+        with graph_runs(torch, fp) as graphed, \
+                _recording(fp, steplib) as seen:
             _cli_json(cli, ["train", *_encdec_argv(
                 "--steps", str(IMPL_STEPS), "--ckpt-dir", ckpt,
                 "--preprocess-impl", impl)])
         out[impl] = dict(losses=[float(x) for x in seen["losses"]],
-                         launches=fp.fused_preprocess.launches)
-        check(len(out[impl]["losses"]) == IMPL_STEPS
-              and out[impl]["launches"] == 2 * IMPL_STEPS,
+                         launches=graphed["launches"],
+                         v1_runs=train_v1(graphed, IMPL_STEPS, 2,
+                                          f"--preprocess-impl {impl}"))
+        check(len(out[impl]["losses"]) == IMPL_STEPS,
               f"--preprocess-impl {impl}: {out[impl]}")
         saved = torch.load(f"{ckpt}/ckpt_{IMPL_STEPS}.pt", map_location="cpu",
                            weights_only=False)["model"]
@@ -4288,11 +4431,13 @@ print(json.dumps(chip_smoke.deterministic_dpt_runs(sys.argv[1])))
 def deterministic_dpt_runs(tmp):
     """Run in a process under torch.use_deterministic_algorithms(True):
     dpt-384 at upsample "matmul" from phase 9's pool of the NYU records in
-    `tmp`, two K=1 runs and a traced K=DPT_K graph run. Returns whether
-    the pair is equal bit for bit, the graph run's gap to the first (the
-    largest param gap and its excess over GRAPH_*, the relative loss gap),
-    the v1 launches, the K=1 runs' step ms, the graph run's traced figures
-    and its trace."""
+    `tmp`, two K=1 runs and a traced K=DPT_K graph run, then a K=1 run
+    replaying its step graph (phase 16). Returns whether the pair is equal
+    bit for bit, the graph run's gap to the first (the largest param gap
+    and its excess over GRAPH_*, the relative loss gap), the v1 launches,
+    the K=1 runs' step ms, the graph run's traced figures and its trace,
+    and whether the K=1 graph run equals the first K=1 run bit for bit,
+    with its step ms, step graphs and v1 runs."""
     import torch
 
     from ann3depth_tpu_torch.device import resolve_device
@@ -4305,8 +4450,16 @@ def deterministic_dpt_runs(tmp):
              for i in range(2)]
     graph = pool_run(torch, fp, _with_train(mm, steps_per_dispatch=DPT_K),
                      tmp, f"mm_det_k{DPT_K}")
+    with graph_runs(torch, fp) as seen:
+        k1_graph = pool_run(torch, fp, mm, tmp, "mm_det_k1_graph",
+                            profile=False, eager=False)
     worst, excess = param_gap(torch, graph[0], eager[0][0])
-    return dict(k1_pair_bitwise_equal=_same_run(torch, eager[0], eager[1]),
+    return dict(k1_graph_bitwise_equal=_same_run(torch, k1_graph, eager[0]),
+                k1_graph_step_ms=k1_graph[2]["step_ms"],
+                k1_graph_steps=seen,
+                k1_graph_v1_runs=train_v1(seen, mm.train.steps, 2,
+                                          "deterministic dpt K=1 graph"),
+                k1_pair_bitwise_equal=_same_run(torch, eager[0], eager[1]),
                 k1_pair_gap=_pair_gap(torch, eager[1], eager[0]),
                 graph_params_max_abs_diff=worst,
                 graph_params_excess_over_tol=excess,
@@ -4409,6 +4562,7 @@ def variant_dpt(torch, np, fp, tmp, card, handoff):
                     resize_k1=window(_traced_row(resize[2]))),
         upsample=costs, card=card)
     print("variant dpt matmul: " + json.dumps(out), flush=True)
+    handoff["dpt_deterministic"] = det  # phase 16 holds its K=1 graph
     losses = [r[1]["loss"] for r in eager + [graph, resize]]
     check(bool(np.isfinite(losses).all()), f"dpt variants: losses {losses}")
     check(det["k1_pair_bitwise_equal"]
@@ -4617,18 +4771,18 @@ def true_scale_make3d(torch, np, fp, tmp, card, handoff):
     ckpt = f"{tmp}/true_scale_ckpt"
     argv = ["--config", "make3d-encdec", "--datasets", "make3d",
             "--data-dir", root, "--ckpt-dir", ckpt]
-    fp.fused_preprocess.launches = 0
     t0 = time.perf_counter()
-    with _recording(fp, steplib) as seen:
+    with graph_runs(torch, fp) as true_graphs, \
+            _recording(fp, steplib) as seen:
         _cli_json(cli, ["train", *argv, "--steps", str(TRUE_SCALE_STEPS),
                         "--log-every", "5", "--warmup-steps",
                         str(VARIANT_WARMUP)])
     train_s = time.perf_counter() - t0
-    launches = fp.fused_preprocess.launches
+    launches = true_graphs["launches"]
+    true_v1 = train_v1(true_graphs, TRUE_SCALE_STEPS, 2, "true-scale make3d")
     first, last = _losses_fall(np, seen["losses"], FALL_WINDOW,
                                "true-scale make3d")
-    check(len(seen["losses"]) == TRUE_SCALE_STEPS
-          and launches == 2 * TRUE_SCALE_STEPS and all(
+    check(len(seen["losses"]) == TRUE_SCALE_STEPS and all(
               c in (((16, *RAW_HW, 3), False),
                     ((16, *MAKE3D_DEPTH_HW, 1), True))
               for c in seen["calls"]),
@@ -4650,7 +4804,8 @@ def true_scale_make3d(torch, np, fp, tmp, card, handoff):
                losses=[float(v) for v in seen["losses"]],
                first_mean=first, last_mean=last, loop_images_per_s=ips,
                phase12_tree_images_per_s=handoff["tree_images_per_s"],
-               eval=ev, launches=launches, eval_launches=eval_launches,
+               eval=ev, launches=launches, v1_runs=true_v1,
+               step_graphs=true_graphs, eval_launches=eval_launches,
                card=card)
     print("true-scale make3d: " + json.dumps(out), flush=True)
     return dict(train=launches, eval=eval_launches)
@@ -4756,8 +4911,8 @@ def _bench_run(np, fp, label, fn, expect_eager, expect_captured, train_run):
         losses = [float(x) for x in seen["losses"]] + [result["final_loss"]]
         check(bool(np.isfinite(losses).all()),
               f"bench {label}: non-finite losses")
-        check(len(made["runners"]) == 1 and made["runners"][0].graph
-              is not None, f"bench {label}: the step was not captured")
+        check(len(made["runners"]) == 1 and made["runners"][0].captures
+              == 1, f"bench {label}: the step was not captured")
         return result, launches, captured, None
     check(len(made["replays"]) == 1 and all(
         r.graph is not None for r in made["replays"][0]),
@@ -5324,6 +5479,302 @@ def programs_phase(torch, np, fp, card, tmp, encdec_cfg, lives):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the train step and the report eval as CUDA graphs.
+# ---------------------------------------------------------------------------
+
+STEP_GRAPH_STEPS = 30    # steps of each phase 16 run (logged every 10)
+
+
+def step_run(torch, fp, cfg, tmp, name, graphed):
+    """One K=1 `train.loop.train` run of phase 16, replaying its step
+    graph or (`graphed` False) the eager twin, with the loop's profiler
+    over PROFILE_STEPS steps: (state, last metrics, record): its v1 runs
+    (`train_v1`), step graphs, logged losses, step ms past the window,
+    the window's busy share, kernels and host launches a step (kernel and
+    graph launch calls), the v1 resamples of each replay, and peak memory
+    above what was allocated when it started."""
+    import dataclasses
+    import glob
+
+    from ann3depth_tpu_torch.train import loop
+
+    kind = "graph" if graphed else "eager"
+    work = f"{tmp}/p16_{name}_{kind}"
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, ckpt_dir=f"{work}/ckpt", profile_dir=f"{work}/trace",
+        profile_steps=PROFILE_STEPS))
+    steps = cfg.train.steps
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with graph_runs(torch, fp) as seen, \
+            contextlib.nullcontext() if graphed else eager_twin():
+        state, last = loop.train(cfg, workdir=work, progress=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    label = f"step graphs {name} {kind}"
+    v1 = train_v1(seen, steps, 2 * cfg.train.grad_accum, label)
+    with open(f"{work}/metrics.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    first, end = _traced_steps(steps, 1, PROFILE_STEPS)
+    traces = glob.glob(f"{work}/trace/*.json")
+    check(len(traces) == 1, f"{label}: trace files {traces}")
+    t = trace_stats(traces[0], end - first)
+    return state, last, dict(
+        steps=steps, seconds=seconds, v1_runs=v1, graphs=seen,
+        logged=[(r["step"], r["loss"]) for r in rows if "loss" in r],
+        step_ms=_steady_ms(rows, cfg.train.batch_size, end),
+        busy_share=t["busy_share"],
+        device_busy_ms_per_step=t["device_busy_ms_per_step"],
+        kernels_per_step=t["kernels_per_step"],
+        host_launches_per_step=(t["kernel_launch_calls_per_step"]
+                                + t["graph_launch_calls_per_step"]),
+        graph_launch_calls_per_step=t["graph_launch_calls_per_step"],
+        v1_resample_per_step=t["v1_resample_per_step"],
+        v1_resample_per_replay=t["v1_resample_per_replay"],
+        max_memory_allocated_bytes=torch.cuda.max_memory_allocated() - held)
+
+
+def step_pair(torch, np, fp, cfg, tmp, name, captures=1):
+    """cfg at K=1 as the eager twin and replaying its step graph, from one
+    seed, feed and draws: equal bit for bit (params, EMA, logged losses,
+    last metrics); the graph run captured `captures` keys after an eager
+    first step each and replayed the rest, each replay's trace holding
+    the v1 resample twice a microbatch (the window's first replay may
+    lose its first kernels to the profiler, as in phase 9)."""
+    eager, m_eager, r_eager = step_run(torch, fp, cfg, tmp, name, False)
+    graph, m_graph, r_graph = step_run(torch, fp, cfg, tmp, name, True)
+    g = r_graph["graphs"]
+    check(r_eager["graphs"]["steps_captured"] == 0
+          and g["steps_captured"] == captures
+          and g["steps_replayed"] == cfg.train.steps - captures,
+          f"{name}: eager twin {r_eager['graphs']}, graph run {g}")
+    same = (m_graph == m_eager and r_graph["logged"] == r_eager["logged"]
+            and all(torch.equal(x, y) for x, y in zip(
+                graph.model.state_dict().values(),
+                eager.model.state_dict().values()))
+            and (graph.ema_params is None or all(
+                torch.equal(graph.ema_params[k], eager.ema_params[k])
+                for k in eager.ema_params)))
+    worst, _ = param_gap(torch, graph, eager)
+    check(same, f"{name}: the graphed loop differs from its eager twin: "
+          f"params by {worst}, logged {r_graph['logged']} against "
+          f"{r_eager['logged']}")
+    per = 2 * cfg.train.grad_accum
+    replays = r_graph["v1_resample_per_replay"]
+    check(replays and min(replays[1:] or replays) >= per,
+          f"{name}: v1 resamples in the traced replays {replays}")
+    del eager, graph
+    torch.cuda.empty_cache()
+    return dict(preset_model=cfg.model.name, batch=cfg.train.batch_size,
+                grad_accum=cfg.train.grad_accum, datasets=list(
+                    cfg.data.datasets), cache_device=cfg.data.cache_device,
+                distill=bool(cfg.train.distill_from), bitwise_equal=same,
+                eager=r_eager, graph=r_graph)
+
+
+def _records_config(preset, data, datasets, augment=True, **train):
+    """`preset` (b16, augmented unless `augment` is None: the preset's
+    own) on phase 8's records under `data`, STEP_GRAPH_STEPS steps at K=1,
+    logged every 10."""
+    import dataclasses
+
+    from ann3depth_tpu_torch.config import get_config
+
+    cfg = get_config(preset)
+    return dataclasses.replace(
+        cfg, data=dataclasses.replace(
+            cfg.data, data_dir=data, datasets=datasets,
+            augment=cfg.data.augment if augment is None else augment),
+        train=dataclasses.replace(cfg.train, **{**dict(
+            steps=STEP_GRAPH_STEPS, warmup_steps=10, log_every=10,
+            checkpoint_every=STEP_GRAPH_STEPS, eval_every=0), **train}))
+
+
+def step_graph_dpt(torch, np, fp, tmp, handoff):
+    """dpt-384 at K=1 replaying its step graph. Held as phase 13 holds the
+    matmul DPT: under torch.use_deterministic_algorithms(True) at upsample
+    "matmul", phase 13's child ran a K=1 graph run after its two eager K=1
+    runs, and it must equal the first bit for bit (one capture, 9 replays,
+    v1 twice a step). In the default mode ("resize", from phase 9's pool
+    of the NYU records) the runs part (F.interpolate's backward sums with
+    atomics): its graph run's step ms against phase 9's eager runs', and
+    its gap to phase 9's first eager run beside twice the largest gap of
+    phase 9's eager pairs, reported."""
+    import dataclasses
+
+    from ann3depth_tpu_torch.train import loop
+
+    det = handoff["dpt_deterministic"]
+    g = det["k1_graph_steps"]
+    check(det["k1_graph_bitwise_equal"] and g["steps_captured"] == 1
+          and g["steps_replayed"] == DPT_POOL_STEPS - 1
+          and det["k1_graph_v1_runs"] == 2 * DPT_POOL_STEPS,
+          f"deterministic matmul dpt: the K=1 graph run against the eager "
+          f"K=1 run: {det}")
+    p9 = handoff["dpt"]
+    params, m_eager = handoff["dpt_k1"]
+    cfg = dpt_pool_config(f"{tmp}/data")
+    work = f"{tmp}/p16_dpt"
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, ckpt_dir=f"{work}/ckpt"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with graph_runs(torch, fp) as seen:
+        state, last = loop.train(cfg, workdir=work, progress=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    v1 = train_v1(seen, cfg.train.steps, 2, "step graphs dpt")
+    check(seen["steps_captured"] == 1 and bool(np.isfinite(last["loss"])),
+          f"dpt K=1 graph: {seen}, {last}")
+    with open(f"{work}/metrics.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    gap = 0.0
+    with torch.no_grad():
+        for n, v in state.model.state_dict().items():
+            gap = max(gap, float((v.cpu() - params[n]).abs().max()))
+    del state
+    torch.cuda.empty_cache()
+    return dict(steps=cfg.train.steps, seconds=seconds, v1_runs=v1,
+                graphs=seen, deterministic_matmul=dict(
+                    k1_graph_bitwise_equal=True, steps=g,
+                    graph_step_ms=det["k1_graph_step_ms"],
+                    eager_step_ms=det["eager_step_ms"]),
+                default_mode_params_max_abs_diff=gap,
+                default_mode_loss_rel_diff=abs(last["loss"] - m_eager[
+                    "loss"]) / abs(m_eager["loss"]),
+                phase9_twice_control_gap=[2 * x for x in p9["control_gap"]],
+                graph_step_ms=_steady_ms(rows, cfg.train.batch_size, 5),
+                eager_step_ms=p9["eager_step_ms"])
+
+
+def report_graph(torch, np, fp, cfg, tmp):
+    """`evaluate` with a report (tta "flip") on phase 4's checkpoint at
+    b16, EVAL_BATCHES batches: through its `eval_report_graphs` cache (one
+    capture, a replay a batch) and eagerly, the metrics, per_image.jsonl,
+    summary.json and worst.png equal bit for bit; eager against graph a
+    batch (`call_profile`)."""
+    from ann3depth_tpu_torch.train import loop
+    from ann3depth_tpu_torch.train import step as steplib
+
+    state = loop.restore_state_for_eval(cfg)
+    out, files = {}, {}
+    for kind in ("graph", "eager"):
+        report = f"{tmp}/p16_report_{kind}"
+        inner = loop.eval_report_graphs
+        if kind == "eager":
+            loop.eval_report_graphs = lambda st, dev: (
+                lambda i, d, **k: steplib.eval_report_step(
+                    st, i.to(dev), d.to(dev), **k))
+        try:
+            with graph_runs(torch, fp) as seen:
+                metrics = loop.evaluate(cfg, state=state,
+                                        max_batches=EVAL_BATCHES,
+                                        report_dir=report, tta="flip")
+        finally:
+            loop.eval_report_graphs = inner
+        runs_v1 = v1_runs(seen, 2, f"report {kind}")
+        check(runs_v1 == 2 * EVAL_BATCHES and seen["captures"] == (
+            1 if kind == "graph" else 0), f"report {kind}: {seen}")
+        files[kind] = [open(f"{report}/{n}", "rb").read() for n in (
+            "per_image.jsonl", "summary.json", "worst.png")]
+        out[kind] = dict(metrics=metrics, graphs=seen, v1_runs=runs_v1)
+    check(out["graph"]["metrics"] == out["eager"]["metrics"]
+          and files["graph"] == files["eager"],
+          "report eval: the graph's report differs from the eager one")
+    img_np, dep_np = next(loop.build_dataset(cfg, "test").batches(
+        cfg.train.batch_size, steps=1, shuffle=False))
+    img, dep = torch.from_numpy(img_np).cuda(), torch.from_numpy(
+        dep_np).cuda()
+    kw = dict(input_hw=tuple(cfg.data.input_hw),
+              target_hw=loop.resolved_target_hw(cfg),
+              si_lambda=cfg.train.si_lambda, loss_kind=cfg.train.loss,
+              tta="flip")
+    cache = loop.eval_report_graphs(state, img.device)
+    timing = eager_vs_graph(
+        torch, lambda: steplib.eval_report_step(state, img, dep, **kw),
+        lambda: cache(img, dep, **kw))
+    check(timing["graph"]["v1_resample"] >= 0.9,
+          "report eval: no v1 resample in the replay")
+    return dict(runs=out, rows=files["graph"][0].count(b"\n"),
+                bitwise_equal=True, batch=timing)
+
+
+def step_graphs_phase(torch, np, fp, card, tmp, encdec_cfg, handoff):
+    """Phase 16: the train loop at K=1 on the card replays a CUDA graph of
+    its step on every feed (train/dispatch.py), held bit for bit against
+    its eager twin (`eager_twin`) from one seed, feed and draws: encdec
+    b16 from phase 8's Make3D records on the host feed at the preset's
+    own flags (no augmentation), and augmented from the device pool, at
+    grad_accum 2 and distilled from phase 4's checkpoint, and
+    nyu-encdec-aug on the NYU and Make3D records batch by batch (a graph
+    of each raw shape); dpt-384 at K=1 (`step_graph_dpt`: bit for bit in
+    torch's deterministic mode, timed in the default mode); the report
+    eval (`report_graph`). Each run's step
+    ms, busy share, host launches a step and peak memory, eager against
+    graph. Returns the v1 runs of each path."""
+    data = f"{tmp}/data"
+    runs, seconds = {}, {}
+    for name, preset, datasets, extra, captures in (
+            ("host_feed", "make3d-encdec", ("make3d",), {"augment": None},
+             1),
+            ("pool", "make3d-encdec", ("make3d",), {"cache_device": True}, 1),
+            ("grad_accum", "make3d-encdec", ("make3d",), {"grad_accum": 2},
+             1),
+            ("distill", "make3d-encdec", ("make3d",),
+             {"distill_from": encdec_cfg.train.ckpt_dir}, 1),
+            ("two_shapes", "nyu-encdec-aug", ("nyu", "make3d"), {}, 2)):
+        import dataclasses
+
+        t0 = time.perf_counter()
+        train = {k: v for k, v in extra.items()
+                 if k not in ("cache_device", "augment")}
+        cfg = _records_config(preset, data, datasets,
+                              augment=extra.get("augment", True), **train)
+        if extra.get("cache_device"):
+            cfg = dataclasses.replace(cfg, data=dataclasses.replace(
+                cfg.data, cache_device=True))
+        runs[name] = step_pair(torch, np, fp, cfg, tmp, name, captures)
+        seconds[name] = time.perf_counter() - t0
+        print(f"step graphs {name}: " + json.dumps(dict(runs[name],
+                                                        card=card)),
+              flush=True)
+    t0 = time.perf_counter()
+    runs["dpt"] = step_graph_dpt(torch, np, fp, tmp, handoff)
+    seconds["dpt"] = time.perf_counter() - t0
+    print("step graphs dpt: " + json.dumps(dict(runs["dpt"], card=card)),
+          flush=True)
+    t0 = time.perf_counter()
+    runs["report"] = report_graph(torch, np, fp, encdec_cfg, tmp)
+    seconds["report"] = time.perf_counter() - t0
+    print("step graphs report: " + json.dumps(dict(runs["report"],
+                                                   card=card)), flush=True)
+
+    def row(r):
+        return {k: r[k] for k in (
+            "step_ms", "busy_share", "device_busy_ms_per_step",
+            "kernels_per_step", "host_launches_per_step",
+            "max_memory_allocated_bytes")}
+
+    timings = {name: dict(eager=row(r["eager"]), graph=row(r["graph"]))
+               for name, r in runs.items() if "eager" in r}
+    timings["dpt"] = dict(eager_step_ms=runs["dpt"]["eager_step_ms"],
+                          graph_step_ms=runs["dpt"]["graph_step_ms"],
+                          deterministic_matmul=runs["dpt"][
+                              "deterministic_matmul"])
+    timings["report_batch"] = runs["report"]["batch"]
+    print("step graphs timings: " + json.dumps(dict(
+        timings, seconds=seconds, card=card)), flush=True)
+    launches = {name: dict(eager=r["eager"]["v1_runs"],
+                           graph=r["graph"]["v1_runs"])
+                for name, r in runs.items() if "eager" in r}
+    launches.update(dpt=runs["dpt"]["v1_runs"], report={
+        kind: r["v1_runs"] for kind, r in runs["report"]["runs"].items()})
+    return launches
+
+
 def main():
     import torch
 
@@ -5380,7 +5831,8 @@ def main():
         phase10 = quant_export_phase(torch, np, fp, card, tmp, cfg)
         print(f"phase 10: {time.perf_counter() - t10:.1f} s", flush=True)
         t11 = time.perf_counter()
-        phase11 = parallel_phase(torch, np, fp, card, tmp, cfg, handoff)
+        with eager_twin():  # its one-process references stay eager
+            phase11 = parallel_phase(torch, np, fp, card, tmp, cfg, handoff)
         print(f"phase 11: {time.perf_counter() - t11:.1f} s", flush=True)
         t12 = time.perf_counter()
         phase12 = tools_phase(torch, np, fp, card, tmp, train, handoff)
@@ -5394,6 +5846,9 @@ def main():
         t15 = time.perf_counter()
         phase15 = programs_phase(torch, np, fp, card, tmp, cfg, lives)
         print(f"phase 15: {time.perf_counter() - t15:.1f} s", flush=True)
+        t16 = time.perf_counter()
+        phase16 = step_graphs_phase(torch, np, fp, card, tmp, cfg, handoff)
+        print(f"phase 16: {time.perf_counter() - t16:.1f} s", flush=True)
 
     def entry(case, **kw):
         """One kernel's entry of the kernels line, from its train case."""
@@ -5421,7 +5876,7 @@ def main():
         export_launches=phase10["export_launches"],
         parallel_cases=parallel, parallel_launches=phase11,
         variant_launches=phase13, bench_launches=phase14,
-        program_graphs=phase15, **phase12)
+        program_graphs=phase15, step_graph_launches=phase16, **phase12)
     v2 = entry(
         cases_v2[1],  # the train shape, b16 augment rows
         name="fused_preprocess_v2",

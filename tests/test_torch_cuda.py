@@ -689,9 +689,9 @@ def _pool_cfg(tmp_path, sub, data=None, **train):
     from ann3depth_tpu_torch.config import get_config
 
     cfg = get_config("smoke")
-    data = dict(input_hw=IN_HW, synth_img_hw=(16, 16), synth_depth_hw=(8, 8),
-                synth_n=32, synth_test_n=16, cache_device=True,
-                **(data or {}))
+    data = {**dict(input_hw=IN_HW, synth_img_hw=(16, 16),
+                   synth_depth_hw=(8, 8), synth_n=32, synth_test_n=16,
+                   cache_device=True), **(data or {})}
     train = {"steps": 8, "batch_size": 8, "seed": 7, "log_every": 4,
              "checkpoint_every": 8, "eval_every": 0,
              "ckpt_dir": str(tmp_path / sub), **train}
@@ -713,13 +713,25 @@ def _assert_params_close(a, b):
         torch.testing.assert_close(x, y, rtol=2e-5, atol=2e-6, msg=k)
 
 
+def _eager_k1(monkeypatch):
+    """The loop's K=1 step eager on the card (the twin a graph is held
+    against)."""
+    from ann3depth_tpu_torch.train import dispatch
+
+    monkeypatch.setattr(dispatch, "eager_reason",
+                        lambda state, device: "the eager twin")
+
+
 @pytest.mark.parametrize("data,train", [
     ({}, {}), ({"augment": True}, {"grad_accum": 2, "ema_decay": 0.9}),
     ({}, {"optimizer": "sgd", "adam_b1": 0.9, "weight_decay": 1e-4})])
-def test_graph_blocks_match_eager_steps(cuda, tmp_path, data, train):
+def test_graph_blocks_match_eager_steps(cuda, tmp_path, monkeypatch, data,
+                                        train):
     before = fp.fused_preprocess.launches
-    eager, m1 = _train(_pool_cfg(tmp_path, "k1", data, **train), tmp_path,
-                       "k1")
+    with monkeypatch.context() as mp:
+        _eager_k1(mp)
+        eager, m1 = _train(_pool_cfg(tmp_path, "k1", data, **train),
+                           tmp_path, "k1")
     per_step = (fp.fused_preprocess.launches - before) // 8
     assert per_step == 2 * train.get("grad_accum", 1)
     before = fp.fused_preprocess.launches
@@ -740,8 +752,10 @@ def test_graph_on_the_window_pool_matches_eager_steps(cuda, tmp_path):
 
     ds = SyntheticDepthDataset(n=64, img_hw=(96, 128), depth_hw=(48, 64))
     data = {"cache_window_mb": 1, "window_epochs": 2}
-    eager, _ = _train(_pool_cfg(tmp_path, "w1", data, steps=16), tmp_path,
-                      "w1", dataset=ds)
+    with pytest.MonkeyPatch.context() as mp:
+        _eager_k1(mp)
+        eager, _ = _train(_pool_cfg(tmp_path, "w1", data, steps=16),
+                          tmp_path, "w1", dataset=ds)
     graph, _ = _train(_pool_cfg(tmp_path, "w2", data, steps=16,
                                 steps_per_dispatch=2), tmp_path, "w2",
                       dataset=ds)
@@ -789,15 +803,71 @@ def test_a_failed_capture_raises(cuda, tmp_path, monkeypatch):
     captured = []
     real = dispatch.BlockRunner._capture
 
-    def spy(self):
+    def spy(self, entry):
         captured.append(self.state.step)
-        return real(self)
+        return real(self, entry)
 
     monkeypatch.setattr(dispatch.BlockRunner, "_capture", spy)
-    with pytest.raises(RuntimeError):
-        _train(_pool_cfg(tmp_path, "f", steps_per_dispatch=4), tmp_path, "f")
-    assert captured == [4]
+    for k, data in ((4, {}), (1, {}), (1, {"cache_device": False})):
+        with pytest.raises(RuntimeError):
+            _train(_pool_cfg(tmp_path, f"f{k}{len(data)}", data,
+                             steps_per_dispatch=k), tmp_path, "f")
+        assert captured.pop() == k and not captured
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("data,train", [
+    ({"cache_device": False, "augment": True}, {"ema_decay": 0.9}),
+    ({"augment": True}, {}),
+    ({"cache_device": False, "augment": True}, {"grad_accum": 2}),
+    ({"cache_device": False}, {"optimizer": "sgd", "adam_b1": 0.9})],
+    ids=["host-feed", "pool", "grad-accum-2", "sgd"])
+def test_captured_k1_step_equals_the_eager_step(cuda, tmp_path, monkeypatch,
+                                                data, train):
+    """The loop at K=1 on the card replays a CUDA graph of its step (the
+    first step eager, then one capture; the v1 wrapper sees only the
+    eager step's launches), from the host feed and from the pool: params,
+    optimizer state and the logged losses equal the eager loop's bit for
+    bit, with cuDNN's deterministic algorithms (the small net's f32 convs
+    may otherwise sum in another order from run to run)."""
+    import json
+
+    from ann3depth_tpu_torch.train import dispatch
+
+    made = []
+    init = dispatch.BlockRunner.__init__
+
+    def kept(self, *a, **kw):
+        init(self, *a, **kw)
+        made.append(self)
+
+    monkeypatch.setattr(dispatch.BlockRunner, "__init__", kept)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    runs = {}
+    for name in ("eager", "graph"):
+        with monkeypatch.context() as mp:
+            if name == "eager":
+                _eager_k1(mp)
+            before = fp.fused_preprocess.launches
+            state, last = _train(_pool_cfg(tmp_path, name, data, **train),
+                                 tmp_path, name)
+            launches = fp.fused_preprocess.launches - before
+        with open(tmp_path / name / "metrics.jsonl") as f:
+            losses = [json.loads(line)["loss"] for line in f]
+        runs[name] = state, last, losses, launches
+    (runner,) = made
+    accum = train.get("grad_accum", 1)
+    assert runner.captures == 1 and runner.replays == 7
+    assert runs["eager"][3] == 8 * 2 * accum and runs["graph"][3] == 2 * accum
+    assert runs["graph"][2] == runs["eager"][2] and runs["graph"][1] == \
+        runs["eager"][1]
+    eager, graph = runs["eager"][0], runs["graph"][0]
+    for (name, x), y in zip(eager.model.state_dict().items(),
+                            graph.model.state_dict().values()):
+        assert torch.equal(x, y), name
+    for pe, pg in zip(eager.model.parameters(), graph.model.parameters()):
+        for k, v in eager.optimizer.state[pe].items():
+            assert torch.equal(v, graph.optimizer.state[pg][k]), k
 
 
 # ---------------------------------------------------------------------------

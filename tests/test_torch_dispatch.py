@@ -129,8 +129,9 @@ def test_block_runner_reads_its_slots(tmp_path):
         [state.tx.schedule(c) for c in range(4)])
     assert sorted(metrics) == ["grad_norm", "loss", "rmse"]
     runner.run(blocks[1])
-    assert state.step == 8 and runner.graph is None
-    np.testing.assert_array_equal(runner.idx_block.numpy(),
+    assert state.step == 8 and runner.captures == runner.replays == 0
+    (entry,) = runner._entries.values()  # the pool's one key
+    np.testing.assert_array_equal(entry.inputs[0].numpy(),
                                   blocks[1].numpy())
 
 

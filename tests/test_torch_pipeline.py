@@ -424,8 +424,8 @@ def test_calibrate_window_epochs():
     ds = _ds(32)
     calls = []
 
-    def run_pass(batches):
-        calls.append(sum(1 for _ in batches))
+    def run_pass(probe, blocks):
+        calls.append(sum(1 for _ in blocks))
 
     e = tsp.calibrate_window_epochs(
         ds, 8, CPU, window_bytes=_window_bytes(ds, 16), run_pass=run_pass,
