@@ -33,6 +33,8 @@ import time
 import numpy as np
 import torch
 
+from ann3depth_tpu_torch.utils import tracing
+
 log = logging.getLogger(__name__)
 
 # Leave headroom for params/activations/scratch.
@@ -167,8 +169,10 @@ def bind_thread(device):
 
 
 def to_index(idx, device):
-    """A host index row (or block) -> an int64 tensor on `device`."""
-    return torch.from_numpy(np.asarray(idx, np.int64)).to(device)
+    """A host index row (or block) -> an int64 tensor on `device` (the
+    span `a3d.pool.index_copy` while a profiler window is open)."""
+    with tracing.span("pool.index_copy"):
+        return torch.from_numpy(np.asarray(idx, np.int64)).to(device)
 
 
 class DevicePoolSampler:

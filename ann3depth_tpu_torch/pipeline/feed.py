@@ -16,6 +16,12 @@ transfers ahead of the step that consumes them:
 - a bounded queue of depth `prefetch` (default 2, double buffering) holds
   the device batches, so at most `prefetch` batches wait on the device.
 
+While a profiler window is open (`utils.tracing.active()`) the thread
+records the spans `a3d.feed.read` (the host iterator's next batch),
+`a3d.feed.slot_wait` (the wait for a slot's last copy), `a3d.feed.copy`
+(the pinned copy and the transfer's issue) and `a3d.feed.put` (the queue
+put), and the consumer `a3d.feed.get` (the queue get).
+
 `__next__` makes the consumer's current stream wait on the batch's event
 and marks each tensor as used on that stream (`record_stream`), so neither
 its device memory nor its pinned buffer is reused before the consumer's
@@ -30,6 +36,7 @@ consumer, and `close()` ends a producer blocked on a full queue.
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 from typing import Iterator, Optional
@@ -38,6 +45,7 @@ import numpy as np
 import torch
 
 from ann3depth_tpu_torch.pipeline.device_cache import bind_thread, torch_dtype
+from ann3depth_tpu_torch.utils import tracing
 
 _SENTINEL = object()
 
@@ -65,10 +73,11 @@ class DeviceFeed:
         if not self._cuda:
             return tuple(torch.from_numpy(np.asarray(x)) for x in batch)
         if self._copied[slot] is not None:
-            self._copied[slot].synchronize()  # the slot's last copy is done
+            with tracing.span("feed.slot_wait"):
+                self._copied[slot].synchronize()  # the slot's last copy
         bufs = self._pinned[slot]
         out = []
-        with torch.cuda.stream(self._stream):
+        with tracing.span("feed.copy"), torch.cuda.stream(self._stream):
             for x in batch:
                 x = np.asarray(x)
                 key = (x.shape, x.dtype.str)
@@ -90,18 +99,22 @@ class DeviceFeed:
     def _worker(self):
         try:
             bind_thread(self._device)
-            for i, batch in enumerate(self._host_iter):
-                if self._stop.is_set():
+            host_iter = iter(self._host_iter)
+            for i in itertools.count():
+                with tracing.span("feed.read"):
+                    batch = next(host_iter, _SENTINEL)
+                if batch is _SENTINEL or self._stop.is_set():
                     return
                 item = self._put_device(
                     batch, i % len(self._pinned) if self._cuda else 0)
                 # stop-aware put: close() may have drained and gone away
-                while not self._stop.is_set():
-                    try:
-                        self._q.put(item, timeout=0.1)
-                        break
-                    except queue.Full:
-                        continue
+                with tracing.span("feed.put"):
+                    while not self._stop.is_set():
+                        try:
+                            self._q.put(item, timeout=0.1)
+                            break
+                        except queue.Full:
+                            continue
         except BaseException as e:  # surface in the consumer thread
             self._err = e
         finally:
@@ -119,7 +132,8 @@ class DeviceFeed:
         return self
 
     def __next__(self):
-        item = self._q.get()
+        with tracing.span("feed.get"):
+            item = self._q.get()
         if item is _SENTINEL:
             if self._err is not None:
                 raise self._err

@@ -48,6 +48,14 @@ logic the card captures. A run over gloo on the card cannot be captured
 first step, and the train loop then runs the eager step at K=1 and
 refuses K > 1. A capture or replay error raises; nothing falls back to
 eager steps.
+
+A runner counts what it ran: `captures` (graphs recorded), `replays`
+(steps replayed) and `eager_steps` (steps run outside a replay: a key's
+first call, or every call where nothing is captured). While a profiler
+window is open (`utils.tracing.active()`), each call records the span
+`a3d.dispatch.run` and inside it `a3d.dispatch.fill` (the inputs, rates,
+draws and slot), `.eager` (the eager steps), `.capture`, `.replay` (the K
+replays) and `.out` (the metrics' copy); the captured step records none.
 """
 
 from __future__ import annotations
@@ -60,7 +68,7 @@ import torch
 from ann3depth_tpu_torch.ops import fused_preprocess as fp
 from ann3depth_tpu_torch.parallel import multihost
 from ann3depth_tpu_torch.train import step as steplib
-from ann3depth_tpu_torch.utils import graphs
+from ann3depth_tpu_torch.utils import graphs, tracing
 
 
 def _over_gloo(state, device) -> bool:
@@ -100,8 +108,8 @@ class BlockRunner:
 
     step_kwargs: the train step's keyword arguments (as the eager loop
     passes them); draw_seed(step): the generator seed of a step's
-    augmentation draws. `captures` and `replays` count what the runner
-    did (a replay is one step)."""
+    augmentation draws. `captures`, `replays` and `eager_steps` count
+    what the runner did (a replay is one step)."""
 
     # A capture hook `capture(run) -> (out, replay)` used in place of the
     # CUDA capture on every device (tests/test_torch_train_graph.py): it
@@ -139,7 +147,7 @@ class BlockRunner:
         self._pool = None
         self.stream = (torch.cuda.Stream(self.device)
                        if self.device.type == "cuda" else None)
-        self.captures = self.replays = 0
+        self.captures = self.replays = self.eager_steps = 0
 
     def _entry(self, item):
         """The entry of a call's key (made at its first call)."""
@@ -239,31 +247,40 @@ class BlockRunner:
         self.state.step = first
         self.captures += 1
 
+    def _eager(self, entry):
+        """The call's K steps run eagerly, on the capture stream on the
+        card."""
+        if self.stream is not None:
+            self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self.stream):
+            for _ in range(self.k):
+                self._slot_step(entry)
+        if self.stream is not None:
+            torch.cuda.current_stream(self.device).wait_stream(self.stream)
+        self.eager_steps += self.k
+
     def run(self, item, more=True):
         """Run one call: a block of K steps from index rows `item` ([K, B]
         int64 on the device), or one step from a fed batch `item`
         (img_u8, depth); returns the last step's metrics (device scalars,
         a copy of the static output). more: whether another call follows
         (the eager first call of a key then captures its step)."""
-        entry = self._entry(item)
-        self._fill(entry, item)
-        if entry.replay is None:
-            # eager steps, on the capture stream on the card
-            if self.stream is not None:
-                self.stream.wait_stream(torch.cuda.current_stream(
-                    self.device))
-            with torch.cuda.stream(self.stream):
-                for _ in range(self.k):
-                    self._slot_step(entry)
-            if self.stream is not None:
-                torch.cuda.current_stream(self.device).wait_stream(
-                    self.stream)
-            if more and self.graphed:
-                self._capture(entry)
-        else:
-            for _ in range(self.k):
-                entry.replay()
-            self.state.step += self.k
-            self.replays += self.k
-        out = self.out.clone()
-        return dict(zip(self.names, out.unbind()))
+        with tracing.span("dispatch.run"):
+            entry = self._entry(item)
+            with tracing.span("dispatch.fill"):
+                self._fill(entry, item)
+            if entry.replay is None:
+                with tracing.span("dispatch.eager"):
+                    self._eager(entry)
+                if more and self.graphed:
+                    with tracing.span("dispatch.capture"):
+                        self._capture(entry)
+            else:
+                with tracing.span("dispatch.replay"):
+                    for _ in range(self.k):
+                        entry.replay()
+                self.state.step += self.k
+                self.replays += self.k
+            with tracing.span("dispatch.out"):
+                out = self.out.clone()
+                return dict(zip(self.names, out.unbind()))

@@ -10,21 +10,51 @@ Counterpart of `ann3depth_tpu/utils/tracing.py`, on torch.profiler:
   block.
 - `device_sync(device)`: wait for the device's queued work
   (`torch.cuda.synchronize`; nothing to wait for on the CPU).
-- `StepTimer`: a host-side ring of recent step wall times -> p50/p99/mean.
+- `span(name)`: the program's own spans, `a3d.<name>` ranges in the same
+  trace as the CUDA activity and on its clock, recorded only while a
+  profiler window is open (`active()`): `train --profile`'s window, or
+  any `torch.profiler.profile` around the program. Outside a window a
+  span is one read of a global and a shared no-op context.
+
+The spans the program records:
+
+- `a3d.pool.index_copy`: a pool sampler's index row or block to the
+  device (`pipeline/device_cache.to_index`);
+- `a3d.dispatch.run`, and inside it `a3d.dispatch.fill`, `.eager`,
+  `.capture`, `.replay` and `.out`: a call of the train step's
+  `BlockRunner` (`train/dispatch.py`), whose `captures`, `replays` and
+  `eager_steps` count what it ran;
+- `a3d.feed.read`, `.slot_wait`, `.copy`, `.put` on the host feed's
+  thread, and `a3d.feed.get` on the consumer's (`pipeline/feed.py`).
 """
 
 from __future__ import annotations
 
-import collections
 import contextlib
 import itertools
 import os
-import time
 
-import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 _TRACE_IDS = itertools.count()
+_OFF = contextlib.nullcontext()
+
+
+def active() -> bool:
+    """Whether a torch.profiler window is open, on any thread (the
+    profiler sets this module global while it runs; the thread-local
+    `torch.autograd._profiler_enabled()` reads False on other threads)."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+def span(name: str):
+    """The context of the program's span `a3d.<name>`: a
+    `record_function` range while a profiler window is open, a shared
+    no-op context otherwise."""
+    if active():
+        return torch.profiler.record_function("a3d." + name)
+    return _OFF
 
 
 def device_sync(device) -> None:
@@ -35,14 +65,18 @@ def device_sync(device) -> None:
 
 
 def start_trace(device):
-    """Start a torch.profiler window of CPU activity, and CUDA activity
-    when `device` is a card; returns the running profiler."""
+    """Start a torch.profiler window of CPU activity, every thread's (the
+    host feed's spans too), and CUDA activity when `device` is a card;
+    returns the running profiler."""
+    from torch._C._profiler import _ExperimentalConfig
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.device(device).type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    prof = profile(activities=activities)
+    prof = profile(activities=activities,
+                   experimental_config=_ExperimentalConfig(
+                       profile_all_threads=True))
     prof.start()
     return prof
 
@@ -68,29 +102,3 @@ def trace(logdir: str, device="cuda"):
     finally:
         device_sync(device)
         stop_trace(prof, logdir)
-
-
-class StepTimer:
-    """Rolling wall-time stats for loop steps."""
-
-    def __init__(self, window: int = 200):
-        self._times = collections.deque(maxlen=window)
-        self._t0 = None
-
-    def start(self):
-        self._t0 = time.perf_counter()
-
-    def stop(self):
-        if self._t0 is not None:
-            self._times.append(time.perf_counter() - self._t0)
-            self._t0 = None
-
-    def stats(self) -> dict:
-        if not self._times:
-            return {}
-        arr = np.asarray(self._times)
-        return {
-            "step_ms_p50": float(np.percentile(arr, 50) * 1e3),
-            "step_ms_p99": float(np.percentile(arr, 99) * 1e3),
-            "step_ms_mean": float(arr.mean() * 1e3),
-        }

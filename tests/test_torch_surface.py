@@ -15,7 +15,6 @@ import ast
 import dataclasses
 from pathlib import Path
 
-import numpy as np
 import pytest
 import torch
 
@@ -73,6 +72,9 @@ EXCEPTIONS = {
         "batch_sharding",
     ("parallel/multihost.py", "global_batch_from_local"): "assembles a "
         "JAX global array from per-host rows; a rank keeps its rows",
+    ("utils/tracing.py", "StepTimer"): "no loop of the port read it, and "
+        "its percentiles over a ring are wrong for a window; the program "
+        "records its own spans on the profiler's clock (tracing.span)",
 }
 # Module loggers are not API.
 NOT_API = {"log"}
@@ -230,24 +232,6 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     with tracing.trace(str(tmp_path), device="cpu"):
         torch.ones(8).sum()
     assert len(list(tmp_path.glob("trace_*.json"))) == 1
-
-
-def test_step_timer_matches_jax(monkeypatch):
-    from ann3depth_tpu.utils import tracing as jtracing
-
-    stats = []
-    for mod in (jtracing, tracing):
-        clock = iter([0.0, 0.010, 1.0, 1.030, 2.0, 2.020])
-        monkeypatch.setattr("time.perf_counter", lambda: next(clock))
-        timer = mod.StepTimer(window=2)
-        assert timer.stats() == {}
-        for _ in range(3):
-            timer.start()
-            timer.stop()
-        timer.stop()  # without a start: no sample
-        stats.append(timer.stats())
-    assert stats[1] == stats[0]
-    assert np.isclose(stats[1]["step_ms_mean"], 25.0)
 
 
 def test_maybe_tb_writer(tmp_path, monkeypatch):
