@@ -32,7 +32,10 @@ Points where flax and torch differ, each handled here:
   F.pixel_unshuffle orders them ch*f*f + dy*f + dx, so the reshape and
   permute are written out.
 - flax GroupNorm's eps is 1e-6 (torch's default is 1e-5); its statistics
-  are taken in f32 and its output is in the compute dtype.
+  are taken in f32 and its output is in the compute dtype. The norm and
+  the ReLU after it are one op, `ops.group_norm.group_norm_relu`, which on
+  the card keeps the NHWC bytes (torch's CUDA group_norm returns plain
+  NCHW, which cuDNN then transposes around every later conv).
 - Init is flax's lecun_normal (truncated normal, variance 1/fan_in) for
   conv kernels, zero head bias, GroupNorm scale 1 and bias 0.
 - flax's nn.remat of each stage is `remat_call`: activation checkpointing
@@ -52,6 +55,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ann3depth_tpu_torch.ops.group_norm import group_norm_relu
 from ann3depth_tpu_torch.ops.resize import upsample_matmul
 
 # flax's lecun_normal: a normal truncated to [-2, 2] standard deviations,
@@ -89,6 +93,17 @@ def init_flax_(model, generator=None):
             nn.init.ones_(m.weight)
             nn.init.zeros_(m.bias)
     return model
+
+
+def head_input(x):
+    """x in f32 for an f32 head conv, on the card in plain NCHW memory.
+    The body's activations are channels_last; on channels_last f32 input
+    cuDNN's weight gradient picks a kernel that sums with atomics, so two
+    runs of a step part, where its NCHW kernel sums in a fixed order. The
+    CPU keeps the layout (and its bits)."""
+    if x.is_cuda:
+        return x.to(torch.float32, memory_format=torch.contiguous_format)
+    return x.float()
 
 
 def remat_call(remat: bool, module, *args):
@@ -159,10 +174,10 @@ class Stage(nn.Module):
     def forward(self, x):
         x = self.conv_down(x)
         if self.norm is not None:
-            x = F.group_norm(x.float(), self.norm.num_groups,
-                             self.norm.weight, self.norm.bias,
-                             self.norm.eps).to(x.dtype)
-        x = F.relu(x)
+            x = group_norm_relu(x, self.norm.weight, self.norm.bias,
+                                self.norm.num_groups, self.norm.eps)
+        else:
+            x = F.relu(x)
         y = self.conv_refine(x)
         return F.relu(x + y)
 
@@ -198,9 +213,13 @@ class UpStage(nn.Module):
                 # bf16 matmuls, as the JAX stage does, is the same function
                 # but moves the bf16 step further from the JAX step
                 # whenever the two sides' inputs differ by a rounding
-                # (tests/test_torch_train.py).
+                # (tests/test_torch_train.py). The einsum's result is a
+                # permuted view: the rounding writes it as contiguous NHWC,
+                # so that conv_up gets channels_last (a conv copies any
+                # other layout to plain NCHW and runs there).
                 up = upsample_matmul(x.permute(0, 2, 3, 1).float(), 2)
-                up = up.to(x.dtype).permute(0, 3, 1, 2)
+                up = up.to(x.dtype, memory_format=torch.contiguous_format)
+                up = up.permute(0, 3, 1, 2)
         x = F.relu(self.conv_up(up) + self.proj_skip(skip))
         if self.conv_refine is not None:
             x = F.relu(x + self.conv_refine(x))
@@ -259,7 +278,7 @@ class EncDecDepthNet(nn.Module):
             x = remat_call(self.remat, self.dec0, x, s1)
             x = remat_call(self.remat, self.dec1, x, s0)
         with torch.autocast(x.device.type, enabled=False):
-            y = self.head(x.float())
+            y = self.head(head_input(x))
             return upsample_matmul(y.permute(0, 2, 3, 1), 2)
 
     @staticmethod

@@ -25,8 +25,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ann3depth_tpu_torch.models.encdec import (Conv, Stage, init_flax_,
-                                               remat_call, space_to_depth)
+from ann3depth_tpu_torch.models.encdec import (Conv, Stage, head_input,
+                                               init_flax_, remat_call,
+                                               space_to_depth)
 from ann3depth_tpu_torch.ops.resize import upsample_matmul
 
 
@@ -46,8 +47,11 @@ class GlobalContext(nn.Module):
 
 
 def _up(x, factor):
-    """Bilinear integer-factor upsample of an NCHW map, in its dtype."""
-    return upsample_matmul(x.permute(0, 2, 3, 1), factor).permute(0, 3, 1, 2)
+    """Bilinear integer-factor upsample of an NCHW map, in its dtype, as
+    NCHW in channels_last memory (the einsum's result is a permuted view;
+    the fine branch's conv would copy it to plain NCHW)."""
+    up = upsample_matmul(x.permute(0, 2, 3, 1), factor)
+    return up.contiguous().permute(0, 3, 1, 2)
 
 
 class MultiScaleDepthNet(nn.Module):
@@ -99,12 +103,12 @@ class MultiScaleDepthNet(nn.Module):
             c = run(self.coarse2, run(self.coarse1, stem))
             c = self.context(c)
         with torch.autocast(dev, enabled=False):
-            coarse = _up(self.coarse_head(c.float()), 4)
+            coarse = _up(self.coarse_head(head_input(c)), 4)
         with torch.autocast(dev, dtype=dt, enabled=low, cache_enabled=False):
             f = torch.cat([stem, coarse.to(dt)], dim=1)
             f = run(self.fine2, run(self.fine1, f))
         with torch.autocast(dev, enabled=False):
-            y = coarse + self.fine_head(f.float())
+            y = coarse + self.fine_head(head_input(f))
             y = _up(y, 2)
         return y.permute(0, 2, 3, 1)
 

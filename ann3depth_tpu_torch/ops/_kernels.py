@@ -23,10 +23,12 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-KERNELS = ("fused_preprocess", "fused_preprocess_v2")
+KERNELS = ("fused_preprocess", "fused_preprocess_v2", "group_norm_nhwc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -94,3 +96,11 @@ def load(name: str) -> ctypes.CDLL:
             build()
             _LOADED[name] = ctypes.CDLL(str(library_path(name)))
         return _LOADED[name]
+
+
+def count(wrapper):
+    """One launch of `wrapper`'s kernel. A launch recorded into a CUDA graph
+    runs at every replay, where no Python runs: it is not counted here, and
+    a graph's launches are counted from a profiler trace of its replays."""
+    if not torch.cuda.is_current_stream_capturing():
+        wrapper.launches += 1

@@ -520,14 +520,6 @@ def _launch_band(name, frames, params, *, out_hw, norm=True,
     return out
 
 
-def _count(wrapper):
-    """One launch of `wrapper`'s kernel. A launch recorded into a CUDA graph
-    runs at every replay, where no Python runs: it is not counted here, and
-    a graph's launches are counted from a profiler trace of its replays."""
-    if not torch.cuda.is_current_stream_capturing():
-        wrapper.launches += 1
-
-
 # Both wrappers are registered torch ops (`torch.ops.ann3depth.<name>`), so
 # that an exported program (`torch.export`) holds each as one node: the
 # CPU implementation is the plain version, the CUDA one the kernel, and the
@@ -556,7 +548,7 @@ def _register(name, plain, wrapper):
     def cuda(frames, params, out_hw, norm, depth_mode):
         out = _launch_band(name, frames, params, out_hw=out_hw, norm=norm,
                            depth_mode=depth_mode)
-        _count(wrapper)
+        _kernels.count(wrapper)
         return out
 
     def fake(frames, params, out_hw, norm, depth_mode):

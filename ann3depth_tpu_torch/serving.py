@@ -15,9 +15,10 @@ bucket), on the CPU the eager call.
                   platforms, param count, torch version, format
 
 `load_serving` serves such a directory through `torch.export.load` on the
-device type it was exported on, with no model code (the op it calls is
-registered by importing `ops.fused_preprocess`, which this module does),
-through the same cache.
+device type it was exported on, with no model code (the ops it calls are
+registered by importing `ops.fused_preprocess` and, for the encdec and
+multiscale models, `ops.group_norm`, which this module's imports of
+`pipeline.preprocess` and `models` do), through the same cache.
 It also serves the weights of a directory written by the JAX package's
 `export_serving` (`meta.json` and `params.npz`; its StableHLO program cannot
 run here and is not read) in the port's model code.

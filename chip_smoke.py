@@ -18,6 +18,10 @@ last line is printed:
    resample and photometric launches apart), through its wrapper with CUDA
    events, the plain version with CUDA events, and the closest PyTorch
    call(s) on the device. Report each case's bound.
+2b. Hold the NHWC GroupNorm + ReLU kernel (csrc/group_norm_nhwc.cu), forward
+   and backward, against its plain version at the encdec train step's three
+   norm shapes in bf16, and time it on the device and with CUDA events
+   beside the plain version and `F.group_norm` + ReLU on the bf16 tensor.
 3. Serve make3d-encdec at full width (random weights from the config's
    seed) through the port's `service_from_config` and `DepthServer`, POST
    8 concurrent single frames and one 4-frame body to /v1/depth (a first
@@ -31,9 +35,13 @@ last line is printed:
    16). Check that the losses are finite and fall, that the resume
    continues the step counter and that every step ran the v1 kernel twice
    (launched in the eager step, recorded twice into the graph and run at
-   each replay); time the eager train step and
-   its preprocess on a fixed device batch; hold one step fed by the kernel
-   against one fed by the plain preprocess.
+   each replay), and that every step ran the GroupNorm kernels once a
+   Stage each way (launched in the eager step, recorded into the graph;
+   in the eval graphs and grids forward only; `gn_runs`); time the eager
+   train step and its preprocess on a fixed device batch (its profile
+   holding each GroupNorm kernel once a Stage); hold one step fed by the
+   kernel against one fed by the plain preprocess. Phase 7 holds the same
+   counts for its families (multiscale five Stages, the others none).
 5. The v2 kernel inside the train step: from one state and one raw batch,
    K steps of `step_on_batch` fed by v1, by v2 and by the plain
    preprocess, each timed, with the same augmentation draws; check that v2
@@ -231,7 +239,10 @@ graph's recorded calls at each replay) to what it held before.
    against eager bit for bit (metrics and files). Each run's step ms,
    busy share, host launches a step and peak memory, eager against graph,
    its v1 calls recorded into each step graph (2 a microbatch) and the
-   resamples in each traced replay.
+   resamples in each traced replay; its GroupNorm calls recorded into
+   each step graph (3 a microbatch each way, the teacher's 3 forward
+   besides where distilled) and each GroupNorm kernel's runs in each
+   traced replay.
 
 The K=1 references that phases 9, 10, 11 and 13 hold K-step graphs (and
 the parallel ranks) against are eager runs: `pool_run` at K=1 and the
@@ -603,6 +614,136 @@ def kernel_cases(torch, fp, resize, ref):
     check(bool(((probe - 50.0).abs().lt(1e-3) | (probe == 0)).all()),
           f"{name}: saturated pixels blended into valid ones")
     cases.append(case)
+    return cases
+
+
+# The encdec train step's three norms at b16 (240x320 in): (B, C, H, W).
+GN_SHAPES = ((16, 64, 60, 80), (16, 128, 30, 40), (16, 256, 15, 20))
+GN_GROUPS = 8
+GN_EPS = 1e-6
+
+
+def group_norm_cases(torch, card):
+    """Phase 2b: the NHWC GroupNorm + ReLU kernel (ops/group_norm.py) at the
+    train step's shapes in bf16, forward and backward, against the plain
+    version (the Stage expression it replaced, through autograd; dy zeroed
+    where the two ReLU masks part, at outputs ~0): y within
+    one bf16 rounding (rtol 2^-7, atol 1e-5), dx within that plus 1e-4 of
+    its largest value, dgamma and dbeta within 1e-5 of the largest channel
+    sum of the terms' magnitudes (tests/test_torch_group_norm.py gives the
+    reasons). Times the kernel's two passes a direction on the device
+    (torch.profiler) and with CUDA events, the plain version's forward and
+    forward + backward with CUDA events and on the device, and beside them
+    `F.group_norm` on the bf16 tensor + ReLU (`library_ms`, a yardstick the
+    port never calls). Bound: x read and y written once forward; dy, x, y
+    read and dx written once backward."""
+    import torch.nn.functional as F
+
+    from ann3depth_tpu_torch.ops import group_norm as gn
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(18)
+    cases = []
+    for shape in GN_SHAPES:
+        b, c, h, w = shape
+        x = (2 * torch.randn(shape, generator=gen, device=dev) + 0.5).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        dy = torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        weight = 1 + 0.5 * torch.randn(c, generator=gen, device=dev)
+        bias = 0.5 * torch.randn(c, generator=gen, device=dev)
+        args = (GN_GROUPS, GN_EPS)
+        # Where a pre-activation lies within an f32 rounding of 0 the two
+        # ReLU masks may part, and the element's dy passes on one side
+        # only: dy is zeroed there (about one element in a million).
+        with torch.no_grad():
+            parted = ((gn.group_norm_relu(x, weight, bias, *args) > 0)
+                      != (gn.plain_group_norm_relu(x, weight, bias, *args)
+                          > 0))
+        check(int(parted.sum()) <= 2 + x.numel() // 100_000,
+              f"group_norm {shape}: {int(parted.sum())} ReLU decisions part")
+        dy = torch.where(parted, torch.zeros_like(dy), dy)
+
+        def run(fn):
+            xs, ws, bs = (t.detach().clone().requires_grad_()
+                          for t in (x, weight, bias))
+            y = fn(xs, ws, bs, *args)
+            return (y.detach(), *torch.autograd.grad(y, (xs, ws, bs), dy))
+
+        launches = (gn.group_norm_relu.launches,
+                    gn.group_norm_relu_backward.launches)
+        got = run(gn.group_norm_relu)
+        check((gn.group_norm_relu.launches - launches[0],
+               gn.group_norm_relu_backward.launches - launches[1]) == (1, 1),
+              f"group_norm {shape}: the kernels did not run once each")
+        want = run(gn.plain_group_norm_relu)
+        torch.cuda.synchronize()
+        y, dx, dw, db = (t.float() for t in got)
+        y_w, dx_w, dw_w, db_w = (t.float() for t in want)
+        xg = x.float().reshape(b, GN_GROUPS, -1)
+        var, mean = torch.var_mean(xg, dim=-1, correction=0, keepdim=True)
+        xhat = ((xg - mean) * (var + GN_EPS).rsqrt()).reshape(shape)
+        dz = torch.where(y_w > 0, dy.float(), torch.zeros_like(y_w))
+        errs = dict(
+            y=float(((y - y_w).abs() - 2.0 ** -7 * y_w.abs()).max()),
+            dx=float(((dx - dx_w).abs() - 2.0 ** -7 * dx_w.abs()).max()),
+            dgamma=float((dw - dw_w).abs().max()),
+            dbeta=float((db - db_w).abs().max()))
+        tols = dict(y=1e-5, dx=1e-4 * float(dx_w.abs().max()),
+                    dgamma=1e-5 * float((dz * xhat).abs().sum((0, 2, 3))
+                                        .max()),
+                    dbeta=1e-5 * float(dz.abs().sum((0, 2, 3)).max()))
+        for k, err in errs.items():
+            check(err <= tols[k], f"group_norm {shape}: {k} off by {err} "
+                  f"beyond one bf16 rounding (tolerance {tols[k]})")
+
+        y, mean, rstd = torch.ops.ann3depth.group_norm_relu(x, weight, bias,
+                                                            *args)
+
+        def fwd():
+            return torch.ops.ann3depth.group_norm_relu(x, weight, bias, *args)
+
+        def bwd():
+            return torch.ops.ann3depth.group_norm_relu_backward(
+                dy, x, y, mean, rstd, weight, GN_GROUPS)
+
+        def plain_fwd():
+            with torch.no_grad():
+                return gn.plain_group_norm_relu(x, weight, bias, *args)
+
+        weight_bf16, bias_bf16 = weight.bfloat16(), bias.bfloat16()
+
+        def library_fwd():
+            with torch.no_grad():
+                return F.relu(F.group_norm(x, GN_GROUPS, weight_bf16,
+                                           bias_bf16, GN_EPS))
+
+        fwd_ms, fwd_by = device_ms(torch, fwd)
+        bwd_ms, bwd_by = device_ms(torch, bwd)
+        plain_dev_ms, _ = device_ms(torch, lambda: run(
+            gn.plain_group_norm_relu))
+        nbytes = x.numel() * x.element_size()
+        case = dict(
+            case=f"group_norm_relu bf16 {list(shape)}, {GN_GROUPS} groups",
+            max_err=errs, tol=tols, fwd_ms=fwd_ms, bwd_ms=bwd_ms,
+            fwd_kernels=fwd_by, bwd_kernels=bwd_by,
+            fwd_event_ms=time_ms(fwd), bwd_event_ms=time_ms(bwd),
+            fwd_bwd_event_ms=time_ms(lambda: run(gn.group_norm_relu)),
+            fwd_bound_ms=2 * nbytes / HBM_BYTES_PER_S * 1e3,
+            bwd_bound_ms=4 * nbytes / HBM_BYTES_PER_S * 1e3,
+            plain_ms=time_ms(plain_fwd),
+            plain_fwd_bwd_ms=time_ms(lambda: run(gn.plain_group_norm_relu)),
+            plain_fwd_bwd_device_ms=plain_dev_ms,
+            library_ms=time_ms(library_fwd),
+            library_fwd_bwd_ms=time_ms(lambda: run(
+                lambda xs, ws, bs, *_: F.relu(F.group_norm(
+                    xs, GN_GROUPS, ws.bfloat16(), bs.bfloat16(), GN_EPS)))),
+            library_call="F.group_norm on the bf16 tensor (bf16 weight and "
+                         "bias: torch's CUDA group_norm takes one dtype), "
+                         "then F.relu",
+            card=card)
+        print(json.dumps(case), flush=True)
+        cases.append(case)
     return cases
 
 
@@ -1042,6 +1183,9 @@ def device_profile(torch, fn, steps, step_ms):
     most = sorted(count.items(), key=lambda kv: -kv[1])[:8]
     return dict(kernels_per_step=len(kernels) / steps,
                 v1_resample_per_step=resample / steps,
+                gn_kernels_per_step={
+                    k: n / steps for k, n in gn_kernels(
+                        [e.name for e in kernels]).items()},
                 device_busy_ms_per_step=busy_ms,
                 busy_share=busy_ms / step_ms,
                 top_kernels_ms_per_step={k[:90]: v / steps / 1e3
@@ -1078,12 +1222,13 @@ def train_slice(torch, np, fp, card, tmp, cfg=None,
     with step_losses(steplib, seen):
         fp.fused_preprocess_v2.launches = 0
         t0 = time.perf_counter()
-        with graph_runs(torch, fp) as graphed:
+        with graph_runs(torch, fp) as graphed, gn_runs(torch) as gn_run:
             state, _ = loop.train(cfg, workdir=tmp, progress=False)
         first_s = time.perf_counter() - t0
         launches = graphed["launches"]
         v2_in_loop = fp.fused_preprocess_v2.launches
-        with graph_runs(torch, fp) as resume_graphed:
+        with graph_runs(torch, fp) as resume_graphed, \
+                gn_runs(torch) as gn_resume:
             state2, last = loop.train(resumed, workdir=tmp, progress=False)
         resume_launches = resume_graphed["launches"]
     with open(f"{tmp}/metrics.jsonl") as f:
@@ -1124,16 +1269,20 @@ def train_slice(torch, np, fp, card, tmp, cfg=None,
     # replay a step; each in-loop eval replays its eval step's graph once
     # a batch (a capture for each batch shape, its warm call eager) and
     # renders its rgb|gt|pred grid eagerly: one more batch.
-    for label, run, n_steps, n_evals in (
-            ("run", graphed, steps,
+    group_norm, per_forward = {}, gn_per_forward(cfg)
+    for label, run, gn_seen, n_steps, n_evals in (
+            ("run", graphed, gn_run, steps,
              len([s for s in eval_steps if s <= steps])),
-            ("resume", resume_graphed, resume_steps - steps,
+            ("resume", resume_graphed, gn_resume, resume_steps - steps,
              len([s for s in eval_steps if s > steps]))):
         train_v1(run, n_steps, 2, f"train {label}", evals=n_evals)
         check(run["steps_captured"] == 1
               and run["steps_replayed"] == n_steps - 1,
               f"train {label}: the step was not replayed from one graph: "
               f"{run}")
+        group_norm[label] = train_gn(gn_seen, run, n_steps,
+                                     f"train {label}", per_forward,
+                                     evals=n_evals)
     check(v2_in_loop == 0, "the loop ran the v2 kernel")
 
     # Steady step time on one device-resident batch (the loop above also
@@ -1169,6 +1318,11 @@ def train_slice(torch, np, fp, card, tmp, cfg=None,
         timed, images, depths))
     profiled = device_profile(torch, lambda: steplib.train_step(
         timed, img, dep, gen, augment=True, **kw), 5, step_ms)
+    if profiled:
+        check(set(profiled["gn_kernels_per_step"].values())
+              == {per_forward},
+              f"{label}: GroupNorm kernels a profiled step "
+              f"{profiled['gn_kernels_per_step']}")
     flops = step_flops(steplib, timed, images, depths)
     peak_flops = flopslib.PEAK_BF16_FLOPS[H100]
 
@@ -1193,7 +1347,8 @@ def train_slice(torch, np, fp, card, tmp, cfg=None,
         losses_first10_mean=first10, losses_last10_mean=last10,
         losses=[float(x) for x in losses], eval_rmse=evals,
         fused_preprocess_launches=launches,
-        resume_launches=resume_launches, eval_graphs=dict(
+        resume_launches=resume_launches, group_norm_calls=group_norm,
+        eval_graphs=dict(
             run=graphed, resume=resume_graphed), first_run_s=first_s,
         loop_images_per_s=[r["images_per_sec"] for r in records
                            if "images_per_sec" in r],
@@ -1428,6 +1583,95 @@ def train_v1(seen, steps, per_step, label, evals=0):
           f"{label}: v1 launched {seen['launches']} times in {steps} steps "
           f"({eager_steps} eager) and {evals} evals: {seen}")
     return v1_runs(seen, 2, label) + replayed
+
+
+GN_KERNELS = ("gn_stats_kernel", "gn_apply_kernel", "gn_bwd_stats_kernel",
+              "gn_bwd_apply_kernel")
+
+
+@contextlib.contextmanager
+def gn_runs(torch):
+    """Within the block: the GroupNorm kernels' launches outside CUDA
+    graph capture (`fwd`, `bwd`: the wrappers' counts), and the calls
+    recorded into the train loop's step graphs (`steps_recorded_*`,
+    inside `BlockRunner._capture`) and into other graphs (`recorded_*`:
+    the eval graphs), which the wrappers do not count. Yields a dict that
+    is filled when the block ends."""
+    from ann3depth_tpu_torch.ops import _kernels
+    from ann3depth_tpu_torch.ops import group_norm as gn
+    from ann3depth_tpu_torch.train import dispatch
+
+    wrappers = (gn.group_norm_relu, gn.group_norm_relu_backward)
+    seen = dict(fwd=0, bwd=0, recorded_fwd=0, recorded_bwd=0,
+                steps_recorded_fwd=0, steps_recorded_bwd=0)
+    in_step = [False]
+    count, capture = _kernels.count, dispatch.BlockRunner._capture
+
+    def counted(wrapper):
+        if wrapper in wrappers and torch.cuda.is_current_stream_capturing():
+            kind = "fwd" if wrapper is wrappers[0] else "bwd"
+            seen[("steps_recorded_" if in_step[0] else "recorded_")
+                 + kind] += 1
+        count(wrapper)
+
+    def capture_step(self, entry):
+        in_step[0] = True
+        try:
+            return capture(self, entry)
+        finally:
+            in_step[0] = False
+
+    before = [w.launches for w in wrappers]
+    _kernels.count = counted
+    dispatch.BlockRunner._capture = capture_step
+    try:
+        yield seen
+    finally:
+        _kernels.count = count
+        dispatch.BlockRunner._capture = capture
+        seen["fwd"], seen["bwd"] = (w.launches - n
+                                    for w, n in zip(wrappers, before))
+
+
+def gn_per_forward(cfg):
+    """GroupNorm calls a forward of cfg's model makes: one a `Stage` with a
+    norm (encdec 3, multiscale 5, the others 0)."""
+    from ann3depth_tpu_torch.models import registry
+    from ann3depth_tpu_torch.models.encdec import Stage
+
+    return sum(isinstance(m, Stage) and m.norm is not None
+               for m in registry.build(cfg.model).modules())
+
+
+def train_gn(seen, runs, steps, label, per_forward, microbatches=1,
+             forwards=1, evals=0):
+    """The GroupNorm calls of `steps` K=1 train steps and `evals` in-loop
+    evals of a model that makes `per_forward` calls a forward, from a
+    `gn_runs` block `seen` and the `graph_runs` block `runs` around it: an
+    eager step launches `per_forward` backward calls a microbatch and
+    `forwards` times as many forward ones (a distilled step runs its
+    teacher too), and a step graph records as many; an eval graph's
+    capture records a forward's calls after a warm call that launches
+    them, and each eval's grid launches them once more. Checks all of
+    that; returns `seen` with the calls a replayed step runs."""
+    eager = steps - runs["steps_replayed"]
+    bwd = per_forward * microbatches
+    fwd = bwd * forwards
+    want = dict(
+        fwd=fwd * eager + per_forward * (runs["captures"] + evals),
+        bwd=bwd * eager, recorded_fwd=per_forward * runs["captures"],
+        recorded_bwd=0, steps_recorded_fwd=fwd * runs["steps_captured"],
+        steps_recorded_bwd=bwd * runs["steps_captured"])
+    check(seen == want, f"{label}: GroupNorm calls {seen}, not {want} "
+          f"({steps} steps, {eager} eager, {evals} evals, graphs {runs})")
+    return dict(seen, per_replayed_step=dict(fwd=fwd, bwd=bwd),
+                eager_steps=eager)
+
+
+def gn_kernels(names):
+    """How many of each GroupNorm kernel `names` (device kernel names)
+    hold."""
+    return {k: sum(f"{k}<" in n for n in names) for k in GN_KERNELS}
 
 
 def v1_runs(seen, calls, label, recorded=True):
@@ -2555,14 +2799,18 @@ def trace_stats(path, steps):
                if e.get("cat") in ("cuda_runtime", "cuda_driver")]
     calls = [e["name"] for e in runtime]
     # A replay's kernels carry the correlation id of its graph launch.
-    resample = {}
+    resample, by_launch = {}, {}
     for e in kernels:
+        c = e.get("args", {}).get("correlation")
         if "band_resample_kernel" in e["name"]:
-            c = e.get("args", {}).get("correlation")
             resample[c] = resample.get(c, 0) + 1
-    per_replay = [resample.get(e.get("args", {}).get("correlation"), 0)
-                  for e in sorted(runtime, key=lambda e: e["ts"])
-                  if "GraphLaunch" in e["name"]]
+        by_launch.setdefault(c, []).append(e["name"])
+    launches = [e.get("args", {}).get("correlation")
+                for e in sorted(runtime, key=lambda e: e["ts"])
+                if "GraphLaunch" in e["name"]]
+    per_replay = [resample.get(c, 0) for c in launches]
+    gn_per_replay = [list(gn_kernels(by_launch.get(c, [])).values())
+                     for c in launches]
     busy, end = 0.0, float("-inf")
     for e in kernels:
         start, stop = e["ts"], e["ts"] + e["dur"]
@@ -2577,6 +2825,7 @@ def trace_stats(path, steps):
         v1_photometric_per_step=sum("photometric_kernel" in e["name"]
                                     for e in kernels) / steps,
         v1_resample_per_replay=per_replay,
+        gn_kernels_per_replay=gn_per_replay,
         device_busy_ms_per_step=busy / 1e3 / steps,
         window_ms_per_step=span / 1e3 / steps,
         busy_share=busy / span if span else None,
@@ -5509,13 +5758,18 @@ def step_run(torch, fp, cfg, tmp, name, graphed):
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    with graph_runs(torch, fp) as seen, \
+    with graph_runs(torch, fp) as seen, gn_runs(torch) as gn_seen, \
             contextlib.nullcontext() if graphed else eager_twin():
         state, last = loop.train(cfg, workdir=work, progress=False)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     label = f"step graphs {name} {kind}"
     v1 = train_v1(seen, steps, 2 * cfg.train.grad_accum, label)
+    # A microbatch runs the model's Stages each way, and a distilled step
+    # its teacher's (the same preset's) forward besides.
+    group_norm = train_gn(gn_seen, seen, steps, label, gn_per_forward(cfg),
+                          microbatches=cfg.train.grad_accum,
+                          forwards=2 if cfg.train.distill_from else 1)
     with open(f"{work}/metrics.jsonl") as f:
         rows = [json.loads(line) for line in f]
     first, end = _traced_steps(steps, 1, PROFILE_STEPS)
@@ -5524,6 +5778,7 @@ def step_run(torch, fp, cfg, tmp, name, graphed):
     t = trace_stats(traces[0], end - first)
     return state, last, dict(
         steps=steps, seconds=seconds, v1_runs=v1, graphs=seen,
+        group_norm_calls=group_norm,
         logged=[(r["step"], r["loss"]) for r in rows if "loss" in r],
         step_ms=_steady_ms(rows, cfg.train.batch_size, end),
         busy_share=t["busy_share"],
@@ -5534,6 +5789,7 @@ def step_run(torch, fp, cfg, tmp, name, graphed):
         graph_launch_calls_per_step=t["graph_launch_calls_per_step"],
         v1_resample_per_step=t["v1_resample_per_step"],
         v1_resample_per_replay=t["v1_resample_per_replay"],
+        gn_kernels_per_replay=t["gn_kernels_per_replay"],
         max_memory_allocated_bytes=torch.cuda.max_memory_allocated() - held)
 
 
@@ -5566,6 +5822,14 @@ def step_pair(torch, np, fp, cfg, tmp, name, captures=1):
     replays = r_graph["v1_resample_per_replay"]
     check(replays and min(replays[1:] or replays) >= per,
           f"{name}: v1 resamples in the traced replays {replays}")
+    # Each replay runs the calls its step graph recorded, two kernels a
+    # call each way.
+    calls = r_graph["group_norm_calls"]["per_replayed_step"]
+    want = [calls["fwd"], calls["fwd"], calls["bwd"], calls["bwd"]]
+    gn_replays = r_graph["gn_kernels_per_replay"]
+    check(gn_replays and all(n == want for n in gn_replays[1:]),
+          f"{name}: GroupNorm kernels ({', '.join(GN_KERNELS)}) in the "
+          f"traced replays {gn_replays}, {want} each expected")
     del eager, graph
     torch.cuda.empty_cache()
     return dict(preset_model=cfg.model.name, batch=cfg.train.batch_size,
@@ -5714,7 +5978,8 @@ def step_graphs_phase(torch, np, fp, card, tmp, encdec_cfg, handoff):
     torch's deterministic mode, timed in the default mode); the report
     eval (`report_graph`). Each run's step
     ms, busy share, host launches a step and peak memory, eager against
-    graph. Returns the v1 runs of each path."""
+    graph. Returns the v1 runs of each path, and the GroupNorm calls
+    and kernels a replay of each records-fed run's step graph."""
     data = f"{tmp}/data"
     runs, seconds = {}, {}
     for name, preset, datasets, extra, captures in (
@@ -5772,7 +6037,11 @@ def step_graphs_phase(torch, np, fp, card, tmp, encdec_cfg, handoff):
                 for name, r in runs.items() if "eager" in r}
     launches.update(dpt=runs["dpt"]["v1_runs"], report={
         kind: r["v1_runs"] for kind, r in runs["report"]["runs"].items()})
-    return launches
+    group_norm = {name: dict(
+        calls=r["graph"]["group_norm_calls"],
+        kernels_per_replay=r["graph"]["gn_kernels_per_replay"])
+        for name, r in runs.items() if "eager" in r}
+    return launches, group_norm
 
 
 def main():
@@ -5801,6 +6070,7 @@ def main():
     print(f"card: {card}", flush=True)
 
     cases = kernel_cases(torch, fp, resize, ref)
+    gn_cases = group_norm_cases(torch, card)
     dispatch = v1_host_dispatch(torch, fp, card)
     cases_v2 = v2_cases(torch, fp, ref)
     specs = family_specs(torch, fp)
@@ -5847,7 +6117,8 @@ def main():
         phase15 = programs_phase(torch, np, fp, card, tmp, cfg, lives)
         print(f"phase 15: {time.perf_counter() - t15:.1f} s", flush=True)
         t16 = time.perf_counter()
-        phase16 = step_graphs_phase(torch, np, fp, card, tmp, cfg, handoff)
+        phase16, phase16_gn = step_graphs_phase(torch, np, fp, card, tmp,
+                                                cfg, handoff)
         print(f"phase 16: {time.perf_counter() - t16:.1f} s", flush=True)
 
     def entry(case, **kw):
@@ -5886,7 +6157,24 @@ def main():
         dpt_instep_launches=phase7["dpt-384"]["v2_instep"],
         max_abs_err=max(c["max_abs_err"] for c in cases_v2[:2]),
         cases=cases_v2, family_cases=family_v2)
-    print(json.dumps({"kernels": [v1, v2]}), flush=True)
+    # The train step's three norms (the cases), forward and backward.
+    group_norm = dict(
+        name="group_norm_nhwc", route="cuda",
+        source="ann3depth_tpu_torch/csrc/group_norm_nhwc.cu",
+        replaces=None,
+        ms=sum(c["fwd_ms"] + c["bwd_ms"] for c in gn_cases),
+        event_ms=sum(c["fwd_bwd_event_ms"] for c in gn_cases),
+        bound_ms=sum(c["fwd_bound_ms"] + c["bwd_bound_ms"]
+                     for c in gn_cases), bound_by="bytes",
+        plain_ms=sum(c["plain_fwd_bwd_ms"] for c in gn_cases),
+        plain_device_ms=sum(c["plain_fwd_bwd_device_ms"] for c in gn_cases),
+        library_ms=sum(c["library_fwd_bwd_ms"] for c in gn_cases),
+        library_call=gn_cases[0]["library_call"],
+        launches=train["group_norm_calls"],
+        profiled_step_kernels=train["device_profile"]["gn_kernels_per_step"]
+        if isinstance(train["device_profile"], dict) else None,
+        step_graph_replays=phase16_gn, cases=gn_cases, card=card)
+    print(json.dumps({"kernels": [v1, v2, group_norm]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
