@@ -9,8 +9,13 @@ Training (three steps from the same weights on the same rows):
 - change_gap: the same for the norm of each leaf's change after the
   steps, over the leaves whose reference gradient is at least a thousandth
   of the median leaf's (below that a leaf moves under Adam by round-off);
-- loss1_gap, grad_gap_median, change_gap_median: the first step's loss
-  gap, and the median leaf's gap in place of the worst leaf's.
+- grad_err: over the leaves, the norm of the difference of the first
+  (clipped) gradients, program less reference, over the larger of the
+  reference leaf's norm and the median leaf's: the gradient tensors
+  compared, where grad_gap compares only their norms;
+- loss1_gap, grad_gap_median, change_gap_median, grad_err_median: the
+  first step's loss gap, and the median leaf's gap in place of the worst
+  leaf's.
 """
 
 from __future__ import annotations
@@ -34,6 +39,23 @@ def _leaf_gaps(prog: dict, ref: dict, leaves):
             for k in leaves]
 
 
+def _leaf_errors(prog: dict, ref: dict, norms: dict):
+    """Per leaf, ||program tensor - reference tensor|| over the larger of
+    the reference leaf's norm (`norms`) and the median leaf's (inf where
+    the program has no finite tensor of that shape)."""
+    floor = statistics.median(norms.values())
+    out = []
+    for k, g in ref.items():
+        p = prog.get(k)
+        if p is None or p.shape != g.shape:
+            out.append(math.inf)
+            continue
+        err = float((p.to(g.device).double() - g.double()).norm())
+        out.append(err / max(norms[k], floor, 1e-30)
+                   if math.isfinite(err) else math.inf)
+    return out
+
+
 def train_gaps(prog: dict, ref: dict) -> dict:
     """Every candidate number; a cell's limits file names those it
     compares."""
@@ -47,7 +69,9 @@ def train_gaps(prog: dict, ref: dict) -> dict:
     moving = [k for k, g in grads.items() if g >= TINY_GRAD * median]
     grad = _leaf_gaps(prog["grad_norm"], grads, grads)
     change = _leaf_gaps(prog["change"], ref["change"], moving)
+    err = _leaf_errors(prog["grad"], ref["grad"], grads)
     return {"loss_gap": max(steps), "loss1_gap": steps[0],
             "grad_gap": max(grad), "grad_gap_median": statistics.median(grad),
             "change_gap": max(change),
-            "change_gap_median": statistics.median(change)}
+            "change_gap_median": statistics.median(change),
+            "grad_err": max(err), "grad_err_median": statistics.median(err)}

@@ -70,6 +70,7 @@ class TrainRun:
 
     def setup(self):
         from ann3depth_tpu_torch.data import records
+        from ann3depth_tpu_torch.device import resolve_device
         from ann3depth_tpu_torch.parallel import mesh as meshlib
         from ann3depth_tpu_torch.train import dispatch, loop
 
@@ -103,6 +104,7 @@ class TrainRun:
 
         shapes = self.ref.param_shapes(self.config["arch"], self.input_hw)
         self.weights = inputs.make_weights(shapes, self.seed, self.device)
+        resolve_device(self.device)  # TF32 off, as `train` runs
         self.state = loop.create_state(cfg, self.device)
         self.state.model.load_state_dict(self.weights)
         phase("state")
@@ -132,9 +134,11 @@ class TrainRun:
         return self.scenes.rows_of(first.cpu().numpy())
 
     def first_steps(self):
-        """The compared steps: their scenes and the program's readings."""
+        """The compared steps: their scenes and the program's readings,
+        with its first clipped gradient (AdamW's first `exp_avg` over
+        1 - b1) as f32 tensors on the host."""
         losses, self.rows = [], []
-        grad_norm = {}
+        grad, grad_norm = {}, {}
         for s in range(int(self.traffic["compare_steps"])):
             item = next(self.items)
             self.rows.append(self._scene_rows(item))
@@ -144,10 +148,13 @@ class TrainRun:
                 for name, p in self.state.model.named_parameters():
                     m = opt.state.get(p, {}).get("exp_avg")
                     if m is not None:
+                        grad[name] = (m.detach().to("cpu", torch.float32)
+                                      / (1.0 - self.b1))
                         grad_norm[name] = (float(m.double().norm())
                                            / (1.0 - self.b1))
         self.program = {
-            "loss": [float(x) for x in losses], "grad_norm": grad_norm,
+            "loss": [float(x) for x in losses], "grad": grad,
+            "grad_norm": grad_norm,
             "change": {n: float((p.detach() - self.weights[n]).double()
                                 .norm())
                        for n, p in self.state.model.named_parameters()}}

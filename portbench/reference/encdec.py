@@ -15,6 +15,7 @@ from __future__ import annotations
 
 from portbench.reference import ops
 
+MODEL = True
 ENC_WIDTHS = (64, 128, 256)
 S2D = 4
 OUTPUT_STRIDE = 2

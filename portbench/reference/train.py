@@ -79,7 +79,8 @@ def train_readings(model, model_cfg, train_cfg, params0, batches, *,
 
     Returns {"loss": [per step], "grad_norm": {leaf: norm of its first
     (clipped) gradient}, "change": {leaf: norm of its change after the
-    last step}}, as Python floats."""
+    last step}}, as Python floats, and "grad": {leaf: its first (clipped)
+    gradient}, as f32 tensors on the device it ran on."""
     names = list(params0)
     p = {k: params0[k].detach().clone().requires_grad_(True) for k in names}
     m = {k: torch.zeros_like(params0[k]) for k in names}
@@ -99,6 +100,7 @@ def train_readings(model, model_cfg, train_cfg, params0, batches, *,
             factor = 1.0 if clip <= 0 or float(norm) < clip else clip / norm
             grads = [g * factor for g in grads]
             if t == 1:
+                out["grad"] = dict(zip(names, grads))
                 out["grad_norm"] = {k: float(g.double().norm())
                                     for k, g in zip(names, grads)}
             lr = learning_rate(t - 1, train_cfg["learning_rate"],

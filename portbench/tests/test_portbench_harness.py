@@ -4,6 +4,7 @@ catch."""
 
 import hashlib
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -11,8 +12,7 @@ import sys
 import pytest
 
 from portbench import spec
-from portbench.tests.conftest import (REAL_CONFIG, REAL_TRAFFIC, ROOT,
-                                      small_config)
+from portbench.tests.conftest import ROOT, small_config
 
 # Limits of the CPU stand-ins (encdec at width 0.25, bf16 on the CPU),
 # above their own sound readings (loss_gap 4e-4-7e-4, grad_gap 0.007-0.03,
@@ -72,20 +72,38 @@ def _digest(root):
             and "__pycache__" not in p.parts}
 
 
-def test_a_new_cell_from_new_files_alone(tmp_path, cpu_cells, capsys,
-                                         monkeypatch):
-    """A configuration file, a traffic file, a metric reader and a limits
-    file make a new cell; no file that was there changes."""
+# Two runs of one cell, trace 0 then 1, in a checkout whose portbench/ is
+# the one in the working directory, with the CPU for the card.
+RUN_TWICE_ON_THE_CPU = """
+import os, sys, torch
+import portbench
+from portbench import run
+assert portbench.__file__.startswith(os.getcwd()), portbench.__file__
+run.require_devices = lambda chips: torch.device("cpu")
+torch.set_num_threads(2)
+for trace in ("0", "1"):
+    rc = run.main(["--workload", sys.argv[1], "--seed", "2147483653",
+                   "--seconds", "1", "--trace", trace])
+    if rc:
+        sys.exit(rc)
+"""
+
+
+def test_a_new_configuration_and_cell_from_new_files_alone(tmp_path):
+    """A configuration file, its own reference model, a traffic file, a
+    metric reader, a limits file and new entries in BENCHMARK.json's
+    `configs`, `workloads` and `per_layer` make a new cell that reports the
+    train metrics; no file that was there changes and no entry that was
+    there is edited."""
     pkg = tmp_path / "portbench"
     shutil.copytree(ROOT / "portbench", pkg,
                     ignore=shutil.ignore_patterns("__pycache__"))
     before = _digest(pkg)
-    monkeypatch.setattr(spec, "HERE", pkg)
-    monkeypatch.setattr(spec, "config", REAL_CONFIG)
-    monkeypatch.setattr(spec, "traffic", REAL_TRAFFIC)
     cfg = small_config("make3d-encdec")
-    cfg["name"] = "tiny-encdec"
+    cfg.update(name="tiny-encdec", reference="tiny_encdec")
     (pkg / "configs" / "tiny-encdec.json").write_text(json.dumps(cfg))
+    (pkg / "reference" / "tiny_encdec.py").write_text(
+        (pkg / "reference" / "encdec.py").read_text())
     traffic = json.loads((pkg / "traffic" / "train_records.json").read_text())
     traffic.update(scenes=10, image_hw=[48, 64], depth_hw=[16, 10],
                    warm_steps=1, trace_steps=2)
@@ -95,23 +113,38 @@ def test_a_new_cell_from_new_files_alone(tmp_path, cpu_cells, capsys,
     (pkg / "limits" / "tiny.train.json").write_text(json.dumps(
         {"limits": {"loss_gap": 1.0, "grad_gap": 1.0, "change_gap": 1.0,
                     "last_loss_finite": 0.0}}))
-    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    old = json.loads((ROOT / "BENCHMARK.json").read_text())
+    bench = json.loads(json.dumps(old))
     bench["configs"].append({"name": "tiny-encdec", "source": "x",
                              "file": "portbench/configs/tiny-encdec.json",
                              "reduced": [], "why": "x"})
     bench["workloads"].append({"name": "tiny.train", "config": "tiny-encdec",
                                "traffic": "train_tiny", "chips": 1,
                                "why": "x"})
-    bench["end_to_end"][1]["workloads"].append("tiny.train")
     bench["per_layer"].append({"name": "steps_done", "unit": "steps",
                                "better": "higher", "source": "host_clock",
                                "layer": "x", "moves": "train_images_per_s",
                                "workloads": ["tiny.train"]})
+    for key, entries in old.items():
+        if isinstance(entries, list):
+            assert bench[key][:len(entries)] == entries, key
+        else:
+            assert bench[key] == entries, key
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
-    monkeypatch.chdir(tmp_path)
-    rc, line = _run(cpu_cells, capsys, "tiny.train", trace=1)
-    assert rc == 0 and line["correct"] is True
-    assert line["metrics"]["steps_done"]["value"] > 0
+    proc = subprocess.run(
+        [sys.executable, "-c", RUN_TWICE_ON_THE_CPU, "tiny.train"],
+        cwd=tmp_path, capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    lines = [json.loads(x) for x in proc.stdout.splitlines()
+             if x.startswith('{"correct"')]
+    assert len(lines) == 2, proc.stdout[-4000:]
+    e2e, layer = lines
+    assert e2e["correct"] is True and layer["correct"] is True
+    assert set(e2e["metrics"]) == {"setup_s", "train_images_per_s"}
+    assert set(layer["metrics"]) >= {"mfu.train", "feed_wait_ms.train",
+                                     "device_idle.train", "steps_done"}
+    assert layer["metrics"]["steps_done"]["value"] > 0
     after = _digest(pkg)
     assert {k: v for k, v in after.items() if k in before} == before
 

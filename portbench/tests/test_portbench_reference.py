@@ -3,13 +3,14 @@ the import rules of portbench/."""
 
 import ast
 import math
+import sys
 from pathlib import Path
 
 import pytest
 import torch
 
 from portbench import compare, inputs
-from portbench.reference import ops, reference_model
+from portbench.reference import ops, reference_model, reference_models
 from portbench.reference import train as reftrain
 
 PKG = Path(__file__).resolve().parents[1]
@@ -37,6 +38,25 @@ def test_no_module_imports_jax_or_the_jax_package():
                 path, name)
             if path.is_relative_to(PKG / "reference"):
                 assert top != "ann3depth_tpu_torch", (path, name)
+
+
+def test_reference_models_are_found_by_file_name(monkeypatch):
+    """A configuration's `reference` names a module of reference/ that sets
+    MODEL; helpers and unknown names are refused with the models that are
+    there."""
+    import types
+
+    assert reference_models() == ["encdec"]
+    assert reference_model("encdec").forward
+    have = r"the reference models are \['encdec'\]"
+    for name in ("nosuch", "ops", "train", "encdec.ops", "../encdec", ""):
+        with pytest.raises(KeyError, match=have):
+            reference_model(name)
+    lacking = types.ModuleType("portbench.reference.lacking")
+    lacking.MODEL, lacking.forward = True, lambda p, x, arch: x
+    monkeypatch.setitem(sys.modules, lacking.__name__, lacking)
+    with pytest.raises(TypeError, match="param_shapes.*output_hw"):
+        reference_model("lacking")
 
 
 def _program_model(name, arch, hw, weights):
@@ -113,10 +133,11 @@ def test_three_reference_steps_follow_the_program_in_f32():
                                   target_hw=ref.output_hw(hw))
         losses.append(float(m["loss"]))
         if s == 0:
-            grad = {n: float(state.optimizer.state[p]["exp_avg"].double()
-                             .norm()) / 0.1
+            grad = {n: state.optimizer.state[p]["exp_avg"].clone() / 0.1
                     for n, p in model.named_parameters()}
-    program = {"loss": losses, "grad_norm": grad,
+    program = {"loss": losses, "grad": grad,
+               "grad_norm": {n: float(g.double().norm())
+                             for n, g in grad.items()},
                "change": {n: float((p.detach() - weights[n]).double().norm())
                           for n, p in model.named_parameters()}}
     reference = reftrain.train_readings(ref, arch, train_cfg, weights,
@@ -126,6 +147,8 @@ def test_three_reference_steps_follow_the_program_in_f32():
     assert gaps["loss_gap"] < 1e-5
     assert gaps["grad_gap"] < 1e-4
     assert gaps["change_gap"] < 1e-3
+    assert gaps["grad_err"] < 1e-4
+    assert compare.train_gaps(reference, reference)["grad_err"] == 0.0
 
 
 def test_fp8_control_moves_the_answer_and_its_gradient():
