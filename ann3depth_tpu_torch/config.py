@@ -2,8 +2,9 @@
 
 Counterpart of `ann3depth_tpu/config.py`: the same dataclasses, fields,
 defaults and presets, so `get_config(name)` returns the same values in both
-packages (tests/test_torch_serving.py compares every preset). Field meanings
-are documented there; this copy keeps the port free of the JAX package.
+packages (tests/test_torch_serving.py compares every preset), and one of
+its own, `dpt-large`. Field meanings are documented there; this copy keeps
+the port free of the JAX package.
 """
 
 from __future__ import annotations
@@ -162,6 +163,16 @@ PRESETS = {
         data={"datasets": ("make3d",)},
         model={"name": "encdec"},
         train={"batch_size": 128},
+    ),
+    # The port's own (no JAX preset): DPT-Large at its published widths
+    # (models/dpt_large.py) on the dpt-384 preset's data and training.
+    "dpt-large": _cfg(
+        data={
+            "datasets": ("nyu",),
+            "input_hw": (ref.DPT_RES, ref.DPT_RES),
+        },
+        model={"name": "dpt-large"},
+        train={"batch_size": 16},
     ),
     "smoke": _cfg(
         data={"datasets": ("synthetic",)},

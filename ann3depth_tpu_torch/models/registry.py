@@ -1,13 +1,15 @@
 """Model registry: name -> torch module.
 
-Counterpart of `ann3depth_tpu/models/registry.py`, with the same five
-models and the same contract:
+Counterpart of `ann3depth_tpu/models/registry.py`, with its five models,
+the port's own `dpt-large` (DPT-Large at its published widths,
+`models/dpt_large.py`), and the same contract:
 
     model(x: NHWC [B,H,W,3] normalized f32) -> NHWC [B,h,w,1] log-depth f32
 
 with `h, w = output_hw(name, (H, W))`. Quantized twins exist for encdec
 ("int8", "int8-qat") and the dpt family ("int8"); the registry refuses the
-rest as the JAX registry does.
+rest as the JAX registry does. `dpt-large` is not of the dpt family
+(`DPT_FAMILY`): it takes quant "none" alone and no tensor parallelism.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 
 from ann3depth_tpu_torch.config import ModelConfig
 from ann3depth_tpu_torch.models.dpt import DPTDepthNet
+from ann3depth_tpu_torch.models.dpt_large import DPTLargeDepthNet
 from ann3depth_tpu_torch.models.encdec import EncDecDepthNet
 from ann3depth_tpu_torch.models.multiscale import MultiScaleDepthNet
 from ann3depth_tpu_torch.models.small_depth import SmallDepthNet
@@ -23,7 +26,10 @@ from ann3depth_tpu_torch.models.small_depth import SmallDepthNet
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 _CLASSES = {"small": SmallDepthNet, "encdec": EncDecDepthNet,
             "multiscale": MultiScaleDepthNet, "dpt": DPTDepthNet,
-            "dpt-small": DPTDepthNet}
+            "dpt-small": DPTDepthNet, "dpt-large": DPTLargeDepthNet}
+# The models of the dpt family, with its int8 twin and tensor-parallel
+# sharding rules; dpt-large has neither.
+DPT_FAMILY = ("dpt", "dpt-small")
 # dpt-small: the CPU-sized member of the DPT family.
 DPT_SMALL = dict(dim=128, depth=6, heads=4, fusion_features=64,
                  tap_layers=(1, 2, 4, 5))
@@ -57,7 +63,7 @@ def build(cfg: ModelConfig):
     the JAX registry's arguments (remat for every family but small, quant
     for encdec and the dpt family) and its refusals."""
     cls = model_class(cfg.name)
-    dpt = cfg.name.startswith("dpt")
+    dpt = cfg.name in DPT_FAMILY
     if cfg.quant != "none" and not (cfg.name == "encdec" or dpt):
         raise ValueError(
             f"quant={cfg.quant!r} is only supported by 'encdec' and the "

@@ -120,6 +120,88 @@ def upsample_matmul_nhwc(x, factor: int = 2):
     return y.view(b, h * factor, w * factor, c)
 
 
+@functools.lru_cache(maxsize=64)
+def _aligned_upsample_matrix(size: int, factor: int, dtype, device):
+    """The fixed `[size*factor, size]` matrix of an align_corners=True
+    upsample, as a pair (hi, lo) in `dtype`: output o samples the input at
+    o * (size - 1) / (size*factor - 1), between its two nearest positions
+    (the first and last samples are the corners). The weights are
+    fractions of size*factor - 1, which a 16-bit dtype rounds so that a
+    row no longer sums to 1; there lo holds what hi misses (hi + lo is the
+    exact weight to about 16 bits), elsewhere lo is None."""
+    n = size * factor
+    with torch.inference_mode(False):
+        src = (torch.arange(n, dtype=torch.float64)
+               * ((size - 1) / max(n - 1, 1)))
+        left = src.floor()
+        frac = src - left
+        right = (left + 1).clamp(max=size - 1)
+        m = torch.zeros(n, size, dtype=torch.float64)
+        rows = torch.arange(n)
+        m[rows, left.long()] += 1.0 - frac
+        m[rows, right.long()] += frac
+        hi = m.to(dtype)
+        lo = (None if torch.finfo(dtype).bits >= 32
+              else (m - hi.double()).to(dtype=dtype, device=device))
+        return hi.to(device), lo
+
+
+def _pair_bmm(hi, lo, x):
+    """(hi + lo) @ x over x's batch: both products in one GEMM's f32
+    accumulator (baddbmm adds lo @ x in its epilogue), rounded to x.dtype
+    once; hi @ x where lo is None."""
+    n = x.shape[0]
+    if lo is None:
+        return torch.bmm(hi.expand(n, -1, -1), x)
+    return torch.baddbmm(torch.bmm(lo.expand(n, -1, -1), x),
+                         hi.expand(n, -1, -1), x)
+
+
+def _pair_resize(x, ay, ax):
+    """NHWC x resized by the (hi, lo) pairs `ay` of its rows and `ax` of
+    its columns, as two batched GEMMs on the NHWC bytes."""
+    b, h, w, c = x.shape
+    ho, wo = ay[0].shape[0], ax[0].shape[0]
+    y = _pair_bmm(*ay, x.reshape(b, h, w * c))
+    y = _pair_bmm(*ax, y.view(b * ho, w, c))
+    return y.view(b, ho, wo, c)
+
+
+class _PairUpsample(torch.autograd.Function):
+    """`_pair_resize` whose backward is `_pair_resize` by the transposed
+    pairs, so that the gradient too sums hi and lo before it rounds
+    (autograd would round each product apart, and lo's share is under
+    half an ulp)."""
+
+    @staticmethod
+    def forward(ctx, x, ay_hi, ay_lo, ax_hi, ax_lo):
+        ctx.save_for_backward(ay_hi, ay_lo, ax_hi, ax_lo)
+        return _pair_resize(x, (ay_hi, ay_lo), (ax_hi, ax_lo))
+
+    @staticmethod
+    def backward(ctx, g):
+        ay_hi, ay_lo, ax_hi, ax_lo = ctx.saved_tensors
+        dx = _pair_resize(g.contiguous(), (ay_hi.mT, ay_lo.mT),
+                          (ax_hi.mT, ax_lo.mT))
+        return dx, None, None, None, None
+
+
+def upsample_aligned_nhwc(x, factor: int = 2):
+    """Bilinear integer-factor upsample of NHWC `[B, H, W, C]` with
+    align_corners=True (`F.interpolate(..., align_corners=True)`), as
+    `upsample_matmul_nhwc`'s two batched GEMMs on the NHWC bytes: a
+    contiguous NHWC result and a backward of GEMMs (no atomics). Runs in
+    x.dtype with the weights held to about 16 bits, forward and backward,
+    as F.interpolate holds them in f32 (`_aligned_upsample_matrix`): a
+    constant map stays constant in bf16."""
+    _, h, w, _ = x.shape
+    ay = _aligned_upsample_matrix(h, factor, x.dtype, x.device)
+    ax = _aligned_upsample_matrix(w, factor, x.dtype, x.device)
+    if ay[1] is None:
+        return _pair_resize(x, ay, ax)
+    return _PairUpsample.apply(x, *ay, *ax)
+
+
 def upsample2x_matmul(x):
     """Bilinear x2 upsample as two fixed matmuls (see upsample_matmul)."""
     return upsample_matmul(x, 2)

@@ -227,7 +227,7 @@ def _validate(cfg: Config):
         raise ValueError(f"tensor_parallel must be >= 1, got {tp} "
                          "(1 = no tensor parallelism)")
     if tp > 1:
-        if not cfg.model.name.startswith("dpt"):
+        if cfg.model.name not in registry.DPT_FAMILY:
             raise ValueError(
                 f"tensor_parallel={tp} requires a dpt-family model (the "
                 f"TP sharding rules only match the ViT transformer; "
@@ -237,6 +237,18 @@ def _validate(cfg: Config):
             raise ValueError(
                 "tensor_parallel with zero1 is not wired (the ZeRO-1 "
                 "shard_map collectives are data-axis only)")
+
+
+def _attention_note(model, cfg: Config, mesh) -> str:
+    """'; attention <SDPA backend> at <shape>' for a model that reports
+    the backend its blocks take (`attention_backend`), else ''."""
+    backend = getattr(model, "attention_backend", None)
+    if backend is None:
+        return ""
+    t = cfg.train
+    batch = t.batch_size // t.grad_accum // mesh.n_data
+    return (f"; attention {backend(batch, tuple(cfg.data.input_hw))} at "
+            f"batch {batch}, {cfg.model.compute_dtype}")
 
 
 def step_seed(seed: int, step: int) -> int:
@@ -581,10 +593,12 @@ def train(cfg: Config, *, workdir: Optional[str] = None, dataset=None,
         except BaseException:
             feed.close()
             raise
+    note = _attention_note(state.model, cfg, mesh)
     if eager is None:
-        log.info("train step: CUDA graph replays, %d a dispatch", spd)
+        log.info("train step: CUDA graph replays, %d a dispatch%s", spd,
+                 note)
     else:
-        log.info("train step: eager (%s)", eager)
+        log.info("train step: eager (%s)%s", eager, note)
     # Profiler window: skip a few warm steps, then trace profile_steps.
     # Units are DISPATCHES: with steps_per_dispatch > 1 each traced unit is
     # one K-step block (the first block is the eager warm-up and the

@@ -176,8 +176,8 @@ def test_init_follows_flax_initializers():
 def test_registry():
     m = registry.build(ModelConfig(name="encdec", width_mult=0.25))
     assert isinstance(m, tenc.EncDecDepthNet) and m.widths == [32, 32, 64]
-    assert registry.available() == ["dpt", "dpt-small", "encdec",
-                                    "multiscale", "small"]
+    assert registry.available() == ["dpt", "dpt-large", "dpt-small",
+                                    "encdec", "multiscale", "small"]
     with pytest.raises(KeyError, match="encdec"):
         registry.build(ModelConfig(name="nosuch"))
     q = registry.build(ModelConfig(name="encdec", quant="int8"))

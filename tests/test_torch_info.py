@@ -2,7 +2,8 @@
 CPU.
 
 Both print the same keys with the same values for smoke, make3d-small,
-make3d-encdec and smoke with dpt-small. The JAX side's params come from
+make3d-encdec and smoke with dpt-small, but for the port's registry, which
+also holds its own `dpt-large`. The JAX side's params come from
 `jax.eval_shape` of its own `init_params` (the same shapes, and the same
 FLOP count from `lower().compile().cost_analysis()`, without running the
 init eagerly).
@@ -43,6 +44,13 @@ CONFIGS = [["--config", "smoke"], ["--config", "make3d-small"],
            ["--config", "make3d-encdec"],
            ["--config", "smoke", "--model", "dpt-small"]]
 FLOPS_RATIO = (1.0, 1.035)
+# The port's registry holds the JAX registry's models and its own.
+PORT_MODELS = ["dpt-large"]
+
+
+def _with_port_models(info):
+    """The JAX CLI's `info` with the port's own models in its registry."""
+    return {**info, "registry": sorted(info["registry"] + PORT_MODELS)}
 
 
 def _printed(main, argv):
@@ -64,7 +72,7 @@ def jax_info(monkeypatch):
 @pytest.mark.parametrize("argv", CONFIGS, ids=lambda a: "-".join(a[1::2]))
 def test_info_matches_jax(jax_info, argv):
     got = _printed(cli.main, ["info", "--device", "cpu"] + argv)
-    assert got == jax_info(argv)
+    assert got == _with_port_models(jax_info(argv))
     assert not set(FLOPS_KEYS) & set(got)
 
 
@@ -72,7 +80,7 @@ def test_info_matches_jax(jax_info, argv):
 def test_info_flops_agree_with_jax(jax_info, config):
     got = _printed(cli.main, ["info", "--device", "cpu", "--config", config,
                               "--flops"])
-    want = jax_info(["--config", config, "--flops"])
+    want = _with_port_models(jax_info(["--config", config, "--flops"]))
     ratio = got["forward_gflops_per_image"] / want["forward_gflops_per_image"]
     assert FLOPS_RATIO[0] <= ratio <= FLOPS_RATIO[1], (got, want)
     # No peak for the CPU: the keys are left out, as JAX leaves them out.

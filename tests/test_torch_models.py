@@ -170,11 +170,14 @@ def test_registry_passes_remat_as_the_jax_registry_does():
         assert not registry.build(ModelConfig(name=name)).remat
     assert not hasattr(registry.build(ModelConfig(name="small", remat=True)),
                        "remat")
-    assert registry.available() == sorted(jreg.available())
+    # The JAX registry's names and the port's own DPT-Large, exactly.
+    assert registry.available() == sorted(jreg.available() + ["dpt-large"])
     assert type(registry.build(ModelConfig(
         name="dpt", quant="int8")).block0.attn).__name__ == "QAttention"
     with pytest.raises(ValueError, match="quant"):
         registry.build(ModelConfig(name="dpt", quant="int8-qat"))
+    with pytest.raises(ValueError, match="quant"):
+        registry.build(ModelConfig(name="dpt-large", quant="int8"))
 
 
 @pytest.mark.parametrize("name", ["small", "multiscale"])

@@ -88,6 +88,54 @@ def test_upsample2x_equals_half_pixel_bilinear_interpolate():
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=TOL)
 
 
+@pytest.mark.parametrize("hw,factor", [((6, 8), 2), ((7, 5), 2),
+                                       ((5, 9), 4), ((1, 3), 2)])
+def test_upsample_aligned_equals_align_corners_interpolate(hw, factor):
+    """upsample_aligned_nhwc (DPT-Large's fusion and head upsample) is
+    F.interpolate(bilinear, align_corners=True) in f32, forward and
+    backward, within 1e-6 of the largest value, on even and odd sizes."""
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn(2, *hw, 3, generator=gen, requires_grad=True)
+    got = trz.upsample_aligned_nhwc(x, factor)
+    want = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=factor,
+                         mode="bilinear", align_corners=True
+                         ).permute(0, 2, 3, 1)
+    assert got.shape == want.shape and got.is_contiguous()
+    g = torch.randn(got.shape, generator=gen)
+    (dgot,) = torch.autograd.grad(got, x, g)
+    (dwant,) = torch.autograd.grad(want, x, g)
+    for a, b in ((got.detach(), want.detach()), (dgot, dwant)):
+        err = float((a - b).abs().max()) / float(b.abs().max())
+        assert err <= 1e-6, err
+
+
+@pytest.mark.parametrize("hw", [(24, 24), (7, 5), (48, 12)])
+def test_upsample_aligned_bf16_keeps_f32_weights(hw):
+    """In bf16, upsample_aligned_nhwc holds its weights as F.interpolate
+    does (in f32, not rounded to bf16): a constant map stays exactly
+    constant (weights rounded to bf16 miss a row sum of 1 by up to 2**-9,
+    a bias of every output), and against F.interpolate in f64 on the same
+    bf16 values, forward and backward, the error is the roundings of the
+    two GEMMs' outputs alone: at most 2**-7 of the largest value, and
+    unbiased on average."""
+    one = torch.ones(2, *hw, 3, dtype=torch.bfloat16)
+    assert bool((trz.upsample_aligned_nhwc(one, 2) == 1).all())
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(4, *hw, 16, generator=gen).bfloat16().requires_grad_()
+    g = torch.randn(4, 2 * hw[0], 2 * hw[1], 16, generator=gen).bfloat16()
+    got = trz.upsample_aligned_nhwc(x, 2)
+    (dgot,) = torch.autograd.grad(got, x, g)
+    x64 = x.detach().double().permute(0, 3, 1, 2).requires_grad_()
+    want = F.interpolate(x64, scale_factor=2, mode="bilinear",
+                         align_corners=True)
+    (dwant,) = torch.autograd.grad(want, x64, g.double().permute(0, 3, 1, 2))
+    for a, b in ((got, want), (dgot, dwant)):
+        err = a.detach().double().permute(0, 3, 1, 2) - b.detach()
+        scale = float(b.abs().max())
+        assert float(err.abs().max()) <= 2 ** -7 * scale
+        assert abs(float(err.mean())) <= 1e-3 * float(b.abs().mean())
+
+
 def test_resample_2d():
     x = np.random.default_rng(2).uniform(0, 255, (30, 22, 3)).astype(
         np.float32)

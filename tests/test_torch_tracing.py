@@ -149,3 +149,27 @@ def test_start_trace_records_the_feed_thread(tmp_path):
     threads = {e.thread for e in prof.events()
                if e.name in ("a3d.feed.read", "a3d.feed.get")}
     assert len(threads) == 2
+
+
+DPT_SPANS = ["a3d.dpt.embed", "a3d.dpt.blocks", "a3d.dpt.reassemble",
+             "a3d.dpt.fusion", "a3d.dpt.head"]
+
+
+def test_dpt_large_forward_spans():
+    """DPT-Large's forward records its five spans, once each and in order,
+    inside a CPU profiler window of one eager pass, and none outside it."""
+    from ann3depth_tpu_torch.models.dpt_large import DPTLargeDepthNet
+
+    model = DPTLargeDepthNet(dim=64, depth=4, heads=4, tap_layers=(0, 1, 2, 3),
+                             widths=(16, 32, 64, 64), features=32)
+    model.init_weights(torch.Generator().manual_seed(0), (64, 64))
+    x = torch.randn(1, 64, 64, 3)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        model(x)
+    spans = _spans(prof)
+    assert [s[0] for s in spans] == DPT_SPANS
+    assert all(a[2] <= b[1] for a, b in zip(spans, spans[1:]))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        pass
+    model(x)
+    assert _spans(prof) == []
