@@ -68,7 +68,8 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
-#include <string.h>
+
+#include "nhwc_vec.cuh"
 
 namespace {
 
@@ -83,62 +84,7 @@ struct Shape {
   int tiles;    // tiles of an image
 };
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void put(float* p, float v) { *p = v; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
-// V consecutive elements of T as f32, at an address 16-byte aligned where
-// V > 1.
-template <typename T, int V>
-struct Io {
-  static_assert(V == 1, "vector widths are specialised below");
-  __device__ static void load(const T* p, float* v) { v[0] = to_f(p[0]); }
-  __device__ static void store(T* p, const float* v) { put(p, v[0]); }
-};
-
-template <>
-struct Io<float, 4> {
-  __device__ static void load(const float* p, float* v) {
-    const float4 r = *reinterpret_cast<const float4*>(p);
-    v[0] = r.x;
-    v[1] = r.y;
-    v[2] = r.z;
-    v[3] = r.w;
-  }
-  __device__ static void store(float* p, const float* v) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  }
-};
-
-template <>
-struct Io<__nv_bfloat16, 8> {
-  __device__ static void load(const __nv_bfloat16* p, float* v) {
-    const uint4 r = *reinterpret_cast<const uint4*>(p);
-    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      __nv_bfloat162 h;
-      memcpy(&h, &w[i], sizeof(h));
-      const float2 f = __bfloat1622float2(h);
-      v[2 * i] = f.x;
-      v[2 * i + 1] = f.y;
-    }
-  }
-  __device__ static void store(__nv_bfloat16* p, const float* v) {
-    uint32_t w[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-      memcpy(&w[i], &h, sizeof(h));
-    }
-    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
-  }
-};
+using a3d::Io;
 
 constexpr unsigned kFullWarp = 0xffffffffu;
 

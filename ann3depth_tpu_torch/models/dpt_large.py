@@ -29,10 +29,11 @@ body, readout, reassembly, fusion and the head's first convs run under
 autocast (no weight-cast cache, which a CUDA graph cannot capture); the
 LayerNorm statistics are f32 (`dpt._layer_norm`); the last 1x1 conv is
 f32 (`encdec.head_input`). The upsamples are `ops.resize.
-upsample_aligned_nhwc`: two GEMMs on the NHWC bytes, whose backward is
-GEMMs too (F.interpolate's CUDA backward sums with atomics), with the
-align_corners weights held to about 16 bits in bf16 as F.interpolate
-holds them in f32.
+upsample_aligned_nhwc`: on the card a hand-written kernel pair on the NHWC
+bytes (csrc/upsample_aligned_nhwc.cu), a lerp in f32 with weights exact to
+f32 rounding, rounded once, and a backward that gathers without atomics
+(F.interpolate's CUDA backward sums with atomics); on the CPU two GEMMs by
+(hi, lo) matrices that hold the weights to about 16 bits in bf16.
 
 Departures from the published model:
 - DPT's final non-negative ReLU is left out: the output is log-depth,

@@ -28,7 +28,8 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-KERNELS = ("fused_preprocess", "fused_preprocess_v2", "group_norm_nhwc")
+KERNELS = ("fused_preprocess", "fused_preprocess_v2", "group_norm_nhwc",
+           "upsample_aligned_nhwc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

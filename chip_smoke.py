@@ -22,6 +22,14 @@ last line is printed:
    and backward, against its plain version at the encdec train step's three
    norm shapes in bf16, and time it on the device and with CUDA events
    beside the plain version and `F.group_norm` + ReLU on the bf16 tensor.
+2c. Hold the align_corners upsample kernels (csrc/upsample_aligned_nhwc.cu),
+   forward and backward, against F.interpolate(align_corners=True) in f64
+   at DPT-Large's five b16 shapes in bf16, and time them on the device and
+   with CUDA events beside the (hi, lo) GEMM pair the CPU runs and
+   F.interpolate; then train the dpt-large preset (b16, K=1, device pool)
+   for 8 steps, as the eager twin and replaying its step graph: five
+   launches of each kernel an eager step, five of each in the traced steps
+   and in each traced replay, no baddbmm and no upsample_bilinear2d.
 3. Serve make3d-encdec at full width (random weights from the config's
    seed) through the port's `service_from_config` and `DepthServer`, POST
    8 concurrent single frames and one 4-frame body to /v1/depth (a first
@@ -261,6 +269,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -745,6 +754,267 @@ def group_norm_cases(torch, card):
         print(json.dumps(case), flush=True)
         cases.append(case)
     return cases
+
+
+# DPT-Large's five align_corners x2 upsamples a b16 step (per image: h, w,
+# C in), refinenet4 ... refinenet1, then the head.
+UP_SHAPES = ((16, 12, 12, 256), (16, 24, 24, 256), (16, 48, 48, 256),
+             (16, 96, 96, 256), (16, 192, 192, 128))
+
+
+def _up_reference(torch, x, g):
+    """F.interpolate(align_corners=True) x2 in f64 on NCHW views: the
+    output, the input's gradient and its sum of |weight * grad|, NHWC."""
+    import torch.nn.functional as F
+
+    xs = x.double().permute(0, 3, 1, 2).requires_grad_()
+    y = F.interpolate(xs, scale_factor=2, mode="bilinear", align_corners=True)
+    gd = g.double().permute(0, 3, 1, 2)
+    dx, = torch.autograd.grad(y, xs, gd)
+    mag, = torch.autograd.grad(y, xs, gd.abs())
+    return (y.detach().permute(0, 2, 3, 1), dx.permute(0, 2, 3, 1),
+            mag.permute(0, 2, 3, 1))
+
+
+def _up_errors(got, x, want):
+    """Each output's error beyond what one bf16 rounding and a chain of f32
+    roundings allow (tests/test_torch_upsample_aligned.py gives the
+    reasons): > 0 where a value is out of bounds."""
+    y_ref, dx_ref, mag = want
+    y, dx = (t.double() for t in got)
+    return dict(
+        y=float(((y - y_ref).abs() - 2.0 ** -8 * y_ref.abs()
+                 - 2.0 ** -21 * float(x.double().abs().max())).max()),
+        dx=float(((dx - dx_ref).abs() - 2.0 ** -8 * dx_ref.abs()
+                  - 2.0 ** -18 * mag).max()))
+
+
+def upsample_cases(torch, np, fp, card):
+    """Phase 2c: the align_corners upsample kernels (ops/resize.py) at
+    DPT-Large's five b16 shapes in bf16, forward and backward, held to
+    F.interpolate in f64 within one bf16 rounding; their device time
+    (torch.profiler) and CUDA-event time a call beside the (hi, lo) GEMM
+    pair (`_PairUpsample`, the CPU path, run here on the card) and
+    `F.interpolate` (`library_ms`, a yardstick the port never calls), and
+    the bound: input read and output written once each way. Then the
+    dpt-large preset through `train.loop.train` on the main path, as its
+    eager twin and replaying its step graph (`dpt_large_run`): the
+    kernels' launches and their kernels by name in the traced steps and
+    replays, five each way a step. Returns the cases and the two runs."""
+    import torch.nn.functional as F
+
+    from ann3depth_tpu_torch.data.synthetic import SyntheticDepthDataset
+    from ann3depth_tpu_torch.ops import resize
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    cases = []
+    for shape in UP_SHAPES:
+        b, h, w, c = shape
+        x = torch.randn(shape, generator=gen, device=dev).bfloat16()
+        g = torch.randn((b, 2 * h, 2 * w, c), generator=gen,
+                        device=dev).bfloat16()
+        ay = resize._aligned_upsample_matrix(h, 2, x.dtype, dev)
+        ax = resize._aligned_upsample_matrix(w, 2, x.dtype, dev)
+
+        def pair(xs, _factor):
+            return resize._PairUpsample.apply(xs, *ay, *ax)
+
+        def interp(xs, _factor):
+            return F.interpolate(xs.permute(0, 3, 1, 2), scale_factor=2,
+                                 mode="bilinear", align_corners=True
+                                 ).permute(0, 2, 3, 1)
+
+        def run(fn):
+            xs = x.detach().clone().requires_grad_()
+            y = fn(xs, 2)
+            return y.detach(), torch.autograd.grad(y, xs, g)[0]
+
+        launches = (resize.upsample_aligned_nhwc.launches,
+                    resize.upsample_aligned_nhwc_backward.launches)
+        got = run(resize.upsample_aligned_nhwc)
+        check((resize.upsample_aligned_nhwc.launches - launches[0],
+               resize.upsample_aligned_nhwc_backward.launches
+               - launches[1]) == (1, 1),
+              f"upsample {shape}: the kernels did not run once each")
+        want = _up_reference(torch, x, g)
+        errs = _up_errors(got, x, want)
+        for k, err in errs.items():
+            check(err <= 0, f"upsample {shape}: {k} off by {err} beyond one "
+                  f"bf16 rounding")
+        pair_errs = _up_errors(run(pair), x, want)
+        interp_errs = _up_errors(run(interp), x, want)
+        del want
+
+        def timers(fn):
+            """fn's forward without autograd, and its backward."""
+            xs = x.detach().clone().requires_grad_()
+            y = fn(xs, 2)
+
+            def fwd():
+                with torch.no_grad():
+                    return fn(x, 2)
+
+            def bwd():
+                return torch.autograd.grad(y, xs, g, retain_graph=True)
+
+            return fwd, bwd
+
+        fwd, bwd = timers(resize.upsample_aligned_nhwc)
+        pair_fwd, pair_bwd = timers(pair)
+        lib_fwd, lib_bwd = timers(interp)
+        fwd_ms, fwd_by = device_ms(torch, fwd)
+        bwd_ms, bwd_by = device_ms(torch, bwd)
+        pair_fwd_dev, _ = device_ms(torch, pair_fwd)
+        pair_bwd_dev, _ = device_ms(torch, pair_bwd)
+        nbytes = 5 * x.numel() * x.element_size()
+        case = dict(
+            case=f"upsample_aligned_nhwc bf16 {list(shape)} x2",
+            max_err_over_tol=errs, pair_err_over_tol=pair_errs,
+            interpolate_err_over_tol=interp_errs,
+            fwd_ms=fwd_ms, bwd_ms=bwd_ms, fwd_kernels=fwd_by,
+            bwd_kernels=bwd_by, fwd_event_ms=time_ms(fwd),
+            bwd_event_ms=time_ms(bwd),
+            fwd_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+            bwd_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+            pair_fwd_ms=pair_fwd_dev, pair_bwd_ms=pair_bwd_dev,
+            pair_fwd_event_ms=time_ms(pair_fwd),
+            pair_bwd_event_ms=time_ms(pair_bwd),
+            library_fwd_ms=time_ms(lib_fwd), library_bwd_ms=time_ms(lib_bwd),
+            library_call="F.interpolate(bilinear, align_corners=True) on "
+                         "the NCHW view (channels_last), and its backward",
+            card=card)
+        print(json.dumps(case), flush=True)
+        cases.append(case)
+        del x, g, fwd, bwd, pair_fwd, pair_bwd, lib_fwd, lib_bwd
+
+    with tempfile.TemporaryDirectory() as tmp:
+        scenes = _InMemory(np, SyntheticDepthDataset(
+            n=DPTL_SCENES, img_hw=RAW_HW, depth_hw=MAKE3D_DEPTH_HW, seed=0))
+        runs = {kind: dpt_large_run(torch, fp, scenes, tmp, kind == "graph")
+                for kind in ("eager", "graph")}
+    print("dpt-large train upsamples: " + json.dumps(dict(runs, card=card)),
+          flush=True)
+    return cases, runs
+
+
+# Phase 2c's DPT-Large train runs: K=1 steps of the dpt-large preset (b16)
+# from a device pool of synthetic scenes, with the loop's profiler over
+# steps 5-7 (train/loop.py).
+DPTL_SCENES, DPTL_STEPS, DPTL_PROFILE_STEPS = 32, 8, 3
+UP_PER_STEP = dict(fwd=5, bwd=5)  # four fusion blocks and the head
+
+
+def upsample_trace(path, steps):
+    """DPT-Large's upsamples in one Chrome trace of the loop's profiler
+    window of `steps` steps: the kernels' launches by name a traced step
+    and in each graph replay (its kernels carry the correlation id of its
+    graph launch), the kernels' distinct names, and the aten ops of the
+    (hi, lo) pair (`aten::bmm`, `aten::baddbmm`) and of F.interpolate
+    (`upsample_bilinear2d`, op or kernel)."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+    kernels = sorted((e for e in events if e.get("cat") == "kernel"),
+                     key=lambda e: e["ts"])
+    ops = [e["name"] for e in events if e.get("cat") == "cpu_op"]
+
+    def ups(names):
+        return dict(fwd=sum("upsample_aligned_nhwc_fwd" in n for n in names),
+                    bwd=sum("upsample_aligned_nhwc_bwd" in n for n in names))
+
+    by_launch = {}
+    for e in kernels:
+        by_launch.setdefault(e.get("args", {}).get("correlation"),
+                             []).append(e["name"])
+    launches = [e.get("args", {}).get("correlation")
+                for e in sorted(events, key=lambda e: e["ts"])
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "GraphLaunch" in e["name"]]
+    names = [e["name"] for e in kernels]
+    total = ups(names)
+    return dict(
+        traced_steps=steps,
+        per_step={k: v / steps for k, v in total.items()},
+        per_replay=[ups(by_launch.get(c, [])) for c in launches],
+        names=sorted({n for n in names if "upsample_aligned_nhwc" in n}),
+        aten_bmm=ops.count("aten::bmm"),
+        aten_baddbmm=ops.count("aten::baddbmm"),
+        upsample_bilinear2d=sum("upsample_bilinear2d" in n
+                                for n in ops + names))
+
+
+def dpt_large_run(torch, fp, scenes, tmp, graphed):
+    """One `train.loop.train` run of the dpt-large preset (b16, K=1,
+    DPTL_STEPS steps, the device pool, as the benchmark's dptl.train.pool
+    runs it), replaying its step graph or (`graphed` False) as the eager
+    twin, with both upsample counters set to 0 just before it: the
+    counters (UP_PER_STEP an eager step; a step graph's capture and
+    replays count nothing), the step graphs, the logged losses, and
+    `upsample_trace` of the loop's profiler window: UP_PER_STEP kernels a
+    traced eager step and in every replay but the window's first (which
+    may lose its first kernels to the profiler), no op of the pair and
+    none of F.interpolate."""
+    import dataclasses
+    import glob
+
+    from ann3depth_tpu_torch.config import get_config
+    from ann3depth_tpu_torch.ops import resize
+    from ann3depth_tpu_torch.train import loop
+
+    kind = "graph" if graphed else "eager"
+    work = f"{tmp}/dptl_{kind}"
+    cfg = get_config("dpt-large")
+    cfg = dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, datasets=("make3d",),
+                                      cache_device=True),
+        train=dataclasses.replace(
+            cfg.train, steps=DPTL_STEPS, log_every=4, checkpoint_every=0,
+            eval_every=0, ckpt_dir=f"{work}/ckpt",
+            profile_dir=f"{work}/trace", profile_steps=DPTL_PROFILE_STEPS))
+    fwd = resize.upsample_aligned_nhwc
+    bwd = resize.upsample_aligned_nhwc_backward
+    fwd.launches = bwd.launches = 0
+    t0 = time.perf_counter()
+    with graph_runs(torch, fp) as seen, \
+            contextlib.nullcontext() if graphed else eager_twin():
+        state, last = loop.train(cfg, workdir=work, dataset=scenes,
+                                 progress=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(fwd=fwd.launches, bwd=bwd.launches)
+    eager_steps = DPTL_STEPS - seen["steps_replayed"]
+    with open(f"{work}/metrics.jsonl") as f:
+        logged = [(r["step"], r["loss"]) for r in map(json.loads, f)
+                  if "loss" in r]
+    first, end = _traced_steps(DPTL_STEPS, 1, DPTL_PROFILE_STEPS)
+    traces = glob.glob(f"{work}/trace/*.json")
+    check(len(traces) == 1, f"dpt-large {kind}: trace files {traces}")
+    traced = upsample_trace(traces[0], end - first)
+    del state
+    torch.cuda.empty_cache()
+    label = f"dpt-large train {kind}"
+    check(seen["steps_captured"] == int(graphed)
+          and eager_steps == (1 if graphed else DPTL_STEPS),
+          f"{label}: step graphs {seen}")
+    check(launches == {k: n * eager_steps for k, n in UP_PER_STEP.items()},
+          f"{label}: upsample launches {launches} in {eager_steps} eager "
+          f"steps, {UP_PER_STEP} a step expected")
+    check(graphed or traced["per_step"] == UP_PER_STEP,
+          f"{label}: upsample kernels a traced step {traced['per_step']}")
+    check(not graphed or (traced["per_replay"] and all(
+        r == UP_PER_STEP for r in traced["per_replay"][1:])),
+          f"{label}: upsample kernels in the traced replays "
+          f"{traced['per_replay']}")
+    check(traced["aten_baddbmm"] == traced["upsample_bilinear2d"] == 0,
+          f"{label}: the pair's or F.interpolate's ops in the trace: "
+          f"{traced}")
+    check(all(math.isfinite(loss) for _, loss in logged),
+          f"{label}: logged losses {logged}")
+    return dict(steps=DPTL_STEPS, eager_steps=eager_steps,
+                steps_captured=seen["steps_captured"],
+                steps_replayed=seen["steps_replayed"], launches=launches,
+                trace=traced, logged=logged, seconds=seconds)
 
 
 def make3d_depth(torch, gen, b):
@@ -6071,6 +6341,7 @@ def main():
 
     cases = kernel_cases(torch, fp, resize, ref)
     gn_cases = group_norm_cases(torch, card)
+    up_cases, up_train = upsample_cases(torch, np, fp, card)
     dispatch = v1_host_dispatch(torch, fp, card)
     cases_v2 = v2_cases(torch, fp, ref)
     specs = family_specs(torch, fp)
@@ -6174,7 +6445,30 @@ def main():
         profiled_step_kernels=train["device_profile"]["gn_kernels_per_step"]
         if isinstance(train["device_profile"], dict) else None,
         step_graph_replays=phase16_gn, cases=gn_cases, card=card)
-    print(json.dumps({"kernels": [v1, v2, group_norm]}), flush=True)
+    # DPT-Large's five upsamples (the cases), forward and backward; the
+    # launches of its eager twin's 8 steps and a replayed step's kernels.
+    upsample = dict(
+        name="upsample_aligned_nhwc", route="cuda",
+        source="ann3depth_tpu_torch/csrc/upsample_aligned_nhwc.cu",
+        replaces=None,
+        ms=sum(c["fwd_ms"] + c["bwd_ms"] for c in up_cases),
+        event_ms=sum(c["fwd_event_ms"] + c["bwd_event_ms"] for c in up_cases),
+        bound_ms=sum(c["fwd_bound_ms"] + c["bwd_bound_ms"]
+                     for c in up_cases), bound_by="bytes",
+        pair_ms=sum(c["pair_fwd_ms"] + c["pair_bwd_ms"] for c in up_cases),
+        pair_event_ms=sum(c["pair_fwd_event_ms"] + c["pair_bwd_event_ms"]
+                          for c in up_cases),
+        library_ms=sum(c["library_fwd_ms"] + c["library_bwd_ms"]
+                       for c in up_cases),
+        library_call=up_cases[0]["library_call"],
+        launches=up_train["eager"]["launches"],
+        profiled_step_kernels=up_train["eager"]["trace"]["per_step"],
+        step_graph_launches=up_train["graph"]["launches"],
+        step_graph_replays=up_train["graph"]["trace"]["per_replay"],
+        kernel_names=up_train["graph"]["trace"]["names"],
+        cases=up_cases, card=card)
+    print(json.dumps({"kernels": [v1, v2, group_norm, upsample]}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
