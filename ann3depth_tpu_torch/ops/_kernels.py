@@ -10,12 +10,20 @@ The library's name carries a hash of the source, the shared headers
 (`csrc/*.cuh`) and the flags, so an edited source is rebuilt at its next use
 and a stale library is never loaded.
 The build happens at first use (nothing is compiled at import), into
-`ann3depth_tpu_torch/_build/`, which .gitignore lists.
+`ann3depth_tpu_torch/_build/`, which .gitignore lists. Every `.cu` file of
+csrc/ is a kernel.
+
+The op modules bind their kernels into torch here: `bind` gives a
+library's C functions as Python functions that launch on the current
+stream and raise on an error code, and `define` registers a torch op
+`torch.ops.ann3depth.<name>` in the one library of the namespace, with the
+kernel as its CUDA implementation, whose launches `count` counts.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -28,8 +36,7 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-KERNELS = ("fused_preprocess", "fused_preprocess_v2", "group_norm_nhwc",
-           "upsample_aligned_nhwc")
+KERNELS = tuple(sorted(p.stem for p in SRC_DIR.glob("*.cu")))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -97,6 +104,73 @@ def load(name: str) -> ctypes.CDLL:
             build()
             _LOADED[name] = ctypes.CDLL(str(library_path(name)))
         return _LOADED[name]
+
+
+def bind(name: str, functions: dict) -> dict:
+    """The C functions `<name>_<what>` of kernel `name`'s library, for each
+    `what` of `functions` ({what: argtypes}), as {what: function}. Each C
+    function takes its argtypes, then the cudaStream_t it launches on, and
+    returns 0 or an error code that `<name>_error_string` names. A bound
+    function takes the arguments of its argtypes, a tensor where a pointer
+    goes; it launches on the current stream of its first tensor's device
+    and raises RuntimeError on an error code. The library is loaded (built
+    where it must be) at the first call."""
+    @functools.cache
+    def c_functions():
+        lib = load(name)
+        bound = {}
+        for what, argtypes in functions.items():
+            f = getattr(lib, f"{name}_{what}")
+            f.argtypes, f.restype = [*argtypes, ctypes.c_void_p], ctypes.c_int
+            bound[what] = f
+        errors = getattr(lib, f"{name}_error_string")
+        errors.argtypes, errors.restype = [ctypes.c_int], ctypes.c_char_p
+        return bound, errors
+
+    def launcher(what):
+        def launch(*args):
+            device = next(a.device for a in args if isinstance(a, torch.Tensor))
+            fns, errors = c_functions()
+            with torch.cuda.device(device):
+                err = fns[what](
+                    *(a.data_ptr() if isinstance(a, torch.Tensor) else a
+                      for a in args),
+                    torch.cuda.current_stream(device).cuda_stream)
+            if err:
+                raise RuntimeError(f"{name} {what} failed: "
+                                   f"{errors(err).decode()} ({err})")
+        return launch
+
+    return {what: launcher(what) for what in functions}
+
+
+# The namespace's one library. The low-level `torch.library.Library` API
+# costs the host less per call than the `torch.library.custom_op` decorator
+# (PERF.md §6).
+_LIB = torch.library.Library("ann3depth", "DEF")
+
+
+def define(schema: str, counter, *, cuda, fake, cpu=None):
+    """Define the op `torch.ops.ann3depth.<name>` of `schema` ("<name>(...)
+    -> ..."), so that an exported program (`torch.export`) holds it as one
+    node, and return its default overload. `cuda` runs the kernel, and each
+    of its calls is counted in `counter.launches` (`count`); `cpu`, where
+    given, runs on CPU tensors, and `fake` gives a tracer the outputs'
+    shapes."""
+    name = schema.split("(", 1)[0]
+    _LIB.define(schema)
+
+    def counted(*args):
+        out = cuda(*args)
+        count(counter)
+        return out
+
+    _LIB.impl(name, counted, "CUDA")
+    if cpu is not None:
+        _LIB.impl(name, cpu, "CPU")
+    torch.library.register_fake(f"ann3depth::{name}", fake, lib=_LIB)
+    counter.launches = 0
+    return getattr(torch.ops.ann3depth, name).default
 
 
 def count(wrapper):

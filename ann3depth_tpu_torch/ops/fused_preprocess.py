@@ -439,23 +439,10 @@ def launch_plan(shape, out_hw, *, itemsize, depth_mode,
 # The kernels' wrappers.
 # ---------------------------------------------------------------------------
 
-_LIBS: dict = {}
 _VP, _I32 = ctypes.c_void_p, ctypes.c_int
-_LAUNCH_ARGS = [_VP, _I32, _VP, _VP, _VP] + [_I32] * 13 + [_VP]
-
-
-def _lib(name="fused_preprocess"):
-    """The kernel's library (built at first use) with its ctypes
-    signatures declared."""
-    if name not in _LIBS:
-        lib = _kernels.load(name)
-        for fn, argtypes, restype in (
-                ("launch", _LAUNCH_ARGS, _I32),
-                ("error_string", [_I32], ctypes.c_char_p)):
-            f = getattr(lib, f"{name}_{fn}")
-            f.argtypes, f.restype = argtypes, restype
-        _LIBS[name] = lib
-    return _LIBS[name]
+_LAUNCH = {name: _kernels.bind(name, {
+               "launch": [_VP, _I32, _VP, _VP, _VP] + [_I32] * 13})["launch"]
+           for name in ("fused_preprocess", "fused_preprocess_v2")}
 
 
 def _check_cuda_args(frames, params, out_hw, norm, depth_mode):
@@ -499,34 +486,20 @@ def _launch_band(name, frames, params, *, out_hw, norm=True,
         plan = launch_plan(tuple(frames.shape), out_hw,
                            itemsize=frames.element_size(),
                            depth_mode=bool(depth_mode))
-    lib = _lib(name)
     out = torch.empty((b, h_out, w_out, c), dtype=torch.float32, device=dev)
     # One partial sum of each tile for the photometric pass (image mode).
     partials = None if depth_mode else torch.empty(
         (b, plan.tiles), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, f"{name}_launch")(
-            frames.data_ptr(), int(frames.dtype == torch.uint8),
-            params.data_ptr(), out.data_ptr(),
-            None if partials is None else partials.data_ptr(),
-            b, h_in, w_in, c, h_out, w_out, plan.tile_rows, plan.stage_rows,
-            plan.taps_y, plan.taps_x, plan.smem_bytes, int(norm),
-            int(depth_mode), stream)
-    if err:
-        raise RuntimeError(
-            f"{name} launch failed: "
-            f"{getattr(lib, f'{name}_error_string')(err).decode()} ({err})")
+    _LAUNCH[name](frames, int(frames.dtype == torch.uint8), params, out,
+                  partials, b, h_in, w_in, c, h_out, w_out, plan.tile_rows,
+                  plan.stage_rows, plan.taps_y, plan.taps_x, plan.smem_bytes,
+                  int(norm), int(depth_mode))
     return out
 
 
-# Both wrappers are registered torch ops (`torch.ops.ann3depth.<name>`), so
-# that an exported program (`torch.export`) holds each as one node: the
-# CPU implementation is the plain version, the CUDA one the kernel, and the
-# fake one gives the output's shape to a tracer. The low-level
-# `torch.library.Library` API costs the host less per call than the
-# `torch.library.custom_op` decorator (PERF.md §6).
-_LIB = torch.library.Library("ann3depth", "DEF")
+# Both wrappers are registered torch ops (`torch.ops.ann3depth.<name>`,
+# `_kernels.define`): the CPU implementation is the plain version, the CUDA
+# one the kernel.
 _SCHEMA = ("(Tensor frames, Tensor params, int[] out_hw, bool norm, "
            "bool depth_mode) -> Tensor")
 
@@ -539,27 +512,20 @@ def _check_device(frames, name):
 
 
 def _register(name, plain, wrapper):
-    _LIB.define(name + _SCHEMA)
-
     def cpu(frames, params, out_hw, norm, depth_mode):
         return plain(frames, params, out_hw=tuple(out_hw), norm=norm,
                      depth_mode=depth_mode)
 
     def cuda(frames, params, out_hw, norm, depth_mode):
-        out = _launch_band(name, frames, params, out_hw=out_hw, norm=norm,
-                           depth_mode=depth_mode)
-        _kernels.count(wrapper)
-        return out
+        return _launch_band(name, frames, params, out_hw=out_hw, norm=norm,
+                            depth_mode=depth_mode)
 
     def fake(frames, params, out_hw, norm, depth_mode):
         b, _, _, c = frames.shape
         return frames.new_empty((b, *out_hw, c), dtype=torch.float32)
 
-    _LIB.impl(name, cpu, "CPU")
-    _LIB.impl(name, cuda, "CUDA")
-    torch.library.register_fake(f"ann3depth::{name}", fake, lib=_LIB)
-    wrapper.launches = 0
-    return getattr(torch.ops.ann3depth, name).default
+    return _kernels.define(name + _SCHEMA, wrapper, cuda=cuda, cpu=cpu,
+                           fake=fake)
 
 
 def fused_preprocess(frames, params, *, out_hw, norm=True, depth_mode=False):

@@ -112,32 +112,10 @@ def _plan(x, *tensors):
                        _sm_count(x.device))
 
 
-_LIB_HANDLE = None
 _VP, _I32 = ctypes.c_void_p, ctypes.c_int
-
-
-def _lib():
-    """The kernels' library (built at first use) with its ctypes
-    signatures declared."""
-    global _LIB_HANDLE
-    if _LIB_HANDLE is None:
-        lib = _kernels.load("group_norm_nhwc")
-        lib.group_norm_nhwc_forward.argtypes = (
-            [_VP] * 7 + [_I32] * 9 + [ctypes.c_float, _VP])
-        lib.group_norm_nhwc_backward.argtypes = [_VP] * 11 + [_I32] * 11 + [
-            _VP]
-        lib.group_norm_nhwc_error_string.argtypes = [_I32]
-        lib.group_norm_nhwc_error_string.restype = ctypes.c_char_p
-        for f in (lib.group_norm_nhwc_forward, lib.group_norm_nhwc_backward):
-            f.restype = _I32
-        _LIB_HANDLE = lib
-    return _LIB_HANDLE
-
-
-def _raise_on(err, what):
-    if err:
-        msg = _lib().group_norm_nhwc_error_string(err).decode()
-        raise RuntimeError(f"group_norm_nhwc {what} failed: {msg} ({err})")
+_KERNEL = _kernels.bind("group_norm_nhwc", {
+    "forward": [_VP] * 7 + [_I32] * 9 + [ctypes.c_float],
+    "backward": [_VP] * 11 + [_I32] * 11})
 
 
 def _check_cuda_args(x, groups, per_channel, like_x=(), stats=()):
@@ -165,10 +143,6 @@ def _check_cuda_args(x, groups, per_channel, like_x=(), stats=()):
                                  f"[{b}, {groups}], on {x.device}")
 
 
-def _stream(x):
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
 def _forward_cuda(x, weight, bias, groups, eps):
     _check_cuda_args(x, groups, (weight, bias))
     b, c, h, w = x.shape
@@ -177,14 +151,10 @@ def _forward_cuda(x, weight, bias, groups, eps):
     mean = x.new_empty((b, groups), dtype=torch.float32)
     rstd = torch.empty_like(mean)
     part = x.new_empty((b * plan.tiles, groups, 2), dtype=torch.float32)
-    with torch.cuda.device(x.device):
-        err = _lib().group_norm_nhwc_forward(
-            x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
-            mean.data_ptr(), rstd.data_ptr(), part.data_ptr(),
-            int(x.dtype == torch.bfloat16), int(plan.vec > 1), b, h * w, c,
-            groups, plan.threads, plan.tile_px, plan.tiles, eps, _stream(x))
-    _raise_on(err, "forward")
-    _kernels.count(group_norm_relu)
+    _KERNEL["forward"](x, weight, bias, y, mean, rstd, part,
+                       int(x.dtype == torch.bfloat16), int(plan.vec > 1), b,
+                       h * w, c, groups, plan.threads, plan.tile_px,
+                       plan.tiles, eps)
     return y, mean, rstd
 
 
@@ -197,17 +167,11 @@ def _backward_cuda(dy, x, y, mean, rstd, weight, groups):
     dbias = torch.empty_like(weight)
     cpart = x.new_empty((b * plan.tiles, c, 2), dtype=torch.float32)
     gpart = x.new_empty((b * plan.tiles, groups, 2), dtype=torch.float32)
-    with torch.cuda.device(x.device):
-        err = _lib().group_norm_nhwc_backward(
-            dy.data_ptr(), x.data_ptr(), y.data_ptr(), mean.data_ptr(),
-            rstd.data_ptr(), weight.data_ptr(), dx.data_ptr(),
-            dweight.data_ptr(), dbias.data_ptr(), cpart.data_ptr(),
-            gpart.data_ptr(), int(x.dtype == torch.bfloat16),
-            int(plan.vec > 1), b, h * w, c, groups, plan.threads,
-            plan.tile_px, plan.tiles, plan.red_ch, plan.red_blocks,
-            _stream(x))
-    _raise_on(err, "backward")
-    _kernels.count(group_norm_relu_backward)
+    _KERNEL["backward"](dy, x, y, mean, rstd, weight, dx, dweight, dbias,
+                        cpart, gpart, int(x.dtype == torch.bfloat16),
+                        int(plan.vec > 1), b, h * w, c, groups, plan.threads,
+                        plan.tile_px, plan.tiles, plan.red_ch,
+                        plan.red_blocks)
     return dx, dweight, dbias
 
 
@@ -239,25 +203,6 @@ def _fake_forward(x, weight, bias, groups, eps):
 def _fake_backward(dy, x, y, mean, rstd, weight, groups):
     return (torch.empty_like(x, memory_format=torch.channels_last),
             torch.empty_like(weight), torch.empty_like(weight))
-
-
-# The namespace is defined by ops/fused_preprocess.py; this module adds to
-# it.
-_LIB = torch.library.Library("ann3depth", "FRAGMENT")
-_LIB.define("group_norm_relu(Tensor x, Tensor weight, Tensor bias, "
-            "int groups, float eps) -> (Tensor, Tensor, Tensor)")
-_LIB.define("group_norm_relu_backward(Tensor dy, Tensor x, Tensor y, "
-            "Tensor mean, Tensor rstd, Tensor weight, int groups) "
-            "-> (Tensor, Tensor, Tensor)")
-for _name, _cpu, _cuda, _fake in (
-        ("group_norm_relu", _forward_cpu, _forward_cuda, _fake_forward),
-        ("group_norm_relu_backward", _backward_cpu, _backward_cuda,
-         _fake_backward)):
-    _LIB.impl(_name, _cpu, "CPU")
-    _LIB.impl(_name, _cuda, "CUDA")
-    torch.library.register_fake(f"ann3depth::{_name}", _fake, lib=_LIB)
-_FWD = torch.ops.ann3depth.group_norm_relu.default
-_BWD = torch.ops.ann3depth.group_norm_relu_backward.default
 
 
 def _channels_last(t):
@@ -306,6 +251,13 @@ def group_norm_relu_backward(dy, x, y, mean, rstd, weight, groups):
                 groups)
 
 
-group_norm_relu.launches = 0
+_FWD = _kernels.define(
+    "group_norm_relu(Tensor x, Tensor weight, Tensor bias, int groups, "
+    "float eps) -> (Tensor, Tensor, Tensor)", group_norm_relu,
+    cuda=_forward_cuda, cpu=_forward_cpu, fake=_fake_forward)
+_BWD = _kernels.define(
+    "group_norm_relu_backward(Tensor dy, Tensor x, Tensor y, Tensor mean, "
+    "Tensor rstd, Tensor weight, int groups) -> (Tensor, Tensor, Tensor)",
+    group_norm_relu_backward, cuda=_backward_cuda, cpu=_backward_cpu,
+    fake=_fake_backward)
 group_norm_relu.relayouts = 0
-group_norm_relu_backward.launches = 0

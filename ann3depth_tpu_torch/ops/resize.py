@@ -220,31 +220,9 @@ def _factor(factor):
     return f
 
 
-_LIB_HANDLE = None
-_VP, _I32 = ctypes.c_void_p, ctypes.c_int
-
-
-def _lib():
-    """The kernels' library (built at first use) with its ctypes
-    signatures declared."""
-    global _LIB_HANDLE
-    if _LIB_HANDLE is None:
-        lib = _kernels.load("upsample_aligned_nhwc")
-        for f in (lib.upsample_aligned_nhwc_forward,
-                  lib.upsample_aligned_nhwc_backward):
-            f.argtypes = [_VP] * 2 + [_I32] * 6 + [_VP]
-            f.restype = _I32
-        lib.upsample_aligned_nhwc_error_string.argtypes = [_I32]
-        lib.upsample_aligned_nhwc_error_string.restype = ctypes.c_char_p
-        _LIB_HANDLE = lib
-    return _LIB_HANDLE
-
-
-def _raise_on(err, what):
-    if err:
-        msg = _lib().upsample_aligned_nhwc_error_string(err).decode()
-        raise RuntimeError(f"upsample_aligned_nhwc {what} failed: {msg} "
-                           f"({err})")
+_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
+_KERNEL = _kernels.bind("upsample_aligned_nhwc",
+                        {"forward": _ARGS, "backward": _ARGS})
 
 
 def _check_cuda_arg(t, factor, what):
@@ -275,20 +253,12 @@ def _check_cuda_arg(t, factor, what):
                          f"{factor} is too large for the kernels")
 
 
-def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def _forward_cuda(x, factor):
     _check_cuda_arg(x, factor, "input")
     b, h, w, c = x.shape
     y = x.new_empty((b, h * factor, w * factor, c))
-    with torch.cuda.device(x.device):
-        err = _lib().upsample_aligned_nhwc_forward(
-            x.data_ptr(), y.data_ptr(), int(x.dtype == torch.bfloat16),
-            b, h, w, c, factor, _stream(x))
-    _raise_on(err, "forward")
-    _kernels.count(upsample_aligned_nhwc)
+    _KERNEL["forward"](x, y, int(x.dtype == torch.bfloat16), b, h, w, c,
+                       factor)
     return y
 
 
@@ -300,13 +270,8 @@ def _backward_cuda(grad, factor):
                          f"{tuple(grad.shape)} is no upsample by {factor}")
     h, w = hf // factor, wf // factor
     dx = grad.new_empty((b, h, w, c))
-    with torch.cuda.device(grad.device):
-        err = _lib().upsample_aligned_nhwc_backward(
-            grad.data_ptr(), dx.data_ptr(),
-            int(grad.dtype == torch.bfloat16), b, h, w, c, factor,
-            _stream(grad))
-    _raise_on(err, "backward")
-    _kernels.count(upsample_aligned_nhwc_backward)
+    _KERNEL["backward"](grad, dx, int(grad.dtype == torch.bfloat16), b, h, w,
+                        c, factor)
     return dx
 
 
@@ -318,21 +283,6 @@ def _fake_forward(x, factor):
 def _fake_backward(grad, factor):
     b, h, w, c = grad.shape
     return grad.new_empty((b, h // factor, w // factor, c))
-
-
-# The namespace is defined by ops/fused_preprocess.py; this module adds to
-# it.
-_LIB = torch.library.Library("ann3depth", "FRAGMENT")
-_LIB.define("upsample_aligned_nhwc(Tensor x, int factor) -> Tensor")
-_LIB.define("upsample_aligned_nhwc_backward(Tensor grad, int factor) "
-            "-> Tensor")
-for _name, _cuda, _fake in (
-        ("upsample_aligned_nhwc", _forward_cuda, _fake_forward),
-        ("upsample_aligned_nhwc_backward", _backward_cuda, _fake_backward)):
-    _LIB.impl(_name, _cuda, "CUDA")
-    torch.library.register_fake(f"ann3depth::{_name}", _fake, lib=_LIB)
-_UP_FWD = torch.ops.ann3depth.upsample_aligned_nhwc.default
-_UP_BWD = torch.ops.ann3depth.upsample_aligned_nhwc_backward.default
 
 
 class _AlignedUpsample(torch.autograd.Function):
@@ -381,8 +331,12 @@ def upsample_aligned_nhwc_backward(grad, factor: int = 2):
     return _UP_BWD(grad.contiguous(), _factor(factor))
 
 
-upsample_aligned_nhwc.launches = 0
-upsample_aligned_nhwc_backward.launches = 0
+_UP_FWD = _kernels.define(
+    "upsample_aligned_nhwc(Tensor x, int factor) -> Tensor",
+    upsample_aligned_nhwc, cuda=_forward_cuda, fake=_fake_forward)
+_UP_BWD = _kernels.define(
+    "upsample_aligned_nhwc_backward(Tensor grad, int factor) -> Tensor",
+    upsample_aligned_nhwc_backward, cuda=_backward_cuda, fake=_fake_backward)
 
 
 def upsample2x_matmul(x):

@@ -62,18 +62,6 @@ def _jax_result_keys(module):
     raise AssertionError(f"no result dict in benchmarks/{module}.py")
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One torch thread: the suite runs several workers on the cores, and
-    torch's default of a thread a core each made the train and int8
-    serving benches here 20-100 times slower (the step's many small ops
-    wait on oversubscribed thread pools)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def train_runs():
     """Two train benches at steps=2 (K=20 a block), and the blocks each ran

@@ -61,8 +61,10 @@ def free_port():
 
 
 def child_env():
-    """The children's environment: the repo importable, two threads each
-    (the suite runs several workers at once)."""
+    """The children's environment: the repo importable, two threads each.
+    The suite runs several workers at once, which is why the port's test
+    modules run on one torch thread (the root conftest.py's `one_thread`);
+    a fixture does not reach a child process, so its environment says it."""
     return dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2")
 
 

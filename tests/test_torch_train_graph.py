@@ -58,15 +58,6 @@ HOST_READS = (torch.ops.aten._local_scalar_dense.default,
               torch.ops.aten.nonzero.default)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One torch thread: the suite runs several workers on the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 # ---------------------------------------------------------------------------
 # A capture hook with a CUDA graph's semantics for a stateful step.
 # ---------------------------------------------------------------------------
