@@ -21,7 +21,8 @@ optimizers whose learning rate is set before each update to
 `scale_by_schedule`), after a global-norm clip that leaves gradients
 unchanged below `clip_norm` and scales them by `clip_norm / norm` above it
 (optax's `clip_by_global_norm`; torch's `clip_grad_norm_` adds 1e-6). On
-the card the rate is a device tensor (`UpdateRule`).
+the card the rate is a device tensor (`UpdateRule`), and adamw and adam run
+the clip and the update as the two kernels of ops/adamw_clip.py.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ import numpy as np
 import torch
 
 from ann3depth_tpu_torch.compat import reference_spec as ref
+from ann3depth_tpu_torch.ops import adamw_clip
 from ann3depth_tpu_torch.ops import fused_preprocess as fp
 from ann3depth_tpu_torch.ops import resize
 from ann3depth_tpu_torch.pipeline import preprocess
@@ -131,15 +133,10 @@ class UpdateRule:
         norm before the clip (a device scalar). lr: a one-element tensor
         holding the learning rate, read in place of schedule(count).
         norm: that global norm, when the caller has it (the gradients are
-        shards whose norm needs a collective: tensor parallelism, ZeRO-1)."""
-        grads = [p.grad for g in optimizer.param_groups for p in g["params"]
-                 if p.grad is not None]
-        if norm is None:
-            norm = global_norm(grads)
-        if self.clip_norm > 0:
-            factor = torch.where(norm < self.clip_norm,
-                                 torch.ones_like(norm), self.clip_norm / norm)
-            torch._foreach_mul_(grads, factor)
+        shards whose norm needs a collective: tensor parallelism, ZeRO-1).
+        adamw and adam on the card run the update's two kernels
+        (`ClippedAdamW.clipped_step`); everything else clips the gradients
+        in `.grad` and steps the torch optimizer."""
         value = float(self.schedule(count)) if lr is None else None
         for group in optimizer.param_groups:
             if isinstance(group["lr"], torch.Tensor):
@@ -149,6 +146,16 @@ class UpdateRule:
                     group["lr"].copy_(lr.reshape(()))
             else:
                 group["lr"] = value if lr is None else float(lr)
+        grads = [p.grad for g in optimizer.param_groups for p in g["params"]
+                 if p.grad is not None]
+        if (isinstance(optimizer, _ClippedStep) and grads
+                and grads[0].is_cuda):
+            return optimizer.clipped_step(self.clip_norm, norm)
+        if norm is None:
+            norm = global_norm(grads)
+        if self.clip_norm > 0:
+            torch._foreach_mul_(grads, adamw_clip.clip_factor(
+                norm, self.clip_norm))
         optimizer.step()
         return norm
 
@@ -175,6 +182,73 @@ def load_optimizer_state(optimizer, saved):
 def global_norm(tensors):
     """sqrt of the sum of squares of every element (optax.global_norm)."""
     return torch.sqrt(sum(t.float().pow(2).sum() for t in tensors))
+
+
+class _ClippedStep:
+    """`clipped_step`, the update of `ClippedAdamW` and `ClippedAdam` on
+    the card: the global-norm clip and the Adam step of every param with a
+    gradient, as the two kernels of ops/adamw_clip.py (a sum of squares
+    over every gradient, then one pass over each param's p, g, m and v).
+    The state is torch's (`step`, a device f32 per param, `exp_avg`,
+    `exp_avg_sq`), made as torch's capturable step makes it, so that
+    `state_dict`s load both ways and `step()` still runs torch's own
+    update."""
+
+    @torch.no_grad()
+    def clipped_step(self, clip_norm, norm=None):
+        """Clip the gradients in `.grad` by global norm (clip_norm <= 0: no
+        clip; `norm`: their global norm, when the caller has it) and step,
+        without writing `.grad`; returns the norm (a device f32 scalar).
+        Each param, gradient and moment has to be a contiguous f32 tensor
+        on one device: else ValueError, naming the leaf. On the CPU the
+        ops run their plain versions. `.grad` keeps the unscaled gradient:
+        nothing reads it after the update (`_finish_update`, and
+        parallel/zero1.py, shard_step.py and sharding_rules.py, read it
+        before)."""
+        groups, grads = [], []
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if params:
+                groups.append((group, params))
+                grads += [p.grad for p in params]
+        if norm is None:
+            norm = adamw_clip.adamw_clip_sumsq(grads)
+        for group, params in groups:
+            decay = group["weight_decay"]
+            if decay and not group.get("decoupled_weight_decay", True):
+                raise ValueError("clipped_step decays only decoupled, as "
+                                 f"AdamW; got weight_decay={decay} on Adam")
+            states = [self._adam_state(p) for p in params]
+            beta1, beta2 = group["betas"]
+            lr = torch.as_tensor(group["lr"], dtype=torch.float32,
+                                 device=params[0].device)
+            adamw_clip.adamw_clip_update(
+                params, [p.grad for p in params],
+                [st["exp_avg"] for st in states],
+                [st["exp_avg_sq"] for st in states],
+                [st["step"] for st in states], lr, norm, clip_norm,
+                beta1, beta2, group["eps"], decay)
+        return norm
+
+    def _adam_state(self, p):
+        st = self.state[p]
+        if not st:
+            st["step"] = torch.zeros((), dtype=torch.float32, device=p.device)
+            st["exp_avg"] = torch.zeros_like(
+                p, memory_format=torch.preserve_format)
+            st["exp_avg_sq"] = torch.zeros_like(
+                p, memory_format=torch.preserve_format)
+        return st
+
+
+class ClippedAdamW(_ClippedStep, torch.optim.AdamW):
+    """torch's AdamW, whose update on the card `UpdateRule.apply` runs as
+    `clipped_step`."""
+
+
+class ClippedAdam(_ClippedStep, torch.optim.Adam):
+    """torch's Adam, whose update on the card `UpdateRule.apply` runs as
+    `clipped_step`."""
 
 
 class CapturableSGD(torch.optim.SGD):
@@ -222,9 +296,9 @@ def make_inner_optimizer(sched, optimizer="adamw", b1=0.9, b2=0.999,
     decay (a nonzero one raises). sgd: momentum = b1, weight decay as an
     additive L2 term before the momentum.
 
-    capturable (the card): adamw and adam take a device-tensor learning
-    rate and capturable=True; sgd (`CapturableSGD` on every device) takes
-    the device-tensor rate."""
+    capturable (the card): adamw and adam (`ClippedAdamW`, `ClippedAdam`)
+    take a device-tensor learning rate and capturable=True; sgd
+    (`CapturableSGD` on every device) takes the device-tensor rate."""
     def lr0(params, capturable):
         if not capturable:
             return 0.0
@@ -232,10 +306,10 @@ def make_inner_optimizer(sched, optimizer="adamw", b1=0.9, b2=0.999,
 
     if optimizer == "adamw":
         def build(params, capturable=False):
-            return torch.optim.AdamW(params, lr=lr0(params, capturable),
-                                     betas=(b1, b2), eps=1e-8,
-                                     weight_decay=weight_decay,
-                                     capturable=capturable)
+            return ClippedAdamW(params, lr=lr0(params, capturable),
+                                betas=(b1, b2), eps=1e-8,
+                                weight_decay=weight_decay,
+                                capturable=capturable)
     elif optimizer == "adam":
         if weight_decay:
             raise ValueError(
@@ -245,9 +319,9 @@ def make_inner_optimizer(sched, optimizer="adamw", b1=0.9, b2=0.999,
                 "--weight-decay 0.")
 
         def build(params, capturable=False):
-            return torch.optim.Adam(params, lr=lr0(params, capturable),
-                                    betas=(b1, b2), eps=1e-8,
-                                    capturable=capturable)
+            return ClippedAdam(params, lr=lr0(params, capturable),
+                               betas=(b1, b2), eps=1e-8,
+                               capturable=capturable)
     elif optimizer == "sgd":
         def build(params, capturable=False):
             return CapturableSGD(params, lr=lr0(params, capturable),

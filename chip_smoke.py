@@ -29,7 +29,19 @@ last line is printed:
    F.interpolate; then train the dpt-large preset (b16, K=1, device pool)
    for 8 steps, as the eager twin and replaying its step graph: five
    launches of each kernel an eager step, five of each in the traced steps
-   and in each traced replay, no baddbmm and no upsample_bilinear2d.
+   and in each traced replay, no baddbmm and no upsample_bilinear2d; the
+   same runs count the update's two kernels (csrc/adamw_clip.cu), one
+   launch of each an eager step and one of each in the traced steps and in
+   each traced replay, by name.
+2d. Hold the update's kernels (csrc/adamw_clip.cu: the global norm, then
+   the clip folded into AdamW) at DPT-Large's 360 leaves (341,848,257 f32
+   params) against torch's capturable foreach AdamW after `global_norm`
+   and the clip: 3 updates given torch's norm, p, m and v bit for bit, and
+   the kernels' own norm within rel 1e-6. Time the update on the device
+   and with CUDA events, eager and replayed from a CUDA graph, beside the
+   bound (32 bytes a param at the HBM rate), the plain version, the port's
+   path before the kernels, and torch's fused AdamW after `_foreach_norm`
+   and `_foreach_mul_` (`library_ms`, a yardstick the port never calls).
 3. Serve make3d-encdec at full width (random weights from the config's
    seed) through the port's `service_from_config` and `DepthServer`, POST
    8 concurrent single frames and one 4-frame body to /v1/depth (a first
@@ -903,6 +915,7 @@ def upsample_cases(torch, np, fp, card):
 # steps 5-7 (train/loop.py).
 DPTL_SCENES, DPTL_STEPS, DPTL_PROFILE_STEPS = 32, 8, 3
 UP_PER_STEP = dict(fwd=5, bwd=5)  # four fusion blocks and the head
+UPDATE_PER_STEP = dict(sumsq=1, update=1)  # the norm, then the update
 
 
 def upsample_trace(path, steps):
@@ -911,7 +924,9 @@ def upsample_trace(path, steps):
     and in each graph replay (its kernels carry the correlation id of its
     graph launch), the kernels' distinct names, and the aten ops of the
     (hi, lo) pair (`aten::bmm`, `aten::baddbmm`) and of F.interpolate
-    (`upsample_bilinear2d`, op or kernel)."""
+    (`upsample_bilinear2d`, op or kernel); the update's kernels
+    (csrc/adamw_clip.cu) the same way, and the step's kernels, foreach
+    (`multi_tensor_apply`) kernels and `pow` kernels a traced step."""
     with open(path) as f:
         events = [e for e in json.load(f)["traceEvents"]
                   if e.get("ph") == "X"]
@@ -922,6 +937,10 @@ def upsample_trace(path, steps):
     def ups(names):
         return dict(fwd=sum("upsample_aligned_nhwc_fwd" in n for n in names),
                     bwd=sum("upsample_aligned_nhwc_bwd" in n for n in names))
+
+    def updates(names):
+        return dict(sumsq=sum("adamw_clip_sumsq" in n for n in names),
+                    update=sum("adamw_clip_update" in n for n in names))
 
     by_launch = {}
     for e in kernels:
@@ -938,6 +957,13 @@ def upsample_trace(path, steps):
         per_step={k: v / steps for k, v in total.items()},
         per_replay=[ups(by_launch.get(c, [])) for c in launches],
         names=sorted({n for n in names if "upsample_aligned_nhwc" in n}),
+        update_per_step={k: v / steps for k, v in updates(names).items()},
+        update_per_replay=[updates(by_launch.get(c, [])) for c in launches],
+        update_names=sorted({n for n in names if "adamw_clip_" in n}),
+        multi_tensor_apply_per_step=sum(
+            "multi_tensor_apply" in n for n in names) / steps,
+        pow_per_step=sum("pow_tensor" in n for n in names) / steps,
+        kernels_per_step=len(names) / steps,
         aten_bmm=ops.count("aten::bmm"),
         aten_baddbmm=ops.count("aten::baddbmm"),
         upsample_bilinear2d=sum("upsample_bilinear2d" in n
@@ -954,12 +980,13 @@ def dpt_large_run(torch, fp, scenes, tmp, graphed):
     `upsample_trace` of the loop's profiler window: UP_PER_STEP kernels a
     traced eager step and in every replay but the window's first (which
     may lose its first kernels to the profiler), no op of the pair and
-    none of F.interpolate."""
+    none of F.interpolate. The update's two kernels are held the same way,
+    UPDATE_PER_STEP."""
     import dataclasses
     import glob
 
     from ann3depth_tpu_torch.config import get_config
-    from ann3depth_tpu_torch.ops import resize
+    from ann3depth_tpu_torch.ops import adamw_clip, resize
     from ann3depth_tpu_torch.train import loop
 
     kind = "graph" if graphed else "eager"
@@ -975,6 +1002,8 @@ def dpt_large_run(torch, fp, scenes, tmp, graphed):
     fwd = resize.upsample_aligned_nhwc
     bwd = resize.upsample_aligned_nhwc_backward
     fwd.launches = bwd.launches = 0
+    adamw_clip.adamw_clip_sumsq.launches = 0
+    adamw_clip.adamw_clip_update.launches = 0
     t0 = time.perf_counter()
     with graph_runs(torch, fp) as seen, \
             contextlib.nullcontext() if graphed else eager_twin():
@@ -983,6 +1012,8 @@ def dpt_large_run(torch, fp, scenes, tmp, graphed):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = dict(fwd=fwd.launches, bwd=bwd.launches)
+    update_launches = dict(sumsq=adamw_clip.adamw_clip_sumsq.launches,
+                           update=adamw_clip.adamw_clip_update.launches)
     eager_steps = DPTL_STEPS - seen["steps_replayed"]
     with open(f"{work}/metrics.jsonl") as f:
         logged = [(r["step"], r["loss"]) for r in map(json.loads, f)
@@ -1009,12 +1040,188 @@ def dpt_large_run(torch, fp, scenes, tmp, graphed):
     check(traced["aten_baddbmm"] == traced["upsample_bilinear2d"] == 0,
           f"{label}: the pair's or F.interpolate's ops in the trace: "
           f"{traced}")
+    check(update_launches == {k: n * eager_steps
+                              for k, n in UPDATE_PER_STEP.items()},
+          f"{label}: update launches {update_launches} in {eager_steps} "
+          f"eager steps, {UPDATE_PER_STEP} a step expected")
+    check(graphed or traced["update_per_step"] == UPDATE_PER_STEP,
+          f"{label}: update kernels a traced step "
+          f"{traced['update_per_step']}")
+    check(not graphed or (traced["update_per_replay"] and all(
+        r == UPDATE_PER_STEP for r in traced["update_per_replay"][1:])),
+          f"{label}: update kernels in the traced replays "
+          f"{traced['update_per_replay']}")
     check(all(math.isfinite(loss) for _, loss in logged),
           f"{label}: logged losses {logged}")
     return dict(steps=DPTL_STEPS, eager_steps=eager_steps,
                 steps_captured=seen["steps_captured"],
                 steps_replayed=seen["steps_replayed"], launches=launches,
-                trace=traced, logged=logged, seconds=seconds)
+                update_launches=update_launches, trace=traced,
+                logged=logged, seconds=seconds)
+
+
+def dpt_large_leaves():
+    """The shapes of DPT-Large's 360 leaves (341,848,257 params, its
+    position embedding at 384x384's 577 tokens), from the model on the
+    meta device."""
+    import torch
+
+    from ann3depth_tpu_torch.config import get_config
+    from ann3depth_tpu_torch.models import registry
+
+    with torch.device("meta"):
+        model = registry.build(get_config("dpt-large").model)
+    return [(1, 577, 1024) if name == "pos_embed" else tuple(p.shape)
+            for name, p in model.named_parameters()]
+
+
+def adamw_clip_cases(torch, card, clip_norm=1.0, weight_decay=1e-2):
+    """Phase 2d: the update's kernels (ops/adamw_clip.py) at DPT-Large's
+    leaves. Held: 3 updates of `ClippedAdamW.clipped_step` against torch's
+    capturable foreach AdamW after `global_norm` and the clip, given
+    torch's norm (p, m, v and the step counts bit for bit,
+    tests/test_torch_adamw_clip.py gives the reasons), and the kernels' own
+    norm within rel 1e-6. Timed: the update's device time a call
+    (torch.profiler, by kernel) and its CUDA-event time, eager and
+    replayed from a CUDA graph (as the step graph replays it); the same of
+    the port's path before the kernels (`torch_path`) and of torch's fused
+    AdamW after `_foreach_norm` and `_foreach_mul_` (`library`, a
+    yardstick the port never calls); the plain version's event time; the
+    bound. Returns the case."""
+    from ann3depth_tpu_torch.ops import adamw_clip
+    from ann3depth_tpu_torch.train import step as steplib
+
+    dev = torch.device("cuda")
+    shapes = dpt_large_leaves()
+    n_params = sum(math.prod(s) for s in shapes)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    grads = [torch.randn(s, generator=gen, device=dev) for s in shapes]
+    kw = dict(betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay,
+              capturable=True)
+
+    def leaves(seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return [torch.nn.Parameter(torch.randn(s, generator=g, device=dev))
+                for s in shapes]
+
+    def torch_step(opt, params, norm=None):
+        """global_norm, the clip by `norm` (else its own) and `opt.step()`:
+        the port's update before the kernels."""
+        gs = [p.grad for p in params]
+        own = steplib.global_norm(gs)
+        torch._foreach_mul_(gs, adamw_clip.clip_factor(
+            own if norm is None else norm, clip_norm))
+        opt.step()
+        return own
+
+    mine, theirs = leaves(24), leaves(24)
+    ours = steplib.ClippedAdamW(mine, lr=torch.full((), 1e-4, device=dev),
+                                **kw)
+    ref = torch.optim.AdamW(theirs, lr=torch.full((), 1e-4, device=dev),
+                            foreach=True, **kw)
+    norm_rel = 0.0
+    for s in range(3):
+        step_grads = [g * (s + 1) for g in grads]
+        for p, g in zip(mine, step_grads):
+            p.grad = g
+        for p, g in zip(theirs, step_grads):
+            p.grad = g.clone()
+        own = adamw_clip.adamw_clip_sumsq(step_grads)
+        norm = torch_step(ref, theirs)
+        ours.clipped_step(clip_norm, norm=norm)
+        norm_rel = max(norm_rel, abs(float(own) / float(norm) - 1))
+    torch.cuda.synchronize()
+    differ = {}
+    for key in ("param", "exp_avg", "exp_avg_sq", "step"):
+        differ[key] = sum(
+            int((a.detach() if key == "param" else ours.state[a][key])
+                .ne(b.detach() if key == "param" else ref.state[b][key])
+                .sum()) for a, b in zip(mine, theirs))
+    check(norm_rel <= 1e-6, f"adamw_clip: norm off by rel {norm_rel}")
+    check(not any(differ.values()),
+          f"adamw_clip: elements that differ from torch's {differ}")
+    del ref, theirs, step_grads
+    torch.cuda.empty_cache()
+
+    def graph_ms(fn):
+        """fn captured into a CUDA graph, its replay's CUDA-event time."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        return time_ms(graph.replay), graph
+
+    for p, g in zip(mine, grads):
+        p.grad = g
+
+    def kernels():
+        return ours.clipped_step(clip_norm)
+
+    ms, by_kernel = device_ms(torch, kernels)
+    graph_replay_ms, graph = graph_ms(kernels)
+    del graph
+    case = dict(
+        case=f"adamw_clip f32 {len(shapes)} leaves, {n_params} params, "
+             f"clip {clip_norm}, weight decay {weight_decay}",
+        leaves=len(shapes), params=n_params, norm_rel_err=norm_rel,
+        elements_differ=differ, ms=ms,
+        kernels={k[:60]: v for k, v in by_kernel.items()},
+        event_ms=time_ms(kernels), graph_ms=graph_replay_ms,
+        host_ms=host_ms(torch, kernels),
+        bound_ms=32 * n_params / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+    states = [ours.state[p] for p in mine]
+    steps_ = [st["step"] for st in states]
+    lr = ours.param_groups[0]["lr"]
+    plain_params = [p.detach() for p in mine]
+
+    def plain():
+        norm = adamw_clip.plain_sumsq(grads)
+        adamw_clip.plain_update(
+            plain_params, grads, [st["exp_avg"] for st in states],
+            [st["exp_avg_sq"] for st in states], steps_, lr, norm,
+            clip_norm, 0.9, 0.999, 1e-8, weight_decay)
+
+    case["plain_ms"] = time_ms(plain, iters=3, warmup=1)
+    del ours, states, steps_, plain_params
+    torch.cuda.empty_cache()
+
+    theirs = leaves(24)
+    for p, g in zip(theirs, grads):
+        p.grad = g.clone()
+    ref = torch.optim.AdamW(theirs, lr=torch.full((), 1e-4, device=dev),
+                            foreach=True, **kw)
+
+    def torch_path():
+        return torch_step(ref, theirs)
+
+    case["torch_path_ms"], _ = device_ms(torch, torch_path, iters=5)
+    case["torch_path_event_ms"] = time_ms(torch_path, iters=5)
+    case["torch_path_graph_ms"], graph = graph_ms(torch_path)
+    del ref, graph
+    torch.cuda.empty_cache()
+    fused = torch.optim.AdamW(theirs, lr=torch.full((), 1e-4, device=dev),
+                              fused=True, **kw)
+
+    def library():
+        gs = [p.grad for p in theirs]
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(gs)))
+        torch._foreach_mul_(gs, adamw_clip.clip_factor(norm, clip_norm))
+        fused.step()
+
+    case["library_ms"] = time_ms(library)
+    case["library_device_ms"], _ = device_ms(torch, library)
+    case["library_graph_ms"], graph = graph_ms(library)
+    case["library_call"] = ("torch.optim.AdamW(fused=True, capturable=True) "
+                            "after torch._foreach_norm and _foreach_mul_")
+    case["card"] = card
+    del fused, theirs, graph, grads, mine
+    torch.cuda.empty_cache()
+    print("adamw_clip: " + json.dumps(case), flush=True)
+    return case
 
 
 def make3d_depth(torch, gen, b):
@@ -6342,6 +6549,7 @@ def main():
     cases = kernel_cases(torch, fp, resize, ref)
     gn_cases = group_norm_cases(torch, card)
     up_cases, up_train = upsample_cases(torch, np, fp, card)
+    update_case = adamw_clip_cases(torch, card)
     dispatch = v1_host_dispatch(torch, fp, card)
     cases_v2 = v2_cases(torch, fp, ref)
     specs = family_specs(torch, fp)
@@ -6467,7 +6675,22 @@ def main():
         step_graph_replays=up_train["graph"]["trace"]["per_replay"],
         kernel_names=up_train["graph"]["trace"]["names"],
         cases=up_cases, card=card)
-    print(json.dumps({"kernels": [v1, v2, group_norm, upsample]}),
+    # DPT-Large's update (the case); the launches of phase 2c's eager twin
+    # (8 steps) and its step graph's traced replays, by name.
+    adamw = dict(
+        name="adamw_clip", route="cuda",
+        source="ann3depth_tpu_torch/csrc/adamw_clip.cu", replaces=None,
+        **{k: update_case[k] for k in (
+            "ms", "event_ms", "graph_ms", "host_ms", "bound_ms", "bound_by",
+            "plain_ms", "torch_path_ms", "torch_path_graph_ms", "library_ms",
+            "library_graph_ms", "library_call")},
+        launches=up_train["eager"]["update_launches"],
+        profiled_step_kernels=up_train["eager"]["trace"]["update_per_step"],
+        step_graph_launches=up_train["graph"]["update_launches"],
+        step_graph_replays=up_train["graph"]["trace"]["update_per_replay"],
+        kernel_names=up_train["graph"]["trace"]["update_names"],
+        cases=[update_case], card=card)
+    print(json.dumps({"kernels": [v1, v2, group_norm, upsample, adamw]}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
